@@ -1,0 +1,91 @@
+"""Render configuration and per-frame camera uniforms.
+
+``RenderConfig`` is a field-for-field copy of ``raytracer_tpu.core.types.
+RenderConfig`` (same defaults and validation), so one config describes a
+frame in both packages. ``CameraUniforms`` holds the per-frame UBO surface
+as torch tensors on the render device, plus host mirrors of the scalars
+that steer host control flow (so reading them never waits on the card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render settings (see the JAX twin for each field's story)."""
+
+    width: int = 1280
+    height: int = 720
+    max_bounces: int = 10
+    t_min: float = 1e-3
+    t_max: float = 1e4
+    fuzz: float = 0.3
+    det_eps: float = 1e-5
+    rng_mode: str = "progressive"
+    samples_per_pixel: int = 1
+    emissive_emits: bool = True
+    kernel: str = "packet"
+    shading: str = "path"
+    band_rays: int = 414720
+    pallas_tonemap: bool = False
+
+    def __post_init__(self):
+        if self.rng_mode not in ("reference", "progressive"):
+            raise ValueError(f"bad rng_mode: {self.rng_mode}")
+        if self.kernel not in ("packet", "wavefront"):
+            raise ValueError(f"bad kernel: {self.kernel}")
+        if self.shading not in ("path", "fixed_light"):
+            raise ValueError(f"bad shading: {self.shading}")
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError("resolution must be positive")
+        if self.max_bounces < 1:
+            raise ValueError("max_bounces must be >= 1")
+
+
+@dataclasses.dataclass
+class CameraUniforms:
+    """Everything the host sends the renderer per frame.
+
+    Tensors live on the render device; ``fc_host``/``sky_host`` mirror the
+    frame counter and sky flag on the host.
+    """
+
+    origin: torch.Tensor             # f32[3]
+    lower_left_corner: torch.Tensor  # f32[3]
+    horizontal: torch.Tensor         # f32[3]
+    vertical: torch.Tensor           # f32[3]
+    frame_count: torch.Tensor        # i32 scalar
+    sky_enabled: torch.Tensor        # i32 scalar
+    exposure: torch.Tensor           # f32 scalar (stops)
+    fc_host: int = 0
+    sky_host: bool = True
+
+    @staticmethod
+    def create(origin, lower_left_corner, horizontal, vertical,
+               frame_count: int = 0, sky_enabled: bool = True,
+               exposure: float = 0.0, device="cpu") -> "CameraUniforms":
+        """Rounds each f64 host value to f32 once, as the JAX twin does."""
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        return CameraUniforms(
+            origin=f32(origin),
+            lower_left_corner=f32(lower_left_corner),
+            horizontal=f32(horizontal),
+            vertical=f32(vertical),
+            frame_count=torch.tensor(int(frame_count), dtype=torch.int32,
+                                     device=device),
+            sky_enabled=torch.tensor(1 if sky_enabled else 0,
+                                     dtype=torch.int32, device=device),
+            exposure=f32(exposure),
+            fc_host=int(frame_count),
+            sky_host=bool(sky_enabled))
+
+
+# Material type codes (reference VulkanApp.java:483-488).
+MAT_LAMBERTIAN = 0.0
+MAT_METAL = 1.0
+MAT_METAL_FUZZY = 2.0
+MAT_EMISSIVE = 3.0

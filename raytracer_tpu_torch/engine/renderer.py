@@ -1,0 +1,122 @@
+"""The render step: bands -> linear frame -> accumulate + tonemap.
+
+The port of ``raytracer_tpu/engine/renderer.py`` for the default packet
+path. PyTorch runs eagerly, so Python loops replace ``lax.scan`` /
+``fori_loop`` and there is no jit cache and no environment fingerprint.
+The frame tail always goes through the tonemap kernel
+(``kernels/tonemap.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from raytracer_tpu_torch.core.fast_types import FastScene
+from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
+from raytracer_tpu_torch.kernels.packet import (render_linear_fast,
+                                                tail_merge_widths)
+from raytracer_tpu_torch.kernels.tonemap import tonemap_accumulate
+from raytracer_tpu_torch.kernels.wavefront import wavefront_tail
+
+
+def tonemap(linear: torch.Tensor, exposure) -> torch.Tensor:
+    """Exposure scale (2**stops) -> sqrt gamma -> u8 (plain ops)."""
+    scaled = linear * torch.exp2(torch.as_tensor(
+        exposure, dtype=torch.float32, device=linear.device))
+    gamma = torch.sqrt(torch.clamp_min(scaled, 0.0))
+    return torch.clamp(torch.round(gamma * 255.0), 0.0, 255.0).to(
+        torch.uint8)
+
+
+def _num_bands(cfg: RenderConfig) -> int:
+    """Largest band count that divides the row-tiles and keeps bands at or
+    under cfg.band_rays rays."""
+    if not cfg.band_rays:
+        return 1
+    row_tiles = cfg.height // 8 if cfg.height % 8 == 0 else cfg.height
+    for nb in range(1, row_tiles + 1):
+        if row_tiles % nb:
+            continue
+        if (cfg.height // nb) * cfg.width <= cfg.band_rays:
+            return nb
+    return row_tiles
+
+
+def _render_linear(scene: FastScene, cam: CameraUniforms,
+                   cfg: RenderConfig):
+    """Linear radiance of one frame -> (f32[H, W, 3], rays traced (int64
+    tensor)). Bands, the spp loop and, where it applies, the cross-band
+    tail merge."""
+    if cfg.kernel != "packet" or cfg.shading != "path":
+        raise NotImplementedError(
+            "the port renders kernel='packet' with path shading only")
+    spp = cfg.samples_per_pixel
+    nb = _num_bands(cfg)
+    band_h = cfg.height // nb
+    band_cfg = dataclasses.replace(cfg, height=band_h)
+    hw = cfg.height * cfg.width
+    dev = scene.device
+    tm = tail_merge_widths(cfg, band_h, nb)
+
+    total = torch.zeros((3, hw), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(spp):
+        bands, survivors = [], []
+        for b in range(nb):
+            color, brays, surv = render_linear_fast(
+                scene, cam, band_cfg, sample_index=i, y_offset=b * band_h,
+                global_height=cfg.height,
+                tail_handoff=tm[0] if tm else None)
+            bands.append(color)
+            survivors.append(surv)
+            rays = rays + brays
+        total = total + torch.cat(bands, dim=1)
+        if tm is not None:
+            tail, trays = wavefront_tail(
+                scene, torch.cat(survivors, dim=1), cam.sky_host, cfg,
+                out_size=hw)
+            total = total + tail
+            rays = rays + trays
+    linear = (total / torch.tensor(float(spp), device=dev)).T
+    return linear.reshape(cfg.height, cfg.width, 3), rays
+
+
+def _render_step(scene: FastScene, cam: CameraUniforms, accum: torch.Tensor,
+                 cfg: RenderConfig):
+    """scene + camera + accumulation -> (new accum, u8 frame, stats)."""
+    linear, rays = _render_linear(scene, cam, cfg)
+    # The running average is written into ``accum`` in place.
+    new_accum, image = tonemap_accumulate(accum, linear.contiguous(),
+                                          cam.frame_count, cam.exposure)
+    stats = {"rays_traced": rays,
+             "samples": (cam.fc_host + 1) * cfg.samples_per_pixel}
+    return new_accum, image, stats
+
+
+class Renderer:
+    """Render step + accumulation buffer lifecycle."""
+
+    def __init__(self, config: Optional[RenderConfig] = None):
+        self.cfg = config or RenderConfig()
+
+    def new_accumulator(self, device) -> torch.Tensor:
+        return torch.zeros((self.cfg.height, self.cfg.width, 3),
+                           dtype=torch.float32, device=device)
+
+    def render(self, scene: FastScene, cam: CameraUniforms,
+               accum: Optional[torch.Tensor] = None):
+        """One frame -> (accum, u8 image [H, W, 3], stats). ``accum`` is
+        updated in place and returned; ``accum=None`` starts a new
+        accumulation run."""
+        if accum is None:
+            accum = self.new_accumulator(scene.device)
+        return _render_step(scene, cam, accum, self.cfg)
+
+    def render_to_numpy(self, scene, cam, accum=None):
+        accum, image, stats = self.render(scene, cam, accum)
+        return accum, image.cpu().numpy(), {
+            "rays_traced": float(stats["rays_traced"]),
+            "samples": float(stats["samples"])}

@@ -1,0 +1,255 @@
+"""Kernel A: closest hit over the 8-wide BVH (``csrc/trace4.cu``).
+
+Replaces the Pallas kernel ``raytracer_tpu/kernels/pallas_trace.py``
+``_trace4_kernel`` (reached through ``_trace4_call`` and
+``pallas_traverse``). The TPU kernel walks one shared node stack per
+1024-ray tile and orders child pushes by the tile's mean direction; here
+each ray walks its own stack and orders pushes by its own direction. The
+slab test, Möller–Trumbore on precomputed edges, strict ``t < closest``,
+the half-cluster skip and the deferred normal flip are the same, so the
+closest ``t`` is the same; on an exact equal-t tie the winning triangle
+(normal, albedo, type, cluster id) may differ.
+
+``walk_plain`` is the plain PyTorch version of the per-ray walk, shared
+with kernel B's plain version (``kernels/bounce.py``). It advances every
+unfinished ray by one node visit per step and is bit-equal to the CUDA
+walk: the same comparator network orders the pushes, and the leaf phase
+picks, per ray, the first strict minimum in (child, triangle) order, which
+is what the kernel's sequential ``t < closest`` updates keep.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_tpu_torch.core.fast_types import (CLUSTER_SIZE, FastScene,
+                                                 LEAF_CID_BITS,
+                                                 LEAF_CID_MASK, WIDE_WIDTH)
+from raytracer_tpu_torch.core.types import RenderConfig
+from raytracer_tpu_torch.kernels import cuda_build, launches
+from raytracer_tpu_torch.kernels.tracer import TraversalResult
+
+BLOCK_LANES = 128
+BLOCK = 8 * BLOCK_LANES    # primary tile: rays per compact pixel tile
+BBLOCK = 16 * BLOCK_LANES  # bounce-round grain: every width is a multiple
+STACK_CAP = 256            # kept in sync with bvh/bvh4.py and walk.cuh
+
+# Push-ordering comparator network (19 comparators), the JAX package's
+# ``pallas_trace._HIST8``: sorts (key, meta, push) by descending key.
+NET8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
+        (1, 2), (5, 6), (0, 4), (3, 7), (1, 5), (2, 6), (1, 4), (3, 6),
+        (2, 4), (3, 5), (3, 4))
+
+
+def pick_tile(h: int, w: int, block: int = BLOCK):
+    """Most compact (th, tw) pixel tile of ``block`` rays dividing the
+    frame, or None."""
+    th = 1
+    while th * th < block:
+        th *= 2
+    while th >= 1:
+        tw = block // th
+        if h % th == 0 and w % tw == 0:
+            return th, tw
+        th //= 2
+    return None
+
+
+def _mt_candidates(tri, o, d, closest, full, t_min, det_eps):
+    """Möller–Trumbore of q rays against their q clusters of 8 triangles
+    (tri f32[q, 8, 16]; o, d 3 x f32[q]) -> t f32[q, 8], inf where the
+    triangle is not a hit closer than ``closest``."""
+    c = lambda j: tri[:, :, j]
+    v0x, v0y, v0z = c(0), c(1), c(2)
+    e1x, e1y, e1z = c(3), c(4), c(5)
+    e2x, e2y, e2z = c(6), c(7), c(8)
+    rox, roy, roz = (a[:, None] for a in o)
+    rdx, rdy, rdz = (a[:, None] for a in d)
+    pvx = rdy * e2z - rdz * e2y
+    pvy = rdz * e2x - rdx * e2z
+    pvz = rdx * e2y - rdy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = ~((det > -det_eps) & (det < det_eps))
+    invd = 1.0 / torch.where(ok, det, 1.0)
+    sx, sy, sz = rox - v0x, roy - v0y, roz - v0z
+    u = invd * (sx * pvx + sy * pvy + sz * pvz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = invd * (rdx * qx + rdy * qy + rdz * qz)
+    tt = invd * (e2x * qx + e2y * qy + e2z * qz)
+    ok &= (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+    ok &= (tt > t_min) & (tt < closest[:, None])
+    # The second half-cluster only counts when the leaf holds > 4 tris.
+    half = torch.arange(CLUSTER_SIZE, device=tri.device) < CLUSTER_SIZE // 2
+    ok &= half[None, :] | full[:, None]
+    return torch.where(ok, tt, torch.inf)
+
+
+def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
+               active: torch.Tensor, t_min: float, t_max: float,
+               det_eps: float):
+    """Per-ray stack walk, plain torch. Returns (out f32[8, P] = t, normal
+    xyz, albedo rgb, material type; cid i32[P] = winner cluster id, 0 on
+    a miss or for inactive rays)."""
+    dev = active.device
+    p = active.shape[0]
+    out = torch.zeros((8, p), dtype=torch.float32, device=dev)
+    out[0] = t_max
+    cid_out = torch.zeros(p, dtype=torch.int32, device=dev)
+    ids = torch.nonzero(active).squeeze(1)
+    n = ids.numel()
+    if n:
+        o = torch.stack([c[ids] for c in ray_o])          # [3, n]
+        d = torch.stack([c[ids] for c in ray_d])
+        iv = 1.0 / d
+        best = torch.zeros((8, n), dtype=torch.float32, device=dev)
+        best[0] = t_max
+        bcid = torch.zeros(n, dtype=torch.int32, device=dev)
+        # One spare column: a non-pushing child writes (and never reads)
+        # the slot just above the top, which may be index STACK_CAP.
+        stack = torch.zeros((n, STACK_CAP + 1), dtype=torch.int32,
+                            device=dev)
+        sp = torch.zeros(n, dtype=torch.int64, device=dev)
+        nid = torch.zeros(n, dtype=torch.int64, device=dev)
+        li = torch.arange(n, device=dev)                  # walking rays
+        while li.numel():
+            m = li.numel()
+            oo, dd, ii = o[:, li], d[:, li], iv[:, li]
+            node = nodes4.index_select(0, nid[li]).view(m, WIDE_WIDTH, 16)
+            lo = (node[:, :, 0:3] - oo.T[:, None, :]) * ii.T[:, None, :]
+            hi = (node[:, :, 3:6] - oo.T[:, None, :]) * ii.T[:, None, :]
+            mn, mx = torch.minimum(lo, hi), torch.maximum(lo, hi)
+            t_en = torch.maximum(mn[..., 0], torch.maximum(mn[..., 1],
+                                                           mn[..., 2]))
+            t_ex = torch.minimum(mx[..., 0], torch.minimum(mx[..., 1],
+                                                           mx[..., 2]))
+            closest = best[0, li]
+            hit = ((t_ex > t_en) & (t_ex > t_min)
+                   & (t_en < closest[:, None]))            # [m, 8]
+            meta = node[:, :, 6].to(torch.int32)
+            key = ((node[:, :, 0] + node[:, :, 3]) * dd[0][:, None]
+                   + (node[:, :, 1] + node[:, :, 4]) * dd[1][:, None]
+                   + (node[:, :, 2] + node[:, :, 5]) * dd[2][:, None])
+
+            # Far-first push order, then push the hit internal children.
+            ks = [key[:, c] for c in range(WIDE_WIDTH)]
+            ms = [meta[:, c] for c in range(WIDE_WIDTH)]
+            ps = [hit[:, c] & (meta[:, c] > 0) for c in range(WIDE_WIDTH)]
+            for i, j in NET8:
+                sw = ks[j] > ks[i]
+                for f in (ks, ms, ps):
+                    f[i], f[j] = (torch.where(sw, f[j], f[i]),
+                                  torch.where(sw, f[i], f[j]))
+            lsp = sp[li]
+            for c in range(WIDE_WIDTH):
+                stack[li, lsp] = ms[c] - 1
+                lsp = lsp + ps[c]
+
+            # Leaf children, in child order.
+            pr, pc = torch.nonzero(hit & (meta < 0), as_tuple=True)
+            if pr.numel():
+                lid = -meta[pr, pc] - 1
+                cidp = lid & LEAF_CID_MASK
+                full = (lid >> LEAF_CID_BITS) >= CLUSTER_SIZE // 2
+                tri = clusters.index_select(0, cidp.to(torch.int64)).view(
+                    -1, CLUSTER_SIZE, 16)
+                cand = _mt_candidates(
+                    tri, [oo[a, pr] for a in range(3)],
+                    [dd[a, pr] for a in range(3)], closest[pr], full,
+                    t_min, det_eps).reshape(-1)
+                owner = pr.repeat_interleave(CLUSTER_SIZE)
+                mins = torch.full((m,), torch.inf, device=dev).scatter_reduce(
+                    0, owner, cand, "amin")
+                pos = torch.arange(cand.numel(), device=dev)
+                win = (cand == mins[owner]) & (cand < torch.inf)
+                first = torch.full((m,), cand.numel(), device=dev,
+                                   dtype=torch.int64).scatter_reduce(
+                    0, owner[win], pos[win], "amin")
+                has = first < cand.numel()
+                wpos = first[has]
+                row, k = wpos // CLUSTER_SIZE, wpos % CLUSTER_SIZE
+                rec = tri[row, k]                         # [h, 16]
+                upd = li[has]
+                best[0, upd] = cand[wpos]
+                best[1:4, upd] = rec[:, 13:16].T
+                best[4:7, upd] = rec[:, 9:12].T
+                best[7, upd] = rec[:, 12]
+                bcid[upd] = cidp[row]
+
+            have = lsp > 0
+            lsp = torch.where(have, lsp - 1, lsp)
+            sp[li] = lsp
+            nid[li] = stack[li, lsp].to(torch.int64)
+            li = li[have]
+        out[:, ids] = best
+        cid_out[ids] = bcid
+    # The winner's normal faces the ray (no-hit lanes hold n == 0).
+    dot = ray_d[0] * out[1] + ray_d[1] * out[2] + ray_d[2] * out[3]
+    sgn = torch.where(dot > 0.0, -1.0, 1.0)
+    out[1:4] = sgn * out[1:4]
+    return out, cid_out
+
+
+def _check_scene(scene: FastScene, device: torch.device) -> None:
+    for name in ("nodes4", "clusters"):
+        t = getattr(scene, name)
+        if (t.device != device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.dim() != 2
+                or t.shape[1] != 128):
+            raise ValueError(f"scene.{name} must be contiguous f32[R, 128] "
+                             f"on {device}")
+
+
+def _check_rays(rays: torch.Tensor, active: torch.Tensor) -> None:
+    if (rays.dtype != torch.float32 or rays.dim() != 2
+            or rays.shape[0] != 6 or not rays.is_contiguous()):
+        raise ValueError("rays must be contiguous f32[6, P]")
+    if (active.dtype != torch.bool or active.shape != rays.shape[1:]
+            or active.device != rays.device):
+        raise ValueError("active must be bool[P] on the rays' device")
+
+
+def trace4_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
+                 cfg: RenderConfig) -> torch.Tensor:
+    """Plain version of kernel A: rays f32[6, P] (origin xyz, direction
+    xyz), active bool[P] -> f32[8, P] (t, normal xyz, albedo rgb, type)."""
+    _check_scene(scene, rays.device)
+    _check_rays(rays, active)
+    launches.plain["trace4"] += 1
+    out, _ = walk_plain(scene.nodes4, scene.clusters, rays[0:3], rays[3:6],
+                        active, cfg.t_min, cfg.t_max, cfg.det_eps)
+    return out
+
+
+def trace4(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
+           cfg: RenderConfig) -> torch.Tensor:
+    """Kernel A on CUDA tensors, its plain version on CPU tensors (same
+    arguments and result as ``trace4_plain``)."""
+    if rays.device.type == "cpu":
+        return trace4_plain(scene, rays, active, cfg)
+    if rays.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    _check_scene(scene, rays.device)
+    _check_rays(rays, active)
+    p = rays.shape[1]
+    out = torch.empty((8, p), dtype=torch.float32, device=rays.device)
+    act = active.to(torch.uint8)
+    lib = cuda_build.library()
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    cuda_build.check(lib.rt_trace4(
+        scene.nodes4.data_ptr(), scene.clusters.data_ptr(), rays.data_ptr(),
+        act.data_ptr(), out.data_ptr(), p, cfg.t_min, cfg.t_max,
+        cfg.det_eps, stream), "rt_trace4")
+    launches.kernel["trace4"] += 1
+    return out
+
+
+def traverse(scene: FastScene, ray_o, ray_d, active,
+             cfg: RenderConfig) -> TraversalResult:
+    """Closest hit for flat [P] SoA rays through kernel A."""
+    rays = torch.stack([*ray_o, *ray_d])
+    out = trace4(scene, rays, active, cfg)
+    return TraversalResult(out[0], out[0] < cfg.t_max,
+                           (out[1], out[2], out[3]),
+                           (out[4], out[5], out[6]), out[7])

@@ -1,0 +1,162 @@
+"""Ray generation and bounce-0 shading in plain torch ops.
+
+The port of ``raytracer_tpu.kernels.tracer``'s pieces on the main path:
+``initial_seed``, ``make_primary_rays``, ``sky_color``, ``scatter`` and
+``shade``. Vectors are (x, y, z) tuples of flat [P] f32 tensors, and every
+expression keeps the JAX version's evaluation order, so results are
+bit-equal where the JAX side is evaluated without FMA contraction.
+
+Division by a non-power-of-two constant goes through a 0-d tensor on the
+ray device: PyTorch's CUDA ``tensor / python_float`` multiplies by the
+reciprocal, which is not IEEE division.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
+from raytracer_tpu_torch.kernels import rng
+
+
+def _dot(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _length(a):
+    return torch.sqrt(_dot(a, a))
+
+
+def _scale(a, s):
+    return (a[0] * s, a[1] * s, a[2] * s)
+
+
+def _normalize(a):
+    return _scale(a, 1.0 / _length(a))
+
+
+def _where(c, a, b):
+    return tuple(torch.where(c, x, y) for x, y in zip(a, b))
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def sky_color(d):
+    """White->blue vertical gradient (compute_dynamic_ray.comp:81-85)."""
+    unit = _normalize(d)
+    t = 0.5 * (unit[1] + 1.0)
+    omt = 1.0 - t
+    return (omt + t * 0.5, omt + t * 0.7, omt + t * 1.0)
+
+
+class TraversalResult(NamedTuple):
+    closest_t: torch.Tensor   # f32[P]
+    hit: torch.Tensor         # bool[P]
+    normal: tuple             # 3 x f32[P], flipped toward the ray
+    mat_albedo: tuple         # 3 x f32[P]
+    mat_type: torch.Tensor    # f32[P]
+
+
+class ScatterResult(NamedTuple):
+    seed: torch.Tensor
+    new_dir: tuple
+    attenuation: tuple
+    scattered: torch.Tensor
+    emitted: tuple
+
+
+def scatter(seed, ray_d, normal, albedo, mtype, hit,
+            cfg: RenderConfig) -> ScatterResult:
+    """Material response: Lambertian, metal / fuzzy metal, emissive."""
+    is_lam = mtype == 0.0
+    is_metal = (mtype == 1.0) | (mtype == 2.0)
+    is_emis = mtype == 3.0
+
+    needs_draw = hit & (is_lam | is_metal)
+    seed, sph = rng.random_vec3_in_unit_sphere(seed, needs_draw)
+
+    sph_len = _length(sph)
+    inv_sph = 1.0 / torch.where(needs_draw & (sph_len > 0.0), sph_len, 1.0)
+    unit_sph = _scale(sph, inv_sph)
+    lam_dir = tuple(n + u for n, u in zip(normal, unit_sph))
+    lam_degenerate = _length(lam_dir) < 1e-4
+    lam_dir = _where(lam_degenerate, normal, lam_dir)
+
+    zero = torch.zeros_like(mtype)
+    fuzz = torch.where(mtype == 2.0, _const(cfg.fuzz, mtype), zero)
+    nd = _normalize(ray_d)
+    dn = _dot(nd, normal)
+    refl = tuple(i - 2.0 * dn * n for i, n in zip(nd, normal))
+    met_dir = tuple(r + s * fuzz for r, s in zip(refl, sph))
+
+    raw = _where(is_lam, lam_dir, met_dir)
+    raw_len = _length(raw)
+    new_dir = _scale(raw, 1.0 / torch.where(raw_len > 0.0, raw_len, 1.0))
+
+    met_ok = _dot(new_dir, normal) > 0.0
+    scattered = hit & (is_lam | (is_metal & met_ok))
+
+    if cfg.emissive_emits:
+        emis_active = hit & is_emis
+    else:
+        emis_active = torch.zeros_like(hit)
+    emitted = _where(emis_active, albedo, (zero, zero, zero))
+    return ScatterResult(seed, new_dir, albedo, scattered, emitted)
+
+
+def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
+          sky_on: bool, cfg: RenderConfig):
+    """One bounce of shading: sky on miss, scatter / emit / absorb on hit.
+    Returns advanced (ray_o, ray_d, color, atten, seed, alive)."""
+    hit = alive & res.hit
+    miss = alive & ~hit
+
+    sky = sky_color(ray_d)
+    if not sky_on:
+        sky = tuple(torch.zeros_like(c) for c in sky)
+    color = _where(miss, tuple(a * s for a, s in zip(atten, sky)), color)
+
+    sc = scatter(seed, ray_d, res.normal, res.mat_albedo, res.mat_type,
+                 hit, cfg)
+    color = tuple(c + e * a for c, e, a in zip(color, sc.emitted, atten))
+    hit_pos = tuple(o + d * res.closest_t for o, d in zip(ray_o, ray_d))
+    atten = _where(sc.scattered,
+                   tuple(a * b for a, b in zip(atten, sc.attenuation)), atten)
+    ray_o = _where(sc.scattered, hit_pos, ray_o)
+    ray_d = _where(sc.scattered, sc.new_dir, ray_d)
+    return ray_o, ray_d, color, atten, sc.seed, sc.scattered
+
+
+def make_primary_rays(cam: CameraUniforms, cfg: RenderConfig, seed, xx, yy,
+                      global_height: int):
+    """Jittered camera rays (compute_dynamic_ray.comp:158-173), SoA.
+    xx/yy: flat int pixel coordinates (yy global). Returns (seed, ray_o,
+    ray_d) with ray_o broadcast views of the camera origin."""
+    p = xx.shape[0]
+    all_on = torch.ones(p, dtype=torch.bool, device=xx.device)
+    seed, ju = rng.random_float(seed, all_on)
+    seed, jv = rng.random_float(seed, all_on)
+    u = (xx.to(torch.float32) + ju) / _const(cfg.width, ju)
+    v = ((_const(global_height - 1, jv) - yy.to(torch.float32)) + jv) \
+        / _const(global_height, jv)
+
+    origin = tuple(cam.origin[i].expand(p) for i in range(3))
+    d = tuple(cam.lower_left_corner[i]
+              + (cam.horizontal[i] * u + cam.vertical[i] * v)
+              - cam.origin[i] for i in range(3))
+    return seed, origin, _normalize(d)
+
+
+def initial_seed(cam: CameraUniforms, cfg: RenderConfig, pixel,
+                 sample_index: int):
+    """Reference mode: seed = pixel index. Progressive: mix frame and
+    sample. ``pixel``: u32 values in an int64 tensor."""
+    if cfg.rng_mode == "reference":
+        return pixel
+    stream = (cam.frame_count.to(torch.int64) * cfg.samples_per_pixel
+              + sample_index + 1) & rng.M32
+    return pixel ^ rng.pcg((stream * 0x9E3779B9) & rng.M32)

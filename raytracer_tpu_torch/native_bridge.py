@@ -1,0 +1,123 @@
+"""ctypes bridge to the framework-neutral C++ runtime in ``native/``.
+
+Shares ``native/raytpu_native.so`` with the JAX package: the library is
+built with ``make -C native`` when it is missing or older than its source,
+as ``raytracer_tpu/native_bridge.py`` does. This bridge exposes only what
+the port's scene build needs — the binned-SAH BVH build, cluster packing
+and the .obj parser — and raises when the library cannot be built or
+loaded (there is no fallback tree: the port's tables must equal the JAX
+package's, which are built by this library).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_SO_PATH = os.path.join(_NATIVE_DIR, "raytpu_native.so")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        src = os.path.join(_NATIVE_DIR, "raytpu_native.cpp")
+        if (not os.path.exists(_SO_PATH)
+                or os.path.getmtime(src) > os.path.getmtime(_SO_PATH)):
+            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                           capture_output=True, timeout=300)
+        lib = ctypes.CDLL(_SO_PATH)
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.rt_free.argtypes = [ctypes.c_void_p]
+        lib.rt_free.restype = None
+        lib.rt_load_obj.restype = ctypes.c_int64
+        lib.rt_load_obj.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.POINTER(ctypes.c_float))]
+        lib.rt_build_bvh_sah.restype = ctypes.c_int64
+        lib.rt_build_bvh_sah.argtypes = [
+            f32p, ctypes.c_int64, ctypes.c_int32,
+            f32p, f32p, i32p, i32p, i32p, i32p, i32p, i64p]
+        lib.rt_pack_clusters.restype = None
+        lib.rt_pack_clusters.argtypes = [
+            f32p, f32p, ctypes.c_int64, i64p, i32p, i32p, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, f32p, i32p]
+        _lib = lib
+        return _lib
+
+
+def load_obj(path: str) -> np.ndarray:
+    """Native .obj parse -> f32[T, 3, 3]."""
+    lib = _load()
+    out = ctypes.POINTER(ctypes.c_float)()
+    t = lib.rt_load_obj(path.encode(), ctypes.byref(out))
+    if t < 0:
+        if t == -1:
+            raise FileNotFoundError(path)
+        raise ValueError(f"parse error in {path}")
+    try:
+        if t == 0:
+            return np.zeros((0, 3, 3), np.float32)
+        return np.ctypeslib.as_array(out, shape=(int(t), 3, 3)).copy()
+    finally:
+        lib.rt_free(out)
+
+
+def build_bvh_sah(tris: np.ndarray, leaf_size: int) -> dict:
+    """Binned-SAH BVH, pre-order flattened -> dict of NumPy arrays
+    (node_min/max f32[M,3], node_tri/ntri/skip/data/count i32[M],
+    order i64[T])."""
+    lib = _load()
+    tris = np.ascontiguousarray(tris, np.float32)
+    n = tris.shape[0]
+    m_cap = 2 * n - 1
+    out = dict(node_min=np.empty((m_cap, 3), np.float32),
+               node_max=np.empty((m_cap, 3), np.float32),
+               node_tri=np.empty(m_cap, np.int32),
+               node_ntri=np.empty(m_cap, np.int32),
+               node_skip=np.empty(m_cap, np.int32),
+               node_data=np.empty(m_cap, np.int32),
+               node_count=np.empty(m_cap, np.int32))
+    order = np.empty(n, np.int64)
+    m = int(lib.rt_build_bvh_sah(
+        tris.reshape(-1), n, leaf_size,
+        out["node_min"].reshape(-1), out["node_max"].reshape(-1),
+        out["node_tri"], out["node_ntri"], out["node_skip"],
+        out["node_data"], out["node_count"], order))
+    if m <= 0:
+        raise RuntimeError(f"native BVH build failed (m={m})")
+    res = {k: v[:m].copy() for k, v in out.items()}
+    res["order"] = order
+    return res
+
+
+def pack_clusters(verts: np.ndarray, mats: np.ndarray, order: np.ndarray,
+                  node_tri: np.ndarray, node_ntri: np.ndarray,
+                  clusters: np.ndarray, cluster_size: int,
+                  tri_stride: int) -> None:
+    """Pack leaf triangles into ``clusters`` (f32[L, cluster_size *
+    tri_stride], written in place) in leaf order."""
+    lib = _load()
+    n = verts.shape[0]
+    m = node_tri.shape[0]
+    if clusters.dtype != np.float32 or not clusters.flags.c_contiguous:
+        raise ValueError("clusters must be C-contiguous f32")
+    lib.rt_pack_clusters(
+        np.ascontiguousarray(verts, np.float32).reshape(-1),
+        np.ascontiguousarray(mats, np.float32).reshape(-1),
+        n, np.ascontiguousarray(order, np.int64),
+        np.ascontiguousarray(node_tri, np.int32),
+        np.ascontiguousarray(node_ntri, np.int32), m,
+        cluster_size, tri_stride, clusters.reshape(-1),
+        np.empty(m, np.int32))

@@ -1,0 +1,274 @@
+"""JAX reference values for the port's tests (``tests/test_torch_*.py``).
+
+Run as a script in a child process:
+
+    python tests/torch_jax_refs.py JOB IN.npz OUT.npz
+
+It loads the job's inputs (made by the test from a numpy seed), runs the
+JAX package on the CPU the way its own tests do (Pallas kernels in
+interpret mode, the production knobs ``RAYTPU_B0=pallas``,
+``RAYTPU_BOUNCE=wave``, ``RAYTPU_TAIL_MERGE=1``, ``wavefront.MIN_WIDTH``
+patched to 2048) and saves the results.
+
+Why a child process: XLA:CPU contracts ``a * b + c`` into fused
+multiply-adds on a CPU that has them, so the JAX side would round
+differently from the port, whose plain versions and CUDA kernels never
+contract. ``--xla_cpu_max_isa=AVX`` keeps FMA instructions out of XLA's
+code, and that flag only applies when the JAX backend starts — before
+any other test in the worker has started it. ``run_job`` sets it.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_job(job: str, inputs: dict, tmp_path) -> dict:
+    """Run ``job`` in a child process -> dict of numpy results."""
+    src = os.path.join(str(tmp_path), f"{job}_in.npz")
+    dst = os.path.join(str(tmp_path), f"{job}_out.npz")
+    np.savez(src, **inputs)
+    env = dict(os.environ)
+    env.update({"JAX_PLATFORMS": "cpu",
+                "XLA_FLAGS": "--xla_cpu_max_isa=AVX "
+                             "--xla_backend_optimization_level=0",
+                "RAYTPU_B0": "pallas", "RAYTPU_BOUNCE": "wave",
+                "RAYTPU_TAIL_MERGE": "1",
+                "PYTHONPATH": _REPO + os.pathsep + env.get("PYTHONPATH", "")})
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), job,
+                           src, dst], env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"JAX reference job {job} failed:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    with np.load(dst) as f:
+        return {k: f[k] for k in f.files}
+
+
+def tie_lanes(scene, ray_o, ray_d, active, cfg):
+    """bool[P]: active rays whose closest hit is an equal-t tie, i.e. at
+    least two triangles of the scene hit at exactly the closest t (found
+    by brute force with the port's Moller-Trumbore arithmetic). Only there
+    may a per-ray walk and the TPU's per-tile walk pick different
+    winners."""
+    import torch
+
+    from raytracer_tpu_torch.kernels.trace import _mt_candidates
+
+    p = active.shape[0]
+    o = [c.reshape(-1) for c in ray_o]
+    d = [c.reshape(-1) for c in ray_d]
+    closest = torch.full((p,), cfg.t_max)
+    full = torch.ones(p, dtype=torch.bool)
+    cands = [_mt_candidates(row.view(1, 8, 16).expand(p, 8, 16), o, d,
+                            closest, full, cfg.t_min, cfg.det_eps)
+             for row in scene.clusters]
+    t = torch.cat(cands, dim=1)
+    best = t.min(dim=1).values
+    n_at_best = (t == best[:, None]).sum(1)
+    return active & (best < cfg.t_max) & (n_at_best >= 2)
+
+
+def _leaves(obj, prefix=""):
+    import dataclasses
+
+    return {prefix + f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
+
+
+def _scene(inp):
+    from raytracer_tpu.scene.builder import build_fast_scene_from_arrays
+
+    return build_fast_scene_from_arrays(inp["verts"], inp["mats"])
+
+
+def _cfg(inp):
+    from raytracer_tpu.core.types import RenderConfig
+
+    return RenderConfig(**{k[4:]: v.item() for k, v in inp.items()
+                           if k.startswith("cfg_")})
+
+
+def job_trace(inp):
+    """Kernel A (pallas_traverse, interpret mode) on each ray set."""
+    import jax.numpy as jnp
+
+    from raytracer_tpu.kernels.pallas_trace import pallas_traverse
+
+    scene, cfg = _scene(inp), _cfg(inp)
+    out = _leaves(scene, "scene_")
+    for name in ("rand", "prim"):
+        rays = inp[f"{name}_rays"]
+        res = pallas_traverse(
+            scene, tuple(jnp.asarray(r) for r in rays[0:3]),
+            tuple(jnp.asarray(r) for r in rays[3:6]),
+            jnp.asarray(inp[f"{name}_active"]), cfg, interpret=True)
+        out[f"{name}_out"] = np.stack(
+            [np.asarray(res.closest_t), *map(np.asarray, res.normal),
+             *map(np.asarray, res.mat_albedo), np.asarray(res.mat_type)])
+    return out
+
+
+def job_bounce(inp):
+    """Kernel B (bounce_megakernel12, interpret, key_mode cid, sub 16) on
+    each state set, plus wavefront.sort_key in several modes."""
+    import jax
+    import jax.numpy as jnp
+
+    from raytracer_tpu.kernels import wavefront
+    from raytracer_tpu.kernels.pallas_mega import bounce_megakernel12
+
+    scene, cfg = _scene(inp), _cfg(inp)
+    out = _leaves(scene, "scene_")
+    num4 = jnp.asarray(scene.num_nodes4, jnp.int32).reshape(1)
+    bounds = scene.nodes8[0, :6]
+    for name in ("uniform", "budget"):
+        f = inp[f"{name}_f"]            # f32[10, w]: o3 d3 a3 act
+        i = inp[f"{name}_i"]            # i32[2, w]: seed bits, budget
+        blocks = tuple(jnp.asarray(f[j]).reshape(-1, 128)
+                       for j in range(9)) + (
+            jnp.asarray(i[0]).reshape(-1, 128),
+            jnp.asarray(f[9]).reshape(-1, 128),
+            jnp.asarray(i[1]).reshape(-1, 128))
+        outs = bounce_megakernel12(
+            scene.nodes4, scene.clusters, num4, blocks,
+            jnp.asarray([int(inp["bcap"])], jnp.int32),
+            jnp.asarray([int(inp["sky"])], jnp.int32), bounds, 16,
+            float(cfg.fuzz), bool(cfg.emissive_emits), t_min=cfg.t_min,
+            t_max=cfg.t_max, det_eps=cfg.det_eps, interpret=True,
+            key_mode="cid")
+        out[f"{name}_f"] = np.stack([np.asarray(outs[j]).reshape(-1)
+                                     for j in (0, 1, 2, 3, 4, 5, 6, 7, 8,
+                                               10)])
+        out[f"{name}_i"] = np.stack([np.asarray(outs[j]).reshape(-1)
+                                     for j in (9, 11, 14)])
+        out[f"{name}_rays"] = np.float64(np.asarray(outs[12]).sum())
+        out[f"{name}_live"] = np.float64(np.asarray(outs[13]).sum())
+    o = tuple(jnp.asarray(r) for r in inp["key_o"])
+    d = tuple(jnp.asarray(r) for r in inp["key_d"])
+    alive = jnp.asarray(inp["key_alive"])
+    smin = tuple(scene.nodes8[0, ax] for ax in range(3))
+    smax = tuple(scene.nodes8[0, 3 + ax] for ax in range(3))
+    for mode in ("cid", "om9"):
+        for bit in (30, 31):
+            k = wavefront.sort_key(o, d, alive, smin, smax, mode,
+                                   dead_bit=bit)
+            out[f"key_{mode}_{bit}"] = np.asarray(
+                jax.lax.bitcast_convert_type(k, jnp.int32))
+    return out
+
+
+def job_tonemap(inp):
+    """tonemap_accumulate (Pallas, interpret) and renderer.tonemap."""
+    import jax.numpy as jnp
+
+    from raytracer_tpu.engine.renderer import tonemap
+    from raytracer_tpu.kernels.pallas_ops import tonemap_accumulate
+
+    out = {}
+    for j, (fc, ex) in enumerate(zip(inp["fc"], inp["exposure"])):
+        acc, img = tonemap_accumulate(
+            jnp.asarray(inp["accum"]), jnp.asarray(inp["sample"]),
+            jnp.float32(fc), jnp.float32(ex), interpret=True)
+        out[f"acc_{j}"] = np.asarray(acc)
+        out[f"img_{j}"] = np.asarray(img)
+        out[f"plain_img_{j}"] = np.asarray(
+            tonemap(jnp.asarray(inp["linear"]), jnp.float32(ex)))
+    return out
+
+
+def job_rng(inp):
+    """pcg, initial_seed, the in-sphere sampler, primary rays, shade and
+    camera uniforms."""
+    import jax.numpy as jnp
+
+    from raytracer_tpu.core.camera import Camera
+    from raytracer_tpu.kernels import rng, tracer
+
+    cfg = _cfg(inp)
+    out = {"pcg": np.asarray(rng.pcg(jnp.asarray(inp["u32"])))}
+    cam = Camera(origin=inp["cam_origin"], look_at=inp["cam_look"],
+                 vfov_deg=float(inp["cam_vfov"]),
+                 aspect_ratio=float(inp["cam_aspect"]))
+    cam.frame_count = int(inp["fc"])
+    uni = cam.uniforms()
+    out.update(_leaves(uni, "cam_"))
+    pixel = jnp.asarray(inp["pixel"])
+    out["seed0"] = np.asarray(tracer.initial_seed(uni, cfg, pixel, 0))
+    seed, (x, y, z) = rng.random_vec3_in_unit_sphere(
+        jnp.asarray(inp["u32"]), jnp.asarray(inp["mask"]))
+    out["sph_seed"] = np.asarray(seed)
+    out["sph"] = np.stack([np.asarray(x), np.asarray(y), np.asarray(z)])
+    seed, o, d = tracer.make_primary_rays(
+        uni, cfg, jnp.asarray(out["seed0"]), jnp.asarray(inp["xx"]),
+        jnp.asarray(inp["yy"]), int(inp["gh"]))
+    out["prim_seed"] = np.asarray(seed)
+    out["prim_d"] = np.stack([np.asarray(c) for c in d])
+    res = tracer.TraversalResult(
+        jnp.asarray(inp["hit_t"]), jnp.asarray(inp["hit_t"] < cfg.t_max),
+        tuple(jnp.asarray(c) for c in inp["hit_n"]),
+        tuple(jnp.asarray(c) for c in inp["hit_alb"]),
+        jnp.asarray(inp["hit_mt"]))
+    sh = tracer.shade(
+        res, tuple(jnp.asarray(c) for c in inp["ray_o"]),
+        tuple(jnp.asarray(c) for c in inp["ray_d"]),
+        tuple(jnp.asarray(c) for c in inp["color"]),
+        tuple(jnp.asarray(c) for c in inp["atten"]),
+        jnp.asarray(inp["u32"]), jnp.asarray(inp["mask"]),
+        jnp.asarray(bool(inp["sky"])), cfg)
+    out["shade_f"] = np.stack([np.asarray(c) for grp in sh[:4]
+                               for c in grp])
+    out["shade_seed"] = np.asarray(sh[4])
+    out["shade_alive"] = np.asarray(sh[5])
+    return out
+
+
+def job_renderer(inp):
+    """The JAX Renderer, production knobs, frames 0 and 1."""
+    import raytracer_tpu.kernels.wavefront as wf
+    from raytracer_tpu.core.camera import Camera
+    from raytracer_tpu.engine.renderer import Renderer
+    from raytracer_tpu.kernels.packet import (tail_merge_active,
+                                              tail_merge_widths)
+
+    wf.MIN_WIDTH = 2048
+    scene, cfg = _scene(inp), _cfg(inp)
+    out = _leaves(scene, "scene_")
+    from raytracer_tpu.engine.renderer import _num_bands
+
+    nb = _num_bands(cfg)
+    assert tail_merge_active(scene, cfg)
+    out["tail_merge_widths"] = np.asarray(
+        tail_merge_widths(cfg, cfg.height // nb, nb))
+    cam = Camera(origin=inp["cam_origin"], look_at=inp["cam_look"],
+                 vfov_deg=float(inp["cam_vfov"]),
+                 aspect_ratio=cfg.width / cfg.height)
+    r = Renderer(cfg)
+    accum = None
+    for fc in range(int(inp["frames"])):
+        cam.frame_count = fc
+        uni = cam.uniforms()
+        out.update(_leaves(uni, f"cam{fc}_"))
+        accum, image, stats = r.render(scene, uni, accum)
+        out[f"accum_{fc}"] = np.asarray(accum)
+        out[f"image_{fc}"] = np.asarray(image)
+        out[f"rays_{fc}"] = np.float64(stats["rays_traced"])
+    return out
+
+
+JOBS = {"trace": job_trace, "bounce": job_bounce,
+        "tonemap": job_tonemap, "rng": job_rng, "renderer": job_renderer}
+
+
+if __name__ == "__main__":
+    job, src, dst = sys.argv[1:4]
+    with np.load(src) as f:
+        inputs = {k: f[k] for k in f.files}
+    np.savez(dst, **JOBS[job](inputs))
