@@ -73,7 +73,7 @@ class Camera:
         self.frame_count += 1
 
     def uniforms(self, sky_enabled: bool = True, exposure: float = 0.0,
-                 device="cpu") -> CameraUniforms:
+                 device="cuda") -> CameraUniforms:
         """This frame's uniforms as f32/i32 tensors on ``device``."""
         return CameraUniforms.create(
             origin=self.origin, lower_left_corner=self.lower_left_corner,

@@ -67,7 +67,7 @@ class CameraUniforms:
     @staticmethod
     def create(origin, lower_left_corner, horizontal, vertical,
                frame_count: int = 0, sky_enabled: bool = True,
-               exposure: float = 0.0, device="cpu") -> "CameraUniforms":
+               exposure: float = 0.0, device="cuda") -> "CameraUniforms":
         """Rounds each f64 host value to f32 once, as the JAX twin does."""
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
         return CameraUniforms(

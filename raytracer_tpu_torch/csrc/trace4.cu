@@ -20,7 +20,8 @@
 //
 // Layout: rays f32[6, P] (origin xyz, direction xyz rows), active u8[P];
 // out f32[8, P] = t, normal xyz, albedo rgb, material type (t = t_max and
-// zeros on a miss or an inactive ray).
+// zeros on a miss or an inactive ray). flip != 0 turns the winner's normal
+// to face the ray (path shading); the fixed-light tier passes 0.
 #include "walk.cuh"
 
 namespace {
@@ -30,14 +31,15 @@ __global__ void __launch_bounds__(128)
                   const float* __restrict__ clusters,
                   const float* __restrict__ rays,
                   const uint8_t* __restrict__ active, float* __restrict__ out,
-                  int p, float t_min, float t_max, float det_eps) {
+                  int p, float t_min, float t_max, float det_eps,
+                  int flip) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p) return;
   rt::Hit h = {t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
   if (active[i]) {
     const rt::Ray r = {rays[i],         rays[p + i],     rays[2 * p + i],
                        rays[3 * p + i], rays[4 * p + i], rays[5 * p + i]};
-    h = rt::walk(nodes4, clusters, r, t_min, t_max, det_eps);
+    h = rt::walk(nodes4, clusters, r, t_min, t_max, det_eps, flip != 0);
   }
   out[i] = h.t;
   out[p + i] = h.nx;
@@ -54,13 +56,14 @@ __global__ void __launch_bounds__(128)
 extern "C" int rt_trace4(const void* nodes4, const void* clusters,
                          const void* rays, const void* active, void* out,
                          int p, float t_min, float t_max, float det_eps,
-                         void* stream) {
+                         int flip, void* stream) {
   if (p > 0) {
     const int threads = 128;
     const int blocks = (p + threads - 1) / threads;
     trace4_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const float*)nodes4, (const float*)clusters, (const float*)rays,
-        (const uint8_t*)active, (float*)out, p, t_min, t_max, det_eps);
+        (const uint8_t*)active, (float*)out, p, t_min, t_max, det_eps,
+        flip);
   }
   return (int)cudaGetLastError();
 }

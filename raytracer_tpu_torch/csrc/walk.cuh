@@ -1,5 +1,6 @@
 // Per-ray closest-hit walk of the 8-wide BVH, shared by kernel A
-// (trace4.cu) and kernel B (bounce12.cu).
+// (trace4.cu) and kernel B (bounce12.cu); the triangle test and the
+// normal flip are shared with the binary walk (trace2.cu) too.
 //
 // Tables (core/fast_types.py): nodes4 f32[R, 128], one wide node per row,
 // 8 children x [min xyz, max xyz, meta, pad x9]; clusters f32[L, 128], one
@@ -13,8 +14,8 @@
 // network on (min + max) . d with the ray's own direction, leaf children in
 // child order with Moller-Trumbore on the precomputed edges (det_eps,
 // strict t < closest), the second half-cluster only when count > 4, and
-// the winner's normal flipped against the ray at the end (the path-shading
-// rule; the fixed-light tier, not ported yet, keeps the raw normal).
+// the winner's normal flipped against the ray at the end when asked (the
+// path-shading rule; the fixed-light tier keeps the raw normal).
 //
 // Build with -fmad=false and without fast math: every product, sum,
 // division and square root rounds as in the plain PyTorch version.
@@ -93,6 +94,16 @@ __device__ __forceinline__ void mt_tris(const float* __restrict__ cr, int k0,
   }
 }
 
+// The deferred flip: the winner's normal faces the ray. A miss holds
+// n == 0: dot == 0, sgn == 1, unchanged.
+__device__ __forceinline__ void face_ray(const Ray& r, Hit& h) {
+  const float dot = r.dx * h.nx + r.dy * h.ny + r.dz * h.nz;
+  const float sgn = dot > 0.0f ? -1.0f : 1.0f;
+  h.nx = sgn * h.nx;
+  h.ny = sgn * h.ny;
+  h.nz = sgn * h.nz;
+}
+
 #define RT_CSWAP(i, j)                 \
   if (key[j] > key[i]) {               \
     const float tk = key[i];           \
@@ -110,7 +121,7 @@ __device__ __forceinline__ void mt_tris(const float* __restrict__ cr, int k0,
 __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
                                     const float* __restrict__ clusters,
                                     const Ray& r, float t_min, float t_max,
-                                    float det_eps) {
+                                    float det_eps, bool flip) {
   Hit h = {t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
   const float ivx = 1.0f / r.dx, ivy = 1.0f / r.dy, ivz = 1.0f / r.dz;
   int stack[kStackCap];
@@ -165,11 +176,7 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
     if (sp == 0) break;
     nid = stack[--sp];
   }
-  const float dot = r.dx * h.nx + r.dy * h.ny + r.dz * h.nz;
-  const float sgn = dot > 0.0f ? -1.0f : 1.0f;
-  h.nx = sgn * h.nx;
-  h.ny = sgn * h.ny;
-  h.nz = sgn * h.nz;
+  if (flip) face_ray(r, h);
   return h;
 }
 

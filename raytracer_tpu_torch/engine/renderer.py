@@ -1,10 +1,11 @@
 """The render step: bands -> linear frame -> accumulate + tonemap.
 
-The port of ``raytracer_tpu/engine/renderer.py`` for the default packet
-path. PyTorch runs eagerly, so Python loops replace ``lax.scan`` /
-``fori_loop`` and there is no jit cache and no environment fingerprint.
-The frame tail always goes through the tonemap kernel
-(``kernels/tonemap.py``).
+The port of ``raytracer_tpu/engine/renderer.py`` for the packet kernel:
+path shading on every ported bounce path (``raytracer_tpu_torch/knobs.py``)
+and the fixed-light tier. PyTorch runs eagerly, so Python loops replace
+``lax.scan`` / ``fori_loop`` and there is no jit cache and no environment
+fingerprint: the path knobs are read at call time. The frame tail always
+goes through the tonemap kernel (``kernels/tonemap.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.fast_types import FastScene
 from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
 from raytracer_tpu_torch.kernels.packet import (render_linear_fast,
@@ -50,16 +52,16 @@ def _render_linear(scene: FastScene, cam: CameraUniforms,
     """Linear radiance of one frame -> (f32[H, W, 3], rays traced (int64
     tensor)). Bands, the spp loop and, where it applies, the cross-band
     tail merge."""
-    if cfg.kernel != "packet" or cfg.shading != "path":
-        raise NotImplementedError(
-            "the port renders kernel='packet' with path shading only")
+    if cfg.kernel != "packet":
+        raise NotImplementedError("the port renders kernel='packet' only")
     spp = cfg.samples_per_pixel
     nb = _num_bands(cfg)
     band_h = cfg.height // nb
     band_cfg = dataclasses.replace(cfg, height=band_h)
     hw = cfg.height * cfg.width
     dev = scene.device
-    tm = tail_merge_widths(cfg, band_h, nb)
+    tm = (tail_merge_widths(cfg, band_h, nb)
+          if knobs.tail_merge_active(cfg) else None)
 
     total = torch.zeros((3, hw), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)

@@ -1,22 +1,38 @@
-"""Kernel B: one fused walk + shade round (``csrc/bounce12.cu``).
+"""Kernel B and its variants: fused walk + shade rounds
+(``csrc/bounce12.cu``).
 
 Replaces the Pallas kernel ``raytracer_tpu/kernels/pallas_mega.py``
-``_kernel_core`` as built by ``make_kernel(carry_color=False,
-key_mode="cid")`` and called by ``bounce_megakernel12``: up to ``bcap``
-iterations of the kernel A walk plus the material model, with the
-no-color carry, the per-ray budget kill, the rays/live counts and the next
-round's ``cid`` sort key.
+``_kernel_core`` in its three builds: up to ``bcap`` iterations of the
+kernel A walk plus the material model, the per-ray budget, the rays/live
+counts and the next round's ``cid`` sort key.
 
-Round state is one i32[13, w] tensor, one row per field (``ROW_*``): f32
-bits of origin, direction and atten, the PCG seed bits, the alive flag,
-the bounces-left budget and the pixel id. The sorted-round glue gathers it
-with one ``index_select`` per round (``kernels/wavefront.py``).
+* ``bounce12`` (``make_kernel(carry_color=False)`` via
+  ``bounce_megakernel12``, the default rounds): the no-color carry, where a
+  dying ray's atten becomes its deposit and a budget kill blacks it out.
+* ``bounce15`` (``make_kernel(carry_color=True)`` via ``bounce_megakernel``:
+  ``RAYTPU_WAVE=fused`` rounds, the colour-carrying tail and the single
+  ``RAYTPU_BOUNCE=pmega`` call): the colour rides in rows of its own; a
+  miss writes atten * sky into it, an emissive hit adds albedo * atten,
+  atten is kept where the ray does not scatter, a budget kill zeroes
+  nothing.
+* ``bounce_packed`` (``make_kernel_packed`` via
+  ``bounce_megakernel_packed``, ``RAYTPU_WAVE=fused_packed`` rounds): the
+  ``bounce15`` core over packed state, sf f32[13, w] (origin, direction,
+  colour, atten, alive as 0.0 / 1.0) and si i32[k, w] (seed, then rows
+  passed through), with the budget fixed at ``1 << 30``.
+
+Round state is one i32 tensor, one row per field: f32 bits of origin,
+direction, [colour,] atten, then the PCG seed bits, the alive flag, the
+bounces-left budget and the pixel id (``ROW_*`` count from the end, so they
+hold for both layouts): i32[13, w] without the colour, i32[16, w] with it.
+The sorted-round glue gathers it with one ``index_select`` per round
+(``kernels/wavefront.py``).
 
 Per-ray semantics: a ray runs ``b < bcap`` iterations while alive. At
-``bcap == 1`` (the only value on the main path) this is exactly the TPU
-kernel's result. At ``bcap > 1`` the TPU tile keeps iterating while any of
-its rays is alive and re-zeroes the winner cluster id of rays that died
-earlier, so only the cid bits of those dead rays' keys differ.
+``bcap == 1`` this is exactly the TPU kernel's result. At ``bcap > 1`` the
+TPU tile keeps iterating while any of its rays is alive and re-zeroes the
+winner cluster id of rays that died earlier, so only the cid bits of those
+dead rays' keys differ.
 """
 
 from __future__ import annotations
@@ -29,19 +45,22 @@ from raytracer_tpu_torch.kernels import cuda_build, launches
 from raytracer_tpu_torch.kernels.rng import M32, REJECTION_ROUNDS, pcg
 from raytracer_tpu_torch.kernels.trace import _check_scene, walk_plain
 
-ROW_SEED, ROW_ALIVE, ROW_BUDGET, ROW_PIX = 9, 10, 11, 12
-STATE_ROWS = 13
+ROW_SEED, ROW_ALIVE, ROW_BUDGET, ROW_PIX = -4, -3, -2, -1
+STATE_ROWS = 13            # no-color carry (bounce12)
+COLOR_ROWS = 16            # colour carried (bounce15)
+SF_ROWS = 13               # packed floats (bounce_packed)
 UNIFORM_BUDGET = 1 << 30   # never gates: the bounce cap alone does
 
 
-def pack_state(ray_o, ray_d, atten, seed, alive, budget, pix):
-    """Round state i32[13, w] from SoA fields (seed: u32 values in int64;
-    budget: int or i32[w])."""
+def pack_state(ray_o, ray_d, atten, seed, alive, budget, pix, color=None):
+    """Round state from SoA fields: i32[13, w], or i32[16, w] with
+    ``color`` (seed: u32 values in int64; budget: int or i32[w])."""
     w = alive.shape[0]
-    dev = alive.device
-    st = torch.empty((STATE_ROWS, w), dtype=torch.int32, device=dev)
-    f = st[0:9].view(torch.float32)
-    for j, c in enumerate((*ray_o, *ray_d, *atten)):
+    fields = (*ray_o, *ray_d, *(color or ()), *atten)
+    st = torch.empty((len(fields) + 4, w), dtype=torch.int32,
+                     device=alive.device)
+    f = st[0:len(fields)].view(torch.float32)
+    for j, c in enumerate(fields):
         f[j] = c
     st[ROW_SEED] = seed.to(torch.int32)
     st[ROW_ALIVE] = alive.to(torch.int32)
@@ -51,9 +70,24 @@ def pack_state(ray_o, ray_d, atten, seed, alive, budget, pix):
 
 
 def unpack_floats(state: torch.Tensor):
-    """(ray_o, ray_d, atten) f32 views of a round state."""
-    f = state[0:9].view(torch.float32)
-    return (f[0], f[1], f[2]), (f[3], f[4], f[5]), (f[6], f[7], f[8])
+    """(ray_o, ray_d, color or None, atten) f32 views of a round state."""
+    f = state[:-4].view(torch.float32)
+    color = (f[6], f[7], f[8]) if f.shape[0] == 12 else None
+    return ((f[0], f[1], f[2]), (f[3], f[4], f[5]), color,
+            (f[-3], f[-2], f[-1]))
+
+
+def packed_to_state(sf: torch.Tensor, si: torch.Tensor, budget, pix):
+    """Packed state (sf f32[13, w], si i32[k, w] with the seed in row 0)
+    -> colour-carrying round state i32[16, w]."""
+    st = torch.empty((COLOR_ROWS, sf.shape[1]), dtype=torch.int32,
+                     device=sf.device)
+    st[0:12] = sf[0:12].view(torch.int32)
+    st[ROW_SEED] = si[0]
+    st[ROW_ALIVE] = (sf[12] > 0.5).to(torch.int32)
+    st[ROW_BUDGET] = budget
+    st[ROW_PIX] = pix
+    return st
 
 
 def _unit_two_step(seed):
@@ -67,7 +101,9 @@ def _unit_two_step(seed):
 
 def _sphere(seed, active):
     """pallas_mega._sphere: 3 discarded draws, then REJECTION_ROUNDS
-    masked rounds of 3 draws (two-step unit conversion)."""
+    masked rounds of 3 draws (two-step unit conversion). Counts the draws
+    in ``launches.work``."""
+    launches.work["draws"] += 3 * int(active.sum())
     for _ in range(3):
         seed = torch.where(active, pcg(seed), seed)
     zero = torch.zeros(active.shape, dtype=torch.float32,
@@ -75,6 +111,7 @@ def _sphere(seed, active):
     x, y, z = zero, zero, zero
     need = active
     for _ in range(REJECTION_ROUNDS):
+        launches.work["draws"] += 3 * int(need.sum())
         c = []
         for _ in range(3):
             seed = torch.where(need, pcg(seed), seed)
@@ -89,8 +126,12 @@ def _sphere(seed, active):
     return seed, x, y, z
 
 
-def _shade(hit_out, o, d, a, seed, alive, sky_on: bool, cfg: RenderConfig):
-    """pallas_mega._kernel_core shade(), no-color carry."""
+def _shade(hit_out, o, d, c, a, seed, alive, sky_on: bool,
+           cfg: RenderConfig):
+    """pallas_mega._kernel_core shade(): with the colour carried when
+    ``c`` is given, else the no-color carry. Returns (o, d, c, a, seed,
+    scattered)."""
+    launches.work["shades"] += int(alive.sum())
     t = hit_out[0]
     nx, ny, nz = hit_out[1], hit_out[2], hit_out[3]
     albr, albg, albb = hit_out[4], hit_out[5], hit_out[6]
@@ -137,45 +178,54 @@ def _shade(hit_out, o, d, a, seed, alive, sky_on: bool, cfg: RenderConfig):
     scattered = hit & (is_lam | (is_metal & met_ok))
 
     emis = hit & is_emis if cfg.emissive_emits else torch.zeros_like(hit)
-    a_new = []
-    for at, s, alb in zip(a, sk, (albr, albg, albb)):
-        dep = torch.where(miss, at * s, zero)
-        dep = torch.where(emis, alb * at, dep)
-        dep = torch.where(alive, dep, at)     # dead on entry: keep deposit
-        a_new.append(torch.where(scattered, at * alb, dep))
+    alb = (albr, albg, albb)
+    if c is not None:
+        c = tuple(torch.where(miss, at * s, cc) for cc, at, s in zip(c, a, sk))
+        c = tuple(torch.where(emis, cc + al * at, cc)
+                  for cc, al, at in zip(c, alb, a))
+        a_new = [torch.where(scattered, at * al, at) for at, al in zip(a, alb)]
+    else:
+        a_new = []
+        for at, s, al in zip(a, sk, alb):
+            dep = torch.where(miss, at * s, zero)
+            dep = torch.where(emis, al * at, dep)
+            dep = torch.where(alive, dep, at)  # dead on entry: keep deposit
+            a_new.append(torch.where(scattered, at * al, dep))
     hit_pos = tuple(oc + dc * t for oc, dc in zip(o, d))
     o = tuple(torch.where(scattered, h, oc) for h, oc in zip(hit_pos, o))
     d = tuple(torch.where(scattered, n, dc)
               for n, dc in zip((newx, newy, newz), d))
-    return o, d, tuple(a_new), seed, scattered
+    return o, d, c, tuple(a_new), seed, scattered
 
 
-def bounce12_plain(scene: FastScene, state: torch.Tensor, bcap: int,
-                   sky_on: bool, cfg: RenderConfig):
-    """Plain version of kernel B -> (state' i32[13, w], key i32[w],
-    counts int64[2] = (rays traced, live at the end))."""
-    _check_state(scene, state)
-    launches.plain["bounce12"] += 1
-    o, d, a = unpack_floats(state)
+def _rounds_plain(scene: FastScene, state: torch.Tensor, bcap: int,
+                  sky_on: bool, cfg: RenderConfig):
+    """Up to ``bcap`` walk + shade iterations on a round state (either
+    layout) -> (state', key i32[w], counts int64[2] = (rays traced, live
+    at the end))."""
+    o, d, c, a = unpack_floats(state)
     seed = state[ROW_SEED].to(torch.int64) & M32
     act = state[ROW_ALIVE] != 0
     bud = state[ROW_BUDGET].clone()
     cid = torch.zeros_like(bud)
     rays = torch.zeros((), dtype=torch.int64, device=state.device)
     for _ in range(bcap):
+        if not bool(act.any()):
+            break   # nothing alive: further iterations change nothing
         entered = act
         rays = rays + entered.sum()
         hit_out, cid_new = walk_plain(scene.nodes4, scene.clusters, o, d,
                                       entered, cfg.t_min, cfg.t_max,
                                       cfg.det_eps)
         cid = torch.where(entered, cid_new, cid)
-        o, d, a, seed, act = _shade(hit_out, o, d, a, seed, entered, sky_on,
-                                    cfg)
+        o, d, c, a, seed, act = _shade(hit_out, o, d, c, a, seed, entered,
+                                       sky_on, cfg)
         bud = bud - entered.to(torch.int32)
-        killed = (bud <= 0) & act
-        a = tuple(torch.where(killed, 0.0, c) for c in a)
+        if c is None:
+            killed = (bud <= 0) & act
+            a = tuple(torch.where(killed, 0.0, x) for x in a)
         act = act & (bud > 0)
-    out = pack_state(o, d, a, seed, act, bud, state[ROW_PIX])
+    out = pack_state(o, d, a, seed, act, bud, state[ROW_PIX], color=c)
     octant = ((d[0] > 0.0).to(torch.int32)
               | ((d[1] > 0.0).to(torch.int32) << 1)
               | ((d[2] > 0.0).to(torch.int32) << 2))
@@ -184,32 +234,121 @@ def bounce12_plain(scene: FastScene, state: torch.Tensor, bcap: int,
     return out, key, counts
 
 
-def _check_state(scene: FastScene, state: torch.Tensor) -> None:
+def bounce12_plain(scene: FastScene, state: torch.Tensor, bcap: int,
+                   sky_on: bool, cfg: RenderConfig):
+    """Plain version of kernel B -> (state' i32[13, w], key i32[w],
+    counts int64[2] = (rays traced, live at the end))."""
+    _check_state(scene, state, STATE_ROWS)
+    launches.plain["bounce12"] += 1
+    return _rounds_plain(scene, state, bcap, sky_on, cfg)
+
+
+def bounce15_plain(scene: FastScene, state: torch.Tensor, bcap: int,
+                   sky_on: bool, cfg: RenderConfig):
+    """Plain version of the colour-carrying kernel -> (state' i32[16, w],
+    key i32[w], counts int64[2])."""
+    _check_state(scene, state, COLOR_ROWS)
+    launches.plain["bounce15"] += 1
+    return _rounds_plain(scene, state, bcap, sky_on, cfg)
+
+
+def bounce_packed_plain(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
+                        bcap: int, sky_on: bool, cfg: RenderConfig):
+    """Plain version of the packed kernel: sf f32[13, w], si i32[k, w] ->
+    (sf', si', key i32[w], counts int64[2]); si rows >= 1 pass through."""
+    _check_packed(scene, sf, si)
+    launches.plain["bounce_packed"] += 1
+    state = packed_to_state(sf, si, UNIFORM_BUDGET, 0)
+    out, key, counts = _rounds_plain(scene, state, bcap, sky_on, cfg)
+    sf_out = torch.cat([out[0:12].view(torch.float32),
+                        out[ROW_ALIVE].to(torch.float32)[None]])
+    si_out = torch.cat([out[ROW_SEED][None], si[1:]])
+    return sf_out, si_out, key, counts
+
+
+def _check_state(scene: FastScene, state: torch.Tensor, rows: int) -> None:
     _check_scene(scene, state.device)
     if (state.dtype != torch.int32 or state.dim() != 2
-            or state.shape[0] != STATE_ROWS or not state.is_contiguous()):
-        raise ValueError("state must be contiguous i32[13, w]")
+            or state.shape[0] != rows or not state.is_contiguous()):
+        raise ValueError(f"state must be contiguous i32[{rows}, w]")
 
 
-def bounce12(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
-             cfg: RenderConfig):
-    """Kernel B on CUDA tensors, its plain version on CPU tensors (same
-    arguments and results as ``bounce12_plain``)."""
-    if state.device.type == "cpu":
-        return bounce12_plain(scene, state, bcap, sky_on, cfg)
-    if state.device.type != "cuda":
-        raise ValueError(f"unsupported device {state.device}")
-    _check_state(scene, state)
+def _check_packed(scene: FastScene, sf: torch.Tensor,
+                  si: torch.Tensor) -> None:
+    _check_scene(scene, sf.device)
+    if (sf.dtype != torch.float32 or sf.dim() != 2
+            or sf.shape[0] != SF_ROWS or not sf.is_contiguous()):
+        raise ValueError("sf must be contiguous f32[13, w]")
+    if (si.dtype != torch.int32 or si.dim() != 2 or si.shape[0] < 1
+            or si.shape[1] != sf.shape[1] or si.device != sf.device
+            or not si.is_contiguous()):
+        raise ValueError("si must be contiguous i32[k, w] beside sf")
+
+
+def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
+                   bcap: int, sky_on: bool, cfg: RenderConfig):
     w = state.shape[1]
     out = torch.empty_like(state)
     key = torch.empty(w, dtype=torch.int32, device=state.device)
     counts = torch.zeros(2, dtype=torch.int64, device=state.device)
     lib = cuda_build.library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    cuda_build.check(lib.rt_bounce12(
+    cuda_build.check(getattr(lib, f"rt_{name}")(
         scene.nodes4.data_ptr(), scene.clusters.data_ptr(),
         state.data_ptr(), out.data_ptr(), key.data_ptr(), counts.data_ptr(),
         w, int(bcap), int(bool(sky_on)), cfg.fuzz, int(cfg.emissive_emits),
-        cfg.t_min, cfg.t_max, cfg.det_eps, stream), "rt_bounce12")
-    launches.kernel["bounce12"] += 1
+        cfg.t_min, cfg.t_max, cfg.det_eps, stream), f"rt_{name}")
+    launches.kernel[name] += 1
     return out, key, counts
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version), True for a CUDA one,
+    raises for any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def bounce12(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
+             cfg: RenderConfig):
+    """Kernel B on CUDA tensors, its plain version on CPU tensors (same
+    arguments and results as ``bounce12_plain``)."""
+    if not _on_cuda(state):
+        return bounce12_plain(scene, state, bcap, sky_on, cfg)
+    _check_state(scene, state, STATE_ROWS)
+    return _launch_rounds("bounce12", scene, state, bcap, sky_on, cfg)
+
+
+def bounce15(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
+             cfg: RenderConfig):
+    """The colour-carrying kernel on CUDA tensors, its plain version on
+    CPU tensors (same arguments and results as ``bounce15_plain``)."""
+    if not _on_cuda(state):
+        return bounce15_plain(scene, state, bcap, sky_on, cfg)
+    _check_state(scene, state, COLOR_ROWS)
+    return _launch_rounds("bounce15", scene, state, bcap, sky_on, cfg)
+
+
+def bounce_packed(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
+                  bcap: int, sky_on: bool, cfg: RenderConfig):
+    """The packed kernel on CUDA tensors, its plain version on CPU tensors
+    (same arguments and results as ``bounce_packed_plain``)."""
+    if not _on_cuda(sf):
+        return bounce_packed_plain(scene, sf, si, bcap, sky_on, cfg)
+    _check_packed(scene, sf, si)
+    w = sf.shape[1]
+    sf_out = torch.empty_like(sf)
+    si_out = torch.empty_like(si)
+    key = torch.empty(w, dtype=torch.int32, device=sf.device)
+    counts = torch.zeros(2, dtype=torch.int64, device=sf.device)
+    lib = cuda_build.library()
+    stream = torch.cuda.current_stream(sf.device).cuda_stream
+    cuda_build.check(lib.rt_bounce_packed(
+        scene.nodes4.data_ptr(), scene.clusters.data_ptr(), sf.data_ptr(),
+        si.data_ptr(), sf_out.data_ptr(), si_out.data_ptr(), key.data_ptr(),
+        counts.data_ptr(), w, si.shape[0], int(bcap), int(bool(sky_on)),
+        cfg.fuzz, int(cfg.emissive_emits), cfg.t_min, cfg.t_max,
+        cfg.det_eps, stream), "rt_bounce_packed")
+    launches.kernel["bounce_packed"] += 1
+    return sf_out, si_out, key, counts

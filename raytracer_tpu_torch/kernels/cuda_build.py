@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc -> ctypes).
 
-The sources are compiled on first use into a shared library with a plain C
+The sources are compiled on first use, one ``nvcc`` process per source,
+all started together, then linked into a shared library with a plain C
 interface, ``_build/libraytracer_kernels-<hash>.so``, keyed on a hash of
 the sources and flags, and loaded with ctypes. Nothing here runs at
 import. ``-fmad=false`` and no fast math keep every multiply-add, divide
@@ -19,11 +20,10 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("trace4.cu", "bounce12.cu")
+SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu")
 HEADERS = ("walk.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -48,10 +48,20 @@ def _digest() -> str:
 def _declare(lib) -> None:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rt_trace4.restype = i32
-    lib.rt_trace4.argtypes = [vp, vp, vp, vp, vp, i32, f32, f32, f32, vp]
-    lib.rt_bounce12.restype = i32
-    lib.rt_bounce12.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, f32,
-                                i32, f32, f32, f32, vp]
+    lib.rt_trace4.argtypes = [vp, vp, vp, vp, vp, i32, f32, f32, f32, i32,
+                              vp]
+    lib.rt_trace2.restype = i32
+    lib.rt_trace2.argtypes = [vp, vp, vp, vp, vp, i32, i32, f32, f32, f32,
+                              i32, vp]
+    for name in ("rt_bounce12", "rt_bounce15"):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, f32, i32, f32,
+                       f32, f32, vp]
+    lib.rt_bounce_packed.restype = i32
+    lib.rt_bounce_packed.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                     i32, i32, i32, f32, i32, f32, f32, f32,
+                                     vp]
 
 
 def library():
@@ -63,20 +73,39 @@ def library():
         so = os.path.join(BUILD_DIR, f"libraytracer_kernels-{_digest()}.so")
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(CSRC, s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            with open(so[:-3] + ".log", "w") as f:
-                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stderr[-4000:]}")
-            os.replace(tmp, so)
+            _build(so)
         lib = ctypes.CDLL(so)
         _declare(lib)
         _lib = lib
         return _lib
+
+
+def _run(cmds, log_path: str) -> None:
+    """Run the commands in parallel; log them all, raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    with open(log_path, "a") as f:
+        for c, out in zip(cmds, outs):
+            f.write(" ".join(c) + "\n" + out)
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {c[-1]}\n"
+                               f"{out[-4000:]}")
+
+
+def _build(so: str) -> None:
+    """One nvcc per source, all at once, then one link into ``so``."""
+    tag = f"{so[:-3]}.{os.getpid()}"
+    log = so[:-3] + ".log"
+    objs = [f"{tag}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+          for o, s in zip(objs, SOURCES)], log)
+    _run([[_nvcc(), "-shared", "-o", f"{tag}.tmp", *objs]], log)
+    os.replace(f"{tag}.tmp", so)
+    for o in objs:
+        os.remove(o)
 
 
 def check(err: int, what: str) -> None:

@@ -1,23 +1,29 @@
-"""One band of a frame: tile-major ray-gen, kernel A, bounce-0 shade, and
-the sorted wavefront rounds.
+"""One band of a frame: tile-major ray-gen, traversal (kernel A or 5),
+bounce-0 shade, and the bounce engine.
 
-The port of the default branch of ``raytracer_tpu/kernels/packet.py``
-``render_linear_fast`` (``RAYTPU_B0=pallas``, ``RAYTPU_BOUNCE=wave``,
-path shading), plus ``tail_merge_widths``. (The JAX ``tail_merge_active``
-checks knobs and the wide table; with only the default knobs and the wide
-table always built, it reduces to ``tail_merge_widths``' own conditions.)
+The port of ``raytracer_tpu/kernels/packet.py`` ``render_linear_fast`` on
+its ``RAYTPU_B0=pallas`` arms: path shading with ``RAYTPU_BOUNCE=wave``
+(sorted rounds, ``kernels/wavefront.py``) or ``RAYTPU_BOUNCE=pmega`` (one
+sort, then the whole bounce chain in one ``bounce15`` call), and the
+fixed-light (C12) tier. Plus ``tail_merge_widths``; the knob half of the
+JAX ``tail_merge_active`` is ``knobs.tail_merge_active`` (the wide table
+is always built).
 """
 
 from __future__ import annotations
 
 import torch
 
+from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.fast_types import FastScene
 from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
 from raytracer_tpu_torch.kernels import wavefront
+from raytracer_tpu_torch.kernels.bounce import (UNIFORM_BUDGET, bounce15,
+                                                pack_state)
 from raytracer_tpu_torch.kernels.trace import (BBLOCK, BLOCK, pick_tile,
                                                traverse)
-from raytracer_tpu_torch.kernels.tracer import (initial_seed,
+from raytracer_tpu_torch.kernels.tracer import (fixed_light_color,
+                                                initial_seed,
                                                 make_primary_rays, shade)
 
 
@@ -60,6 +66,26 @@ def _tile_major_pixels(h: int, w: int, p_pad: int, device):
     return xx, yy_local, i < p
 
 
+def _pmega(scene: FastScene, ray_o, ray_d, color, atten, seed, alive,
+           sky_on: bool, cfg: RenderConfig, pix):
+    """``RAYTPU_BOUNCE=pmega``: one stable sort by the host key (the
+    ``om9`` form of the cid key, dead bit 31), one gather, then every
+    bounce in ONE ``bounce15`` call (bcap = max_bounces - 1, budget never
+    gating); colours deposit at the sorted pixel ids. The kernel's key is
+    not used. Returns (color f32[3, P + 1], rays traced in the call)."""
+    smin, smax = scene.bounds()
+    key = wavefront.sort_key(ray_o, ray_d, alive, smin, smax)
+    state = pack_state(ray_o, ray_d, atten, seed, alive, UNIFORM_BUDGET, pix,
+                       color=color)
+    state = state.index_select(1, torch.argsort(key, stable=True))
+    state, _, counts = bounce15(scene, state, cfg.max_bounces - 1, sky_on,
+                                cfg)
+    out = torch.zeros((3, alive.shape[0] + 1), dtype=torch.float32,
+                      device=alive.device)
+    wavefront._deposit(out, state)
+    return out, counts[0]
+
+
 def render_linear_fast(scene: FastScene, cam: CameraUniforms,
                        cfg: RenderConfig, sample_index: int = 0,
                        y_offset: int = 0, global_height: int | None = None,
@@ -72,8 +98,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
     otherwise it is None."""
     if cfg.height % 8 or cfg.width % 8:
         raise ValueError("fast path needs resolution divisible by 8")
-    if cfg.shading != "path":
-        raise NotImplementedError("only path shading is ported")
+    knobs.bounce0()
     h, w = cfg.height, cfg.width
     gh = global_height or h
     p = h * w
@@ -82,24 +107,37 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
     p_pad = -(-p // grain) * grain
     xx, yy_local, alive = _tile_major_pixels(h, w, p_pad, dev)
     yy = yy_local + y_offset
-    pixel = yy * w + xx
-    seed = initial_seed(cam, cfg, pixel, sample_index)
-    seed, ray_o, ray_d = make_primary_rays(cam, cfg, seed, xx, yy, gh)
+    # Pad rays carry an out-of-range pixel id (p); their deposits drop.
+    pix_local = torch.where(alive, yy_local * w + xx, p).to(torch.int32)
 
+    def by_pixel(color):
+        out = torch.zeros((3, p + 1), dtype=torch.float32, device=dev)
+        out.index_copy_(1, pix_local.to(torch.int64), torch.stack(color))
+        return out[:, :p], torch.tensor(p, device=dev), None
+
+    if cfg.shading == "fixed_light":
+        # C12 tier: unjittered primaries, raw normals, Lambert + ambient.
+        _, ray_o, ray_d = make_primary_rays(cam, cfg, None, xx, yy, gh,
+                                            jitter=False)
+        return by_pixel(fixed_light_color(
+            traverse(scene, ray_o, ray_d, alive, cfg)))
+
+    seed = initial_seed(cam, cfg, yy * w + xx, sample_index)
+    seed, ray_o, ray_d = make_primary_rays(cam, cfg, seed, xx, yy, gh)
     zero = torch.zeros(p_pad, dtype=torch.float32, device=dev)
     one = torch.ones(p_pad, dtype=torch.float32, device=dev)
     sky_on = cam.sky_host
-    # Pad rays carry an out-of-range pixel id (p); their deposits drop.
-    pix_local = torch.where(alive, yy_local * w + xx, p).to(torch.int32)
 
     res = traverse(scene, ray_o, ray_d, alive, cfg)
     ray_o, ray_d, color, atten, seed, alive = shade(
         res, ray_o, ray_d, (zero, zero, zero), (one, one, one), seed, alive,
         sky_on, cfg)
     if cfg.max_bounces == 1:
-        out = torch.zeros((3, p + 1), dtype=torch.float32, device=dev)
-        out.index_copy_(1, pix_local.to(torch.int64), torch.stack(color))
-        return out[:, :p], torch.tensor(p, device=dev), None
+        return by_pixel(color)
+    if knobs.bounce_path() == "pmega":
+        col, rays = _pmega(scene, ray_o, ray_d, color, atten, seed, alive,
+                           sky_on, cfg, pix_local)
+        return col[:, :p], rays + p, None
 
     col, rays, surv = wavefront.wavefront_bounces(
         scene, ray_o, ray_d, color, atten, seed, alive, sky_on, cfg,

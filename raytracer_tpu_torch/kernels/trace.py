@@ -1,4 +1,5 @@
-"""Kernel A: closest hit over the 8-wide BVH (``csrc/trace4.cu``).
+"""Kernels A and 5: closest hit over the 8-wide BVH (``csrc/trace4.cu``)
+and over the binary BVH (``csrc/trace2.cu``).
 
 Replaces the Pallas kernel ``raytracer_tpu/kernels/pallas_trace.py``
 ``_trace4_kernel`` (reached through ``_trace4_call`` and
@@ -8,7 +9,17 @@ each ray walks its own stack and orders pushes by its own direction. The
 slab test, Möller–Trumbore on precomputed edges, strict ``t < closest``,
 the half-cluster skip and the deferred normal flip are the same, so the
 closest ``t`` is the same; on an exact equal-t tie the winning triangle
-(normal, albedo, type, cluster id) may differ.
+(normal, albedo, type, cluster id) may differ. The flip is skipped for the
+fixed-light tier, whose shading wants the raw geometric normal.
+
+Kernel 5 (``trace2``) replaces ``pallas_trace.py`` ``_trace_kernel``: the
+stackless skip-link walk of the binary ``nodes8`` table in pre-order (a hit
+internal node goes to its left child, anything else to its skip link).
+The TPU tile walk and a per-ray walk visit a ray's leaves in the same
+order (a child box lies inside its parent's, so a ray that hits the child
+hits the parent), so closest hit and winner agree bit for bit, ties
+included. ``traverse`` picks kernel A or 5 by the path knobs
+(``raytracer_tpu_torch/knobs.py``), as ``pallas_traverse`` does.
 
 ``walk_plain`` is the plain PyTorch version of the per-ray walk, shared
 with kernel B's plain version (``kernels/bounce.py``). It advances every
@@ -22,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.fast_types import (CLUSTER_SIZE, FastScene,
                                                  LEAF_CID_BITS,
                                                  LEAF_CID_MASK, WIDE_WIDTH)
@@ -86,12 +98,21 @@ def _mt_candidates(tri, o, d, closest, full, t_min, det_eps):
     return torch.where(ok, tt, torch.inf)
 
 
+def _face_ray(out: torch.Tensor, ray_d, flip: bool) -> None:
+    """The deferred flip: the winner's normal faces the ray (no-hit lanes
+    hold n == 0 and stay so). In place on out f32[8, P]."""
+    if flip:
+        dot = ray_d[0] * out[1] + ray_d[1] * out[2] + ray_d[2] * out[3]
+        out[1:4] = torch.where(dot > 0.0, -1.0, 1.0) * out[1:4]
+
+
 def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
                active: torch.Tensor, t_min: float, t_max: float,
-               det_eps: float):
+               det_eps: float, flip: bool = True):
     """Per-ray stack walk, plain torch. Returns (out f32[8, P] = t, normal
     xyz, albedo rgb, material type; cid i32[P] = winner cluster id, 0 on
-    a miss or for inactive rays)."""
+    a miss or for inactive rays). Counts node visits and triangle tests
+    in ``launches.work``."""
     dev = active.device
     p = active.shape[0]
     out = torch.zeros((8, p), dtype=torch.float32, device=dev)
@@ -115,6 +136,7 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
         li = torch.arange(n, device=dev)                  # walking rays
         while li.numel():
             m = li.numel()
+            launches.work["visits4"] += m
             oo, dd, ii = o[:, li], d[:, li], iv[:, li]
             node = nodes4.index_select(0, nid[li]).view(m, WIDE_WIDTH, 16)
             lo = (node[:, :, 0:3] - oo.T[:, None, :]) * ii.T[:, None, :]
@@ -152,6 +174,7 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
                 lid = -meta[pr, pc] - 1
                 cidp = lid & LEAF_CID_MASK
                 full = (lid >> LEAF_CID_BITS) >= CLUSTER_SIZE // 2
+                launches.work["tris"] += (pr.numel() + int(full.sum())) * 4
                 tri = clusters.index_select(0, cidp.to(torch.int64)).view(
                     -1, CLUSTER_SIZE, 16)
                 cand = _mt_candidates(
@@ -184,21 +207,87 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
             li = li[have]
         out[:, ids] = best
         cid_out[ids] = bcid
-    # The winner's normal faces the ray (no-hit lanes hold n == 0).
-    dot = ray_d[0] * out[1] + ray_d[1] * out[2] + ray_d[2] * out[3]
-    sgn = torch.where(dot > 0.0, -1.0, 1.0)
-    out[1:4] = sgn * out[1:4]
+    _face_ray(out, ray_d, flip)
     return out, cid_out
 
 
+def walk2_plain(nodes8: torch.Tensor, num_nodes: int,
+                clusters: torch.Tensor, ray_o, ray_d, active: torch.Tensor,
+                t_min: float, t_max: float, det_eps: float, flip: bool):
+    """Per-ray skip-link walk of the binary table, plain torch -> out
+    f32[8, P] (t, normal xyz, albedo rgb, type). Every unfinished ray
+    visits one node per step; a leaf it hits tests all 8 triangles of its
+    cluster in order (strict ``t < closest``: the first strict minimum
+    wins). Counts node visits and triangle tests in ``launches.work``."""
+    dev = active.device
+    p = active.shape[0]
+    out = torch.zeros((8, p), dtype=torch.float32, device=dev)
+    out[0] = t_max
+    ids = torch.nonzero(active).squeeze(1)
+    n = ids.numel()
+    if n:
+        o = torch.stack([c[ids] for c in ray_o])          # [3, n]
+        d = torch.stack([c[ids] for c in ray_d])
+        iv = 1.0 / d
+        best = torch.zeros((8, n), dtype=torch.float32, device=dev)
+        best[0] = t_max
+        # Columns 6-7 are i32 bits: skip link, and the leaf's cluster id
+        # (>= 0) or -(left child + 1) for an internal node.
+        links = nodes8[:, 6:8].contiguous().view(torch.int32)
+        node = torch.zeros(n, dtype=torch.int64, device=dev)
+        li = torch.arange(n, device=dev)                  # walking rays
+        while li.numel():
+            launches.work["visits2"] += li.numel()
+            nid = node[li]
+            row = nodes8.index_select(0, nid)               # [m, 8]
+            oo, dd, ii = o[:, li].T, d[:, li].T, iv[:, li].T
+            lo = (row[:, 0:3] - oo) * ii
+            hi = (row[:, 3:6] - oo) * ii
+            mn, mx = torch.minimum(lo, hi), torch.maximum(lo, hi)
+            t_en = torch.maximum(mn[:, 0], torch.maximum(mn[:, 1], mn[:, 2]))
+            t_ex = torch.minimum(mx[:, 0], torch.minimum(mx[:, 1], mx[:, 2]))
+            closest = best[0, li]
+            hit = (t_ex > t_en) & (t_ex > t_min) & (t_en < closest)
+            skip, col7 = links[nid, 0], links[nid, 1]
+            leaf = torch.nonzero(hit & (col7 >= 0)).squeeze(1)
+            q = leaf.numel()
+            if q:
+                launches.work["tris"] += q * CLUSTER_SIZE
+                tri = clusters.index_select(
+                    0, col7[leaf].to(torch.int64)).view(-1, CLUSTER_SIZE, 16)
+                cand = _mt_candidates(
+                    tri, list(oo[leaf].T), list(dd[leaf].T), closest[leaf],
+                    torch.ones(q, dtype=torch.bool, device=dev), t_min,
+                    det_eps)
+                mins = cand.min(1).values
+                k = (cand == mins[:, None]).to(torch.int8).argmax(1)
+                has = mins < torch.inf
+                rec = tri[torch.arange(q, device=dev), k][has]
+                upd = li[leaf[has]]
+                best[0, upd] = mins[has]
+                best[1:4, upd] = rec[:, 13:16].T
+                best[4:7, upd] = rec[:, 9:12].T
+                best[7, upd] = rec[:, 12]
+            nxt = torch.where(hit & (col7 < 0), -col7 - 1, skip)
+            node[li] = nxt.to(torch.int64)
+            li = li[nxt < num_nodes]
+        out[:, ids] = best
+    _face_ray(out, ray_d, flip)
+    return out
+
+
+def _check_table(scene: FastScene, name: str, cols: int,
+                 device: torch.device) -> None:
+    t = getattr(scene, name)
+    if (t.device != device or t.dtype != torch.float32
+            or not t.is_contiguous() or t.dim() != 2 or t.shape[1] != cols):
+        raise ValueError(f"scene.{name} must be contiguous f32[R, {cols}] "
+                         f"on {device}")
+
+
 def _check_scene(scene: FastScene, device: torch.device) -> None:
-    for name in ("nodes4", "clusters"):
-        t = getattr(scene, name)
-        if (t.device != device or t.dtype != torch.float32
-                or not t.is_contiguous() or t.dim() != 2
-                or t.shape[1] != 128):
-            raise ValueError(f"scene.{name} must be contiguous f32[R, 128] "
-                             f"on {device}")
+    _check_table(scene, "nodes4", 128, device)
+    _check_table(scene, "clusters", 128, device)
 
 
 def _check_rays(rays: torch.Tensor, active: torch.Tensor) -> None:
@@ -210,6 +299,11 @@ def _check_rays(rays: torch.Tensor, active: torch.Tensor) -> None:
         raise ValueError("active must be bool[P] on the rays' device")
 
 
+def _flip(cfg: RenderConfig) -> bool:
+    """Normals face the ray except in the fixed-light tier."""
+    return cfg.shading != "fixed_light"
+
+
 def trace4_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
                  cfg: RenderConfig) -> torch.Tensor:
     """Plain version of kernel A: rays f32[6, P] (origin xyz, direction
@@ -218,7 +312,8 @@ def trace4_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     _check_rays(rays, active)
     launches.plain["trace4"] += 1
     out, _ = walk_plain(scene.nodes4, scene.clusters, rays[0:3], rays[3:6],
-                        active, cfg.t_min, cfg.t_max, cfg.det_eps)
+                        active, cfg.t_min, cfg.t_max, cfg.det_eps,
+                        _flip(cfg))
     return out
 
 
@@ -240,16 +335,60 @@ def trace4(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     cuda_build.check(lib.rt_trace4(
         scene.nodes4.data_ptr(), scene.clusters.data_ptr(), rays.data_ptr(),
         act.data_ptr(), out.data_ptr(), p, cfg.t_min, cfg.t_max,
-        cfg.det_eps, stream), "rt_trace4")
+        cfg.det_eps, int(_flip(cfg)), stream), "rt_trace4")
     launches.kernel["trace4"] += 1
+    return out
+
+
+def _check_scene2(scene: FastScene, device: torch.device) -> None:
+    _check_table(scene, "nodes8", 8, device)
+    _check_table(scene, "clusters", 128, device)
+    if not 0 < scene.num_nodes <= scene.nodes8.shape[0]:
+        raise ValueError("scene.num_nodes out of range")
+
+
+def trace2_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
+                 cfg: RenderConfig) -> torch.Tensor:
+    """Plain version of kernel 5 (binary walk); arguments and result as
+    ``trace4_plain``."""
+    _check_scene2(scene, rays.device)
+    _check_rays(rays, active)
+    launches.plain["trace2"] += 1
+    return walk2_plain(scene.nodes8, scene.num_nodes, scene.clusters,
+                       rays[0:3], rays[3:6], active, cfg.t_min, cfg.t_max,
+                       cfg.det_eps, _flip(cfg))
+
+
+def trace2(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
+           cfg: RenderConfig) -> torch.Tensor:
+    """Kernel 5 on CUDA tensors, its plain version on CPU tensors (same
+    arguments and result as ``trace2_plain``)."""
+    if rays.device.type == "cpu":
+        return trace2_plain(scene, rays, active, cfg)
+    if rays.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    _check_scene2(scene, rays.device)
+    _check_rays(rays, active)
+    p = rays.shape[1]
+    out = torch.empty((8, p), dtype=torch.float32, device=rays.device)
+    act = active.to(torch.uint8)
+    lib = cuda_build.library()
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    cuda_build.check(lib.rt_trace2(
+        scene.nodes8.data_ptr(), scene.clusters.data_ptr(), rays.data_ptr(),
+        act.data_ptr(), out.data_ptr(), p, scene.num_nodes, cfg.t_min,
+        cfg.t_max, cfg.det_eps, int(_flip(cfg)), stream), "rt_trace2")
+    launches.kernel["trace2"] += 1
     return out
 
 
 def traverse(scene: FastScene, ray_o, ray_d, active,
              cfg: RenderConfig) -> TraversalResult:
-    """Closest hit for flat [P] SoA rays through kernel A."""
+    """Closest hit for flat [P] SoA rays: kernel A over the 8-wide table,
+    or kernel 5 over the binary table when the knobs ask for it."""
     rays = torch.stack([*ray_o, *ray_d])
-    out = trace4(scene, rays, active, cfg)
+    walk = trace2 if knobs.binary_traverse() else trace4
+    out = walk(scene, rays, active, cfg)
     return TraversalResult(out[0], out[0] < cfg.t_max,
                            (out[1], out[2], out[3]),
                            (out[4], out[5], out[6]), out[7])

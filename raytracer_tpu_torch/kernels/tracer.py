@@ -1,9 +1,9 @@
 """Ray generation and bounce-0 shading in plain torch ops.
 
 The port of ``raytracer_tpu.kernels.tracer``'s pieces on the main path:
-``initial_seed``, ``make_primary_rays``, ``sky_color``, ``scatter`` and
-``shade``. Vectors are (x, y, z) tuples of flat [P] f32 tensors, and every
-expression keeps the JAX version's evaluation order, so results are
+``initial_seed``, ``make_primary_rays``, ``sky_color``, ``scatter``,
+``shade`` and ``fixed_light_color``. Vectors are (x, y, z) tuples of flat
+[P] f32 tensors, and every expression keeps the JAX version's evaluation order, so results are
 bit-equal where the JAX side is evaluated without FMA contraction.
 
 Division by a non-power-of-two constant goes through a 0-d tensor on the
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
@@ -131,15 +132,35 @@ def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
     return ray_o, ray_d, color, atten, sc.seed, sc.scattered
 
 
+# C12 light: 1 / sqrt(3) rounded once to f32, as XLA folds the constant.
+_INV_SQRT3 = float(np.float32(1.0) / np.sqrt(np.float32(3.0)))
+
+
+def fixed_light_color(res: TraversalResult):
+    """C12 shading (shaders/compute.comp:196-204): light direction
+    normalize(1, 1, 1), intensity max(0, n.l) * 0.8 + 0.2, albedo *
+    intensity on a hit, black elsewhere. Expects raw (unflipped) normals:
+    traversal with cfg.shading == "fixed_light"."""
+    ndotl = (res.normal[0] + res.normal[1] + res.normal[2]) * _INV_SQRT3
+    intensity = torch.clamp_min(ndotl, 0.0) * 0.8 + 0.2
+    zero = torch.zeros_like(intensity)
+    return tuple(torch.where(res.hit, a * intensity, zero)
+                 for a in res.mat_albedo)
+
+
 def make_primary_rays(cam: CameraUniforms, cfg: RenderConfig, seed, xx, yy,
-                      global_height: int):
+                      global_height: int, jitter: bool = True):
     """Jittered camera rays (compute_dynamic_ray.comp:158-173), SoA.
     xx/yy: flat int pixel coordinates (yy global). Returns (seed, ray_o,
-    ray_d) with ray_o broadcast views of the camera origin."""
+    ray_d) with ray_o broadcast views of the camera origin. ``jitter=False``
+    is the C12 ray-gen (compute.comp:123-124): no jitter, no draws."""
     p = xx.shape[0]
-    all_on = torch.ones(p, dtype=torch.bool, device=xx.device)
-    seed, ju = rng.random_float(seed, all_on)
-    seed, jv = rng.random_float(seed, all_on)
+    if jitter:
+        all_on = torch.ones(p, dtype=torch.bool, device=xx.device)
+        seed, ju = rng.random_float(seed, all_on)
+        seed, jv = rng.random_float(seed, all_on)
+    else:
+        ju = jv = torch.zeros(p, dtype=torch.float32, device=xx.device)
     u = (xx.to(torch.float32) + ju) / _const(cfg.width, ju)
     v = ((_const(global_height - 1, jv) - yy.to(torch.float32)) + jv) \
         / _const(global_height, jv)

@@ -111,7 +111,7 @@ def _host_tables(verts: np.ndarray, mats: np.ndarray):
 
 
 def build_fast_scene_from_arrays(verts: np.ndarray, mats: np.ndarray,
-                                 device="cpu") -> FastScene:
+                                 device="cuda") -> FastScene:
     """Pack a triangle soup (f32[T,3,3] verts, f32[T,4] rgb+type mats)
     into a FastScene on ``device``."""
     verts = np.asarray(verts, np.float32)
@@ -123,7 +123,7 @@ def build_fast_scene_from_arrays(verts: np.ndarray, mats: np.ndarray,
                      num_triangles=int(verts.shape[0]), num_nodes4=int(n4))
 
 
-def fast_scene_from_numpy(leaves: dict, device="cpu") -> FastScene:
+def fast_scene_from_numpy(leaves: dict, device="cuda") -> FastScene:
     """The JAX package's FastScene leaves (name -> np.asarray(leaf)) ->
     the port's FastScene on ``device``."""
     put = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
@@ -135,7 +135,8 @@ def fast_scene_from_numpy(leaves: dict, device="cpu") -> FastScene:
                      num_nodes4=int(leaves["num_nodes4"]))
 
 
-def camera_uniforms_from_numpy(leaves: dict, device="cpu") -> CameraUniforms:
+def camera_uniforms_from_numpy(leaves: dict,
+                               device="cuda") -> CameraUniforms:
     """The JAX package's CameraUniforms leaves (name -> np.asarray(leaf))
     -> the port's CameraUniforms on ``device`` (values taken as they are,
     already f32/i32)."""

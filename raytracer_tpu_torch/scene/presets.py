@@ -6,6 +6,7 @@ from typing import Sequence
 
 import numpy as np
 
+from raytracer_tpu_torch.core.camera import Camera
 from raytracer_tpu_torch.core.fast_types import FastScene
 from raytracer_tpu_torch.scene.builder import build_fast_scene_from_arrays
 from raytracer_tpu_torch.scene.objloader import load_obj
@@ -36,9 +37,27 @@ def flagship_arrays(search: Sequence[str] = ()):
     return verts, mats, "FinalBaseMesh"
 
 
-def flagship_scene(device="cpu", search: Sequence[str] = ()) -> FastScene:
+def flagship_scene(device="cuda", search: Sequence[str] = ()) -> FastScene:
     """The flagship scene packed on ``device``; prints which scene it
     used."""
     verts, mats, name = flagship_arrays(search)
     print(f"flagship scene: {name} ({verts.shape[0]} triangles)")
     return build_fast_scene_from_arrays(verts, mats, device=device)
+
+
+def c12_arrays():
+    """(verts, mats) of the ``c12_cube`` benchmark scene (``bench.py``): a
+    cube on a ground plane, one matte colour."""
+    cube = assets.make_cube() * 4.0 + np.array([0, -6, 0], np.float32)
+    plane = (assets.make_ground_plane() * np.array([150, 1, 150], np.float32)
+             + np.array([0, -10, 0], np.float32))
+    verts = np.concatenate([plane, cube]).astype(np.float32)
+    mats = np.zeros((verts.shape[0], 4), np.float32)
+    mats[:, 0:3] = (0.8, 0.3, 0.3)
+    return verts, mats
+
+
+def c12_camera(width: int = 640, height: int = 480) -> Camera:
+    """The ``c12_cube`` benchmark's fixed camera."""
+    return Camera(origin=(-10.0, 6.0, 30.0), look_at=(0.0, -6.0, 0.0),
+                  vfov_deg=40.0, aspect_ratio=width / height)

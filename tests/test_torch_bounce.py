@@ -58,7 +58,7 @@ def _keys_inputs(r, scene):
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
     verts, mats = _scene_arrays()
-    scene = build_fast_scene_from_arrays(verts, mats)
+    scene = build_fast_scene_from_arrays(verts, mats, device="cpu")
     r = np.random.default_rng(2024)
     uf, ui = _state(r, scene, np.full(W, 1 << 30))
     bf, bi = _state(r, scene, r.integers(0, 3, W))

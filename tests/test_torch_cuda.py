@@ -80,6 +80,83 @@ def test_bounce12_kernel_matches_plain(scene):
         assert torch.equal(cnt_k, cnt_p)
 
 
+def test_trace2_kernel_matches_plain(scene):
+    """Kernel 5 (binary walk) with the flip on and off."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.trace import trace2, trace2_plain
+
+    o, d = _rays(8192, 6)
+    rays = torch.cat([o, d]).contiguous()
+    active = torch.arange(8192, device="cuda") % 5 != 0
+    for shading in ("path", "fixed_light"):
+        cfg = RenderConfig(shading=shading)
+        got = trace2(scene, rays, active, cfg)
+        want = trace2_plain(scene, rays, active, cfg)
+        assert torch.equal(got, want), shading
+        assert (got[0] < cfg.t_max).float().mean() > 0.1
+
+
+def test_trace4_kernel_matches_plain_without_flip(scene):
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.trace import trace4, trace4_plain
+
+    o, d = _rays(8192, 7)
+    rays = torch.cat([o, d]).contiguous()
+    active = torch.ones(8192, dtype=torch.bool, device="cuda")
+    cfg = RenderConfig(shading="fixed_light")
+    assert torch.equal(trace4(scene, rays, active, cfg),
+                       trace4_plain(scene, rays, active, cfg))
+
+
+def _color_state(n, seed):
+    from raytracer_tpu_torch.kernels.bounce import pack_state
+
+    o, d = _rays(n, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    c = torch.rand((3, n), generator=g, device="cuda") * 0.2
+    a = torch.rand((3, n), generator=g, device="cuda")
+    rnd = torch.randint(0, 2 ** 32, (n,), generator=g, device="cuda")
+    alive = torch.rand(n, generator=g, device="cuda") < 0.8
+    budget = torch.randint(0, 4, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    return pack_state(tuple(o), tuple(d), tuple(a), rnd, alive, budget,
+                      torch.arange(n, device="cuda"), color=tuple(c))
+
+
+def test_bounce15_kernel_matches_plain(scene):
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.bounce import bounce15, bounce15_plain
+
+    state = _color_state(8192, 8)
+    for bcap in (1, 3, 9):
+        out_k, key_k, cnt_k = bounce15(scene, state, bcap, True,
+                                       RenderConfig())
+        out_p, key_p, cnt_p = bounce15_plain(scene, state, bcap, True,
+                                             RenderConfig())
+        assert torch.equal(out_k, out_p) and torch.equal(key_k, key_p)
+        assert torch.equal(cnt_k, cnt_p)
+
+
+def test_bounce_packed_kernel_matches_plain(scene):
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.bounce import (ROW_ALIVE, ROW_PIX,
+                                                    ROW_SEED, bounce_packed,
+                                                    bounce_packed_plain)
+
+    state = _color_state(8192, 9)
+    sf = torch.cat([state[0:12].view(torch.float32),
+                    state[ROW_ALIVE].float()[None]]).contiguous()
+    si = torch.stack([state[ROW_SEED], state[ROW_PIX],
+                      state[ROW_PIX] * 3]).contiguous()
+    for bcap in (1, 2):
+        got = bounce_packed(scene, sf, si, bcap, False, RenderConfig())
+        want = bounce_packed_plain(scene, sf, si, bcap, False,
+                                   RenderConfig())
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert torch.equal(got[1][1:], si[1:])
+
+
 def test_tonemap_kernel_matches_plain(scene):
     from raytracer_tpu_torch.kernels.tonemap import (tonemap_accumulate,
                                                      tonemap_plain)

@@ -1,0 +1,93 @@
+"""The port's entry points put their tensors on the card unless told
+otherwise.
+
+Each builder of scene tables or camera uniforms, called with no device,
+targets ``"cuda"``: on a machine without a card it raises instead of
+quietly handing back CPU tensors (on which every kernel wrapper would run
+its plain version); with a card its tensors lie there. Only the CPU tests
+pass ``device="cpu"``. The profiling app refuses to run without a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raytracer_tpu_torch.core.camera import Camera
+from raytracer_tpu_torch.core.types import CameraUniforms
+from raytracer_tpu_torch.scene import builder, presets
+from raytracer_tpu_torch.utils import assets
+
+
+def _tris():
+    verts = assets.make_cube().astype(np.float32)
+    mats = np.full((verts.shape[0], 4), 0.5, np.float32)
+    return verts, mats
+
+
+def _scene_leaves():
+    scene = builder.build_fast_scene_from_arrays(*_tris(), device="cpu")
+    return {"nodes8": scene.nodes8.numpy(),
+            "clusters": scene.clusters.numpy(),
+            "nodes4": scene.nodes4.numpy(), "num_nodes": scene.num_nodes,
+            "num_triangles": scene.num_triangles,
+            "num_nodes4": scene.num_nodes4}
+
+
+def _camera_leaves():
+    uni = Camera((0.0, 1.0, 5.0), (0.0, 0.0, 0.0)).uniforms(device="cpu")
+    return {"origin": uni.origin.numpy(),
+            "lower_left_corner": uni.lower_left_corner.numpy(),
+            "horizontal": uni.horizontal.numpy(),
+            "vertical": uni.vertical.numpy(), "frame_count": 3,
+            "sky_enabled": 1, "exposure": 0.0}
+
+
+ENTRY_POINTS = {
+    "CameraUniforms.create": lambda: CameraUniforms.create(
+        (0, 0, 0), (-1, -1, -1), (2, 0, 0), (0, 2, 0)).origin,
+    "Camera.uniforms": lambda: Camera(
+        (0.0, 1.0, 5.0), (0.0, 0.0, 0.0)).uniforms().horizontal,
+    "build_fast_scene_from_arrays": lambda: builder
+    .build_fast_scene_from_arrays(*_tris()).nodes4,
+    "fast_scene_from_numpy": lambda: builder.fast_scene_from_numpy(
+        _scene_leaves()).clusters,
+    "camera_uniforms_from_numpy": lambda: builder
+    .camera_uniforms_from_numpy(_camera_leaves()).frame_count,
+    "flagship_scene": lambda: presets.flagship_scene().nodes8,
+}
+
+
+@pytest.fixture
+def has_card():
+    return torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(monkeypatch, has_card, name):
+    # A small stand-in for the 49k-triangle flagship mesh.
+    monkeypatch.setattr(presets, "flagship_arrays",
+                        lambda search=(): (*_tris(), "cube"))
+    make = ENTRY_POINTS[name]
+    if has_card:
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError),
+                           match="CUDA|cuda"):
+            make()
+
+
+def test_profile_app_needs_a_card(has_card):
+    from raytracer_tpu_torch.apps import profile
+
+    with pytest.raises(SystemExit):
+        profile.main(["--paths", "nonsense"] if has_card else ["--help"])
+    if not has_card:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            profile.main(["--paths", "default"])
+
+
+def test_profile_busy_time_is_the_union_of_intervals():
+    from raytracer_tpu_torch.apps.profile import _busy_us
+
+    assert _busy_us([]) == 0.0
+    assert _busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17.0

@@ -1,0 +1,122 @@
+"""The bounce paths behind the knobs, through the port's Renderer.
+
+``test_path_matches_jax``: one 64x32 two-band frame (``band_rays=1024``,
+``max_bounces=4``, the two-cube scene of ``tests/test_torch_renderer.py``)
+through the port's ``Renderer`` and the JAX ``Renderer`` with the same
+knobs, for ``RAYTPU_BOUNCE=pmega``, ``RAYTPU_WAVE=fused``,
+``RAYTPU_WAVE=fused_packed`` and ``RAYTPU_WAVE=split`` with
+``RAYTPU_TRAVERSE=binary``. The tolerance is the main path's frame test's:
+linear accumulator within 2e-5, u8 image equal except on pixels whose
+bounce-0 hit is an equal-t tie (at most 0.5%), ``rays_traced`` equal.
+
+``test_engines_render_the_default_frame``: the port alone, at 128x64 with
+two bands of 4096 rays, where the cross-band tail merge is live (the JAX
+side is too slow there in interpret mode): every path whose rounds use
+the kernels' two-step u32 -> f32 draw renders the default path's frame bit
+for bit, since each ray's path depends only on its pixel's seed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_renderer import _bounce0_tie_pixels, _sub, _two_cubes
+from torch_jax_refs import run_job
+
+from raytracer_tpu_torch import knobs
+from raytracer_tpu_torch.core.camera import Camera
+from raytracer_tpu_torch.core.types import RenderConfig
+from raytracer_tpu_torch.engine.renderer import Renderer, _num_bands
+from raytracer_tpu_torch.kernels import launches, wavefront
+from raytracer_tpu_torch.kernels.packet import tail_merge_widths
+from raytracer_tpu_torch.scene.builder import (build_fast_scene_from_arrays,
+                                               camera_uniforms_from_numpy,
+                                               fast_scene_from_numpy)
+
+torch.set_num_threads(2)
+
+CFG = dict(width=64, height=32, max_bounces=4, band_rays=1024)
+PATHS = {
+    "pmega": ({"RAYTPU_BOUNCE": "pmega"}, {"trace4", "bounce15"}),
+    "fused": ({"RAYTPU_WAVE": "fused"}, {"trace4", "bounce15"}),
+    "fused_packed": ({"RAYTPU_WAVE": "fused_packed"},
+                     {"trace4", "bounce_packed"}),
+    "split_binary": ({"RAYTPU_WAVE": "split", "RAYTPU_TRAVERSE": "binary"},
+                     {"trace2"}),
+}
+CAM = dict(cam_origin=np.array([-10.0, 6.0, 30.0]),
+           cam_look=np.array([0.0, -6.0, 0.0]), cam_vfov=40.0)
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_path_matches_jax(tmp_path, monkeypatch, path):
+    env, kernels = PATHS[path]
+    verts, mats = _two_cubes()
+    inp = dict(verts=verts, mats=mats, frames=1, **CAM,
+               **{f"cfg_{k}": v for k, v in CFG.items()})
+    ref = run_job("frames", inp, tmp_path, env=env)
+    scene = fast_scene_from_numpy(_sub(ref, "scene_"), device="cpu")
+    uni = camera_uniforms_from_numpy(_sub(ref, "cam0_"), device="cpu")
+    cfg = RenderConfig(**CFG)
+    assert _num_bands(cfg) == 2
+    monkeypatch.setattr(wavefront, "MIN_WIDTH", 2048)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    launches.reset()
+    accum, image, stats = Renderer(cfg).render(scene, uni)
+    assert set(launches.plain) == kernels | {"tonemap"}
+    np.testing.assert_allclose(accum.numpy(), ref["accum_0"], rtol=0,
+                               atol=2e-5)
+    differ = (image.numpy() != ref["image_0"]).any(-1)
+    ties = _bounce0_tie_pixels(scene, cfg, uni)
+    assert not (differ & ~ties).any(), np.argwhere(differ & ~ties)[:10]
+    assert differ.mean() <= 0.005
+    assert int(stats["rays_traced"]) == int(ref["rays_0"])
+    assert np.isfinite(accum.numpy()).all() and accum.max() > 0
+
+
+@pytest.fixture(scope="module")
+def default_frame():
+    verts, mats = _two_cubes()
+    scene = build_fast_scene_from_arrays(verts, mats, device="cpu")
+    cfg = RenderConfig(width=128, height=64, max_bounces=4, band_rays=4096)
+    uni = Camera(origin=CAM["cam_origin"], look_at=CAM["cam_look"],
+                 vfov_deg=CAM["cam_vfov"], aspect_ratio=2.0).uniforms(
+        device="cpu")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(wavefront, "MIN_WIDTH", 2048)
+    accum, _, stats = Renderer(cfg).render(scene, uni)
+    nb = _num_bands(cfg)
+    assert tail_merge_widths(cfg, cfg.height // nb, nb) == (2048, 4096)
+    mp.undo()
+    return scene, cfg, uni, accum, int(stats["rays_traced"])
+
+
+@pytest.mark.parametrize("env", [
+    {"RAYTPU_BOUNCE": "pmega"}, {"RAYTPU_WAVE": "fused"},
+    {"RAYTPU_WAVE": "fused_packed"}, {"RAYTPU_TRAVERSE": "binary"},
+    {"RAYTPU_NODE_SRC": "extract", "RAYTPU_BOUNCE": "pmega"}])
+def test_engines_render_the_default_frame(default_frame, monkeypatch, env):
+    scene, cfg, uni, want, rays = default_frame
+    monkeypatch.setattr(wavefront, "MIN_WIDTH", 2048)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    launches.reset()
+    accum, _, stats = Renderer(cfg).render(scene, uni)
+    assert accum.numpy().tobytes() == want.numpy().tobytes()
+    assert int(stats["rays_traced"]) == rays
+    # The colour-carrying tail ran where the merge applies.
+    merged = knobs.tail_merge_active(cfg)
+    assert merged == (env.get("RAYTPU_BOUNCE") != "pmega")
+    if env.get("RAYTPU_WAVE", "").startswith("fused"):
+        assert launches.plain["bounce15"] > 0
+
+
+@pytest.mark.parametrize("knob, value", [
+    ("RAYTPU_BOUNCE", "mega"), ("RAYTPU_B0", "pwave"), ("RAYTPU_B0", "mega"),
+    ("RAYTPU_WAVE", "fused16"), ("RAYTPU_NODE_SRC", "smem")])
+def test_unported_knob_values_raise(default_frame, monkeypatch, knob, value):
+    scene, cfg, uni, _, _ = default_frame
+    monkeypatch.setenv(knob, value)
+    with pytest.raises(NotImplementedError, match=knob):
+        Renderer(cfg).render(scene, uni)

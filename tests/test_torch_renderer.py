@@ -58,7 +58,7 @@ def case(tmp_path_factory):
                cam_look=np.array([0.0, -6.0, 0.0]), cam_vfov=40.0,
                **{f"cfg_{k}": v for k, v in CFG.items()})
     ref = run_job("renderer", inp, tmp_path_factory.mktemp("render"))
-    scene = fast_scene_from_numpy(_sub(ref, "scene_"))
+    scene = fast_scene_from_numpy(_sub(ref, "scene_"), device="cpu")
     mp = pytest.MonkeyPatch()
     mp.setattr(wavefront, "MIN_WIDTH", 2048)
     cfg = RenderConfig(**CFG)
@@ -66,7 +66,8 @@ def case(tmp_path_factory):
     frames, accum = [], None
     launches.reset()
     for fc in range(FRAMES):
-        uni = camera_uniforms_from_numpy(_sub(ref, f"cam{fc}_"))
+        uni = camera_uniforms_from_numpy(_sub(ref, f"cam{fc}_"),
+                                         device="cpu")
         accum, image, stats = r.render(scene, uni, accum)
         frames.append((accum.clone(), image, stats, uni))
     counts = dict(launches.plain)
@@ -122,7 +123,7 @@ def test_band_layouts_render_identically(case, bounces):
     merge) render the same image bit for bit (also at one bounce, where
     no round runs)."""
     scene, _, ref, _, _, _ = case
-    uni = camera_uniforms_from_numpy(_sub(ref, "cam0_"))
+    uni = camera_uniforms_from_numpy(_sub(ref, "cam0_"), device="cpu")
     mp = pytest.MonkeyPatch()
     mp.setattr(wavefront, "MIN_WIDTH", 2048)
     images = []

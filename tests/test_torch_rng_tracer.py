@@ -68,7 +68,7 @@ def _uniforms(inp):
                  vfov_deg=float(inp["cam_vfov"]),
                  aspect_ratio=float(inp["cam_aspect"]))
     cam.frame_count = int(inp["fc"])
-    return cam.uniforms()
+    return cam.uniforms(device="cpu")
 
 
 def test_pcg_bit_equal(case):

@@ -62,7 +62,7 @@ def _jax_leaves(verts, mats):
 def test_tables_equal_jax_bytes(make):
     verts, mats = make()
     ref = _jax_leaves(verts, mats)
-    got = build_fast_scene_from_arrays(verts, mats)
+    got = build_fast_scene_from_arrays(verts, mats, device="cpu")
     for name in TABLES:
         t = getattr(got, name).numpy()
         assert t.shape == ref[name].shape, name
@@ -74,7 +74,7 @@ def test_tables_equal_jax_bytes(make):
 
 def test_fast_scene_from_numpy_round_trip():
     ref = _jax_leaves(*_terrain())
-    fs = fast_scene_from_numpy(ref)
+    fs = fast_scene_from_numpy(ref, device="cpu")
     for name in TABLES:
         assert getattr(fs, name).numpy().tobytes() == ref[name].tobytes()
     assert [getattr(fs, n) for n in COUNTS] == [int(ref[n]) for n in COUNTS]
@@ -94,7 +94,7 @@ def test_cluster_rows_are_packed_records():
     """Each used cluster slot holds pack_tri_records of one input
     triangle (the native packer's layout)."""
     verts, mats = _cube_plane()
-    fs = build_fast_scene_from_arrays(verts, mats)
+    fs = build_fast_scene_from_arrays(verts, mats, device="cpu")
     recs = pack_tri_records(verts.reshape(-1, 9), mats)
     slots = fs.clusters.numpy().reshape(-1, 16)
     used = slots[np.abs(slots).sum(1) > 0]

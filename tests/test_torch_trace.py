@@ -68,7 +68,7 @@ def _random_rays(scene):
 def _primary_rays():
     cfg = RenderConfig(width=32, height=32)
     cam = Camera(origin=(-30.0, 25.0, 60.0), look_at=(0.0, 2.0, 0.0),
-                 vfov_deg=35.0, aspect_ratio=1.0).uniforms()
+                 vfov_deg=35.0, aspect_ratio=1.0).uniforms(device="cpu")
     xx, yy, alive = _tile_major_pixels(32, 32, P, "cpu")
     seed = initial_seed(cam, cfg, yy * 32 + xx, 0)
     _, o, d = make_primary_rays(cam, cfg, seed, xx, yy, 32)
@@ -78,7 +78,7 @@ def _primary_rays():
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
     verts, mats = _scene_arrays()
-    scene = build_fast_scene_from_arrays(verts, mats)
+    scene = build_fast_scene_from_arrays(verts, mats, device="cpu")
     rand_rays, rand_active = _random_rays(scene)
     prim_rays, prim_active = _primary_rays()
     inp = dict(verts=verts, mats=mats, rand_rays=rand_rays,

@@ -7,8 +7,9 @@ Run as a script in a child process:
 It loads the job's inputs (made by the test from a numpy seed), runs the
 JAX package on the CPU the way its own tests do (Pallas kernels in
 interpret mode, the production knobs ``RAYTPU_B0=pallas``,
-``RAYTPU_BOUNCE=wave``, ``RAYTPU_TAIL_MERGE=1``, ``wavefront.MIN_WIDTH``
-patched to 2048) and saves the results.
+``RAYTPU_BOUNCE=wave``, ``RAYTPU_TAIL_MERGE=1`` unless the job's ``env``
+sets other path knobs, ``wavefront.MIN_WIDTH`` patched to 2048) and saves
+the results.
 
 Why a child process: XLA:CPU contracts ``a * b + c`` into fused
 multiply-adds on a CPU that has them, so the JAX side would round
@@ -29,11 +30,14 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_job(job: str, inputs: dict, tmp_path) -> dict:
-    """Run ``job`` in a child process -> dict of numpy results."""
+def run_job(job: str, inputs: dict, tmp_path, env: dict | None = None
+            ) -> dict:
+    """Run ``job`` in a child process -> dict of numpy results. ``env``:
+    path knobs (``RAYTPU_*``) for the child, over the production ones."""
     src = os.path.join(str(tmp_path), f"{job}_in.npz")
     dst = os.path.join(str(tmp_path), f"{job}_out.npz")
     np.savez(src, **inputs)
+    extra = dict(env or {})
     env = dict(os.environ)
     env.update({"JAX_PLATFORMS": "cpu",
                 "XLA_FLAGS": "--xla_cpu_max_isa=AVX "
@@ -41,6 +45,7 @@ def run_job(job: str, inputs: dict, tmp_path) -> dict:
                 "RAYTPU_B0": "pallas", "RAYTPU_BOUNCE": "wave",
                 "RAYTPU_TAIL_MERGE": "1",
                 "PYTHONPATH": _REPO + os.pathsep + env.get("PYTHONPATH", "")})
+    env.update(extra)
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), job,
                            src, dst], env=env, capture_output=True,
                           text=True, timeout=600)
@@ -113,6 +118,80 @@ def job_trace(inp):
         out[f"{name}_out"] = np.stack(
             [np.asarray(res.closest_t), *map(np.asarray, res.normal),
              *map(np.asarray, res.mat_albedo), np.asarray(res.mat_type)])
+    return out
+
+
+def job_trace_shadings(inp):
+    """pallas_traverse (interpret mode) on one ray set with each of the
+    job's ``shadings``: "path" (normal flipped) and "fixed_light" (raw
+    normal), under the job's knobs (``RAYTPU_TRAVERSE=binary`` for kernel
+    5)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from raytracer_tpu.kernels.pallas_trace import pallas_traverse
+
+    scene, cfg = _scene(inp), _cfg(inp)
+    out = _leaves(scene, "scene_")
+    rays = inp["rays"]
+    for shading in inp["shadings"]:
+        res = pallas_traverse(
+            scene, tuple(jnp.asarray(r) for r in rays[0:3]),
+            tuple(jnp.asarray(r) for r in rays[3:6]),
+            jnp.asarray(inp["active"]),
+            dataclasses.replace(cfg, shading=shading), interpret=True)
+        out[f"{shading}_out"] = np.stack(
+            [np.asarray(res.closest_t), *map(np.asarray, res.normal),
+             *map(np.asarray, res.mat_albedo), np.asarray(res.mat_type)])
+    return out
+
+
+def job_bounce15(inp):
+    """The colour-carrying kernel (bounce_megakernel, interpret, key_mode
+    cid, sub 16) at each bcap in ``bcaps`` on one state, and the packed
+    kernel (bounce_megakernel_packed) at bcap 1 on the same rays."""
+    import jax.numpy as jnp
+
+    from raytracer_tpu.kernels.pallas_mega import (bounce_megakernel,
+                                                   bounce_megakernel_packed)
+
+    scene, cfg = _scene(inp), _cfg(inp)
+    out = _leaves(scene, "scene_")
+    num4 = jnp.asarray(scene.num_nodes4, jnp.int32).reshape(1)
+    bounds = scene.nodes8[0, :6]
+    sky = jnp.asarray([int(inp["sky"])], jnp.int32)
+    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, det_eps=cfg.det_eps,
+              interpret=True, key_mode="cid")
+    f = inp["f"]                        # f32[13, w]: o3 d3 c3 a3 act
+    i = inp["i"]                        # i32[3, w]: seed bits, budget, pix
+    blocks = tuple(jnp.asarray(f[j]).reshape(-1, 128) for j in range(12)) + (
+        jnp.asarray(i[0]).reshape(-1, 128),
+        jnp.asarray(f[12]).reshape(-1, 128),
+        jnp.asarray(i[1]).reshape(-1, 128))
+    for bcap in inp["bcaps"]:
+        outs = bounce_megakernel(
+            scene.nodes4, scene.clusters, num4, blocks,
+            jnp.asarray([int(bcap)], jnp.int32), sky, bounds, 16,
+            float(cfg.fuzz), bool(cfg.emissive_emits), **kw)
+        out[f"b{bcap}_f"] = np.stack([np.asarray(outs[j]).reshape(-1)
+                                      for j in (*range(12), 13)])
+        out[f"b{bcap}_i"] = np.stack([np.asarray(outs[j]).reshape(-1)
+                                      for j in (12, 14, 17)])
+        out[f"b{bcap}_rays"] = np.float64(np.asarray(outs[15]).sum())
+        out[f"b{bcap}_live"] = np.float64(np.asarray(outs[16]).sum())
+    si = np.stack([i[0], i[2], i[2] * 3])
+    sfo, sio, rays, live, key = bounce_megakernel_packed(
+        scene.nodes4, scene.clusters, num4,
+        jnp.asarray(f).reshape(13, -1, 128),
+        jnp.asarray(si).reshape(3, -1, 128), jnp.asarray([1], jnp.int32),
+        sky, bounds, 16, float(cfg.fuzz), bool(cfg.emissive_emits), **kw)
+    out["packed_si_in"] = si
+    out["packed_sf"] = np.asarray(sfo).reshape(13, -1)
+    out["packed_si"] = np.asarray(sio).reshape(3, -1)
+    out["packed_key"] = np.asarray(key).reshape(-1)
+    out["packed_rays"] = np.float64(np.asarray(rays).sum())
+    out["packed_live"] = np.float64(np.asarray(live).sum())
     return out
 
 
@@ -232,21 +311,29 @@ def job_rng(inp):
 
 def job_renderer(inp):
     """The JAX Renderer, production knobs, frames 0 and 1."""
+    from raytracer_tpu.engine.renderer import _num_bands
+    from raytracer_tpu.kernels.packet import (tail_merge_active,
+                                              tail_merge_widths)
+
+    scene, cfg = _scene(inp), _cfg(inp)
+    nb = _num_bands(cfg)
+    assert tail_merge_active(scene, cfg)
+    out = job_frames(inp)
+    out["tail_merge_widths"] = np.asarray(
+        tail_merge_widths(cfg, cfg.height // nb, nb))
+    return out
+
+
+def job_frames(inp):
+    """The JAX Renderer under the job's knobs: ``frames`` progressive
+    frames of the job's scene, config and camera."""
     import raytracer_tpu.kernels.wavefront as wf
     from raytracer_tpu.core.camera import Camera
     from raytracer_tpu.engine.renderer import Renderer
-    from raytracer_tpu.kernels.packet import (tail_merge_active,
-                                              tail_merge_widths)
 
     wf.MIN_WIDTH = 2048
     scene, cfg = _scene(inp), _cfg(inp)
     out = _leaves(scene, "scene_")
-    from raytracer_tpu.engine.renderer import _num_bands
-
-    nb = _num_bands(cfg)
-    assert tail_merge_active(scene, cfg)
-    out["tail_merge_widths"] = np.asarray(
-        tail_merge_widths(cfg, cfg.height // nb, nb))
     cam = Camera(origin=inp["cam_origin"], look_at=inp["cam_look"],
                  vfov_deg=float(inp["cam_vfov"]),
                  aspect_ratio=cfg.width / cfg.height)
@@ -264,7 +351,9 @@ def job_renderer(inp):
 
 
 JOBS = {"trace": job_trace, "bounce": job_bounce,
-        "tonemap": job_tonemap, "rng": job_rng, "renderer": job_renderer}
+        "tonemap": job_tonemap, "rng": job_rng, "renderer": job_renderer,
+        "trace_shadings": job_trace_shadings, "bounce15": job_bounce15,
+        "frames": job_frames}
 
 
 if __name__ == "__main__":
