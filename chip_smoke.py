@@ -20,6 +20,9 @@ Phases, one or more lines each (any failure raises and exits non-zero):
    bounce-1 band state at bcap 1 (a ``fused`` round) and on the same state
    sorted by the pmega host key at bcap 9 (the pmega call); the packed
    kernel on the bounce-1 state as the ``fused_packed`` round sorts it;
+   kernel A and kernel B on a hand-built 36-level tree whose walk pushes
+   246 stack entries (``presets.stack_limit_scene``, need 253 of the
+   256-slot stack), bit-equal;
 4. the main path at full size: the flagship scene, ``Renderer`` with
    ``RenderConfig()`` (1280x720, 10 bounces), one warm frame, then 16
    progressive frames with the launch counts of every kernel; writes
@@ -36,7 +39,9 @@ Phases, one or more lines each (any failure raises and exits non-zero):
 8. a 256x128 frame per new path through the kernels and the plain
    versions, compared;
 
-then a JSON line of per-kernel results and, last, the JSON result line.
+then a JSON line of per-kernel results (with each CUDA kernel's
+registers, local and shared bytes and resident blocks per SM as the main
+path launches it) and, last, the JSON result line.
 Each path run resets the launch counts just before it, reads them just
 after and fails unless each of its kernels launched and no plain version
 ran. Imports nothing of JAX.
@@ -62,12 +67,14 @@ TIE_FRACTION_MAX = 0.005   # lanes / pixels explained by equal-t ties
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 # Operations per unit of work the plain versions count
-# (``launches.work``), priced from the kernels' arithmetic: an 8-wide node
-# visit (8 slab tests and centroid keys, 19 comparators; pallas_trace.py
-# :332-350), a binary node visit (one slab test), a Moller-Trumbore
-# triangle test (:436-451), a PCG draw with its u32 -> f32 conversion, and
-# the rest of one ray's shade (sky, Lambert / metal directions, carry).
-OPS = {"visits4": 283, "visits2": 25, "tris": 54, "draws": 12,
+# (``launches.work``: only the work the function needs), priced from the
+# kernels' arithmetic: the slab test and centroid key of a live child slot
+# of an 8-wide node (pallas_trace.py:332-350), one run of the
+# 19-comparator network (a visit that pushes two children or more), a
+# binary node visit (one slab test), a Moller-Trumbore test of a live
+# triangle (:436-451), a PCG draw with its u32 -> f32 conversion, and the
+# rest of one ray's shade (sky, Lambert / metal directions, carry).
+OPS = {"slots4": 33, "nets4": 19, "visits2": 25, "tris": 54, "draws": 12,
        "shades": 70}
 
 
@@ -341,6 +348,45 @@ def check_bounce(scene, cfg, cam, results):
                                plain_ms=plain_ms, **b)
 
 
+def check_stack_limit():
+    """Kernels A and B on a tree close to the deepest the stack takes
+    (need 253 of 256 slots): bit-equal to the plain versions in every
+    lane."""
+    from raytracer_tpu_torch.bvh.bvh4 import nodes4_stack_need
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.bounce import (bounce12,
+                                                    bounce12_plain,
+                                                    pack_state)
+    from raytracer_tpu_torch.kernels.trace import trace4, trace4_plain
+    from raytracer_tpu_torch.scene import presets
+
+    n = 16384
+    scene, rays = presets.stack_limit_scene(n)
+    cfg = RenderConfig()
+    active = torch.ones(n, dtype=torch.bool, device="cuda")
+    got = trace4(scene, rays, active, cfg)
+    want, work = plain_work(lambda: trace4_plain(scene, rays, active, cfg))
+    lanes = int((got.view(torch.int32) != want.view(torch.int32))
+                .any(0).sum())
+    g = torch.Generator(device="cuda").manual_seed(17)
+    seed = torch.randint(0, 2 ** 32, (n,), generator=g, device="cuda")
+    state = pack_state(tuple(rays[0:3]), tuple(rays[3:6]),
+                       (torch.ones(n, device="cuda"),) * 3, seed, active, 4,
+                       torch.arange(n, device="cuda"))
+    out_k = bounce12(scene, state, 1, True, cfg)
+    out_p = bounce12_plain(scene, state, 1, True, cfg)
+    lanes_b = int(((out_k[0] != out_p[0]).any(0)
+                   | (out_k[1] != out_p[1])).sum())
+    print(f"check stack limit ({scene.num_nodes4} wide nodes, need "
+          f"{nodes4_stack_need(scene.nodes4.cpu().numpy())}, plain walk "
+          f"reached {work['stack4_max']}), "
+          f"{n} rays: kernel A differing lanes {lanes}, kernel B differing "
+          f"lanes {lanes_b}, counts {out_k[2].tolist()} vs "
+          f"{out_p[2].tolist()}")
+    assert lanes == 0 and torch.equal(got, want)
+    assert lanes_b == 0 and torch.equal(out_k[2], out_p[2])
+
+
 def compare_outputs(got, want, ties, label):
     """Kernel vs plain outputs (tuples of tensors, ray axis last): lanes
     differing in any output must be walk tie lanes -> (differing lanes,
@@ -573,6 +619,7 @@ def main() -> None:
     check_trace2(scene, cfg, uni, (scene12, cfg12, cam12.uniforms()),
                  results)
     check_color_kernels(scene, cfg, uni, results)
+    check_stack_limit()
 
     # Phase 4: the main path at full size.
     main_run = run_path("main path", scene, cfg, cam, 16, {},
@@ -666,6 +713,9 @@ def main() -> None:
                          "raytracer_tpu/kernels/pallas_mega.py:800"),
             "bounce_packed": ("cuda", "raytracer_tpu_torch/csrc/bounce12.cu",
                               "raytracer_tpu/kernels/pallas_mega.py:645")}
+    for k, (route, _, _) in srcs.items():
+        attrs = cuda_build.kernel_attrs(k) if route == "cuda" else {}
+        results[k].update({a: attrs.get(a) for a in cuda_build.ATTRS})
     paths = {"main": main_run, "pmega": pmega_run, "fused": fused_run,
              "fused_packed": packed_run, "split_binary": split_run,
              "c12_bvh4": c12_runs["trace4"], "c12_binary": c12_runs["trace2"]}

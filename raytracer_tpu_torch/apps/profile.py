@@ -80,17 +80,19 @@ def profile_path(scene, cfg, env: dict, frames: int, warm: int) -> dict:
     span = (max(e for _, e in intervals) - min(s for s, _ in intervals)
             if intervals else 0.0)
     busy = _busy_us(intervals)
+    # Summed by the first 60 characters of the name, so the kernels of one
+    # template (PyTorch's elementwise kernels) count as one entry.
     by_name: dict = {}
     for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
-                                                      - e.time_range.start)
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
+            e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms_per_frame": wall / frames * 1e3,
             "device_busy_ms_per_frame": busy / frames / 1e3,
             "device_idle_share": 1.0 - busy / span if span else None,
             "device_launches_per_frame": len(dev) / frames,
             "top_kernels_ms_per_frame": {
-                n[:60]: t / frames / 1e3 for n, t in top}}
+                n: t / frames / 1e3 for n, t in top}}
 
 
 def main(argv=None) -> int:

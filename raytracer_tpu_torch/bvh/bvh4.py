@@ -17,8 +17,32 @@ from raytracer_tpu_torch.core.fast_types import (CLUSTER_SIZE,
 
 # Traversal stack bound of kernels A and B: each visit pops 1 and pushes at
 # most WIDE_WIDTH entries, so the stack never exceeds (WIDE_WIDTH-1) *
-# depth + 1. The collapse refuses to build a tree deeper than that.
+# depth + 1 (``stack_need``). The collapse refuses to build a tree that
+# would need more than STACK_CAP slots, and ``fast_scene_from_numpy``
+# refuses such a table built elsewhere.
 STACK_CAP = 256
+
+
+def stack_need(max_depth: int) -> int:
+    """Stack slots a walk of a wide tree of this maximum node depth (root
+    at 0) can reach."""
+    return (WIDE_WIDTH - 1) * (max_depth + 1) + 1
+
+
+def nodes4_stack_need(nodes4: np.ndarray) -> int:
+    """``stack_need`` of a wide table, from a depth pass over its internal
+    children (meta > 0) from the root row. Stops at the first depth whose
+    need passes STACK_CAP, so a table with a cycle ends too."""
+    meta = np.asarray(nodes4, np.float32).reshape(
+        nodes4.shape[0], WIDE_WIDTH, 16)[:, :, 6]
+    level, depth = np.zeros(1, np.int64), 0
+    while stack_need(depth) <= STACK_CAP:
+        m = meta[level]
+        level = np.unique(m[m > 0]).astype(np.int64) - 1
+        if level.size == 0:
+            break
+        depth += 1
+    return stack_need(depth)
 
 
 def collapse4(nodes8: np.ndarray, num_nodes: int,
@@ -78,7 +102,7 @@ def collapse4(nodes8: np.ndarray, num_nodes: int,
         while pending:
             create(pending.pop())
 
-    worst_sp = (width - 1) * (max_depth + 1) + 1
+    worst_sp = stack_need(max_depth)
     if worst_sp > STACK_CAP:
         raise ValueError(
             f"wide-BVH depth {max_depth + 1} would need {worst_sp} stack "

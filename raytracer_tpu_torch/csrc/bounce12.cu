@@ -29,16 +29,19 @@
 // the carry (:483-504) the deposit replaces atten and a budget kill
 // blacks it out.
 //
-// What bounds it on an H100: the walk (walk.cuh: dependent L2/L1 loads of
-// node and cluster rows, warp divergence) plus, per hit, a short
-// integer-heavy shade (PCG draws of the bounded rejection sampler). Rays
-// arrive sorted by the carried key (winner cluster, then direction
-// octant), so neighbouring threads tend to walk similar paths; the design
-// leans on that order and otherwise stays simple: one thread per ray, the
-// state read once and written once, counts reduced per warp before one
-// atomic each. In the pmega call (bcap 9) a warp runs until its longest
-// path ends; coherent-warp traversal and ray compaction inside the call
-// are later work.
+// What bounds it on an H100: the walk (walk.cuh: issued instructions and
+// divergence, not bytes) plus, per hit, a short integer-heavy shade (PCG
+// draws of the bounded rejection sampler). At 0.25 ms for a sorted
+// 307,200-ray bounce-1 round it runs at about 21x the least time the
+// card needs to read and write its state, which is more than its live
+// work's operations need (PERF.md). Rays arrive sorted by the carried key
+// (winner cluster, then direction octant), so neighbouring threads tend
+// to walk similar paths; one thread runs one ray, the state is read once
+// and written once, and counts are reduced per warp before one atomic
+// each. Blocks of 128 threads: about 66 registers give 7 resident blocks
+// per SM; other block sizes and a register cap measured no faster. In
+// the pmega call (bcap 9) a warp runs until its longest path ends;
+// compaction inside the call is later work.
 //
 // RNG: PCG and the two-step u32 -> f32 conversion of pallas_mega._unit
 // (i32 convert, then + 2^32 when negative: two roundings, unlike the
@@ -56,6 +59,7 @@
 namespace {
 
 constexpr int kRejectionRounds = 24;  // kernels/rng.py REJECTION_ROUNDS
+constexpr int kThreads = 128;
 
 __device__ __forceinline__ uint32_t pcg(uint32_t v) {
   const uint32_t state = v * 747796405u + 2891336453u;
@@ -251,7 +255,7 @@ __device__ __forceinline__ void add_counts(unsigned long long* counts,
 // Round state i32[13 | 16, w]: the float rows, then seed, alive, budget,
 // pixel id.
 template <bool CarryColor>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
     bounce_kernel(Params q, const int32_t* __restrict__ st_in,
                   int32_t* __restrict__ st_out, int32_t* __restrict__ key_out,
                   unsigned long long* __restrict__ counts) {
@@ -306,7 +310,7 @@ __global__ void __launch_bounds__(128)
 
 // Packed state: sf f32[13, w], si i32[si_rows, w] (seed, then rows passed
 // through); the budget is the constant 1 << 30.
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
     bounce_packed_kernel(Params q, int si_rows,
                          const float* __restrict__ sf_in,
                          const int32_t* __restrict__ si_in,
@@ -361,8 +365,6 @@ Params make_params(const void* nodes4, const void* clusters, int w, int bcap,
                 sky_on, emissive_emits, fuzz, t_min, t_max, det_eps};
 }
 
-constexpr int kThreads = 128;
-
 }  // namespace
 
 extern "C" int rt_bounce12(const void* nodes4, const void* clusters,
@@ -382,6 +384,10 @@ extern "C" int rt_bounce12(const void* nodes4, const void* clusters,
   return (int)cudaGetLastError();
 }
 
+extern "C" int rt_bounce12_attrs(int* out) {
+  return rt::kernel_attrs(bounce_kernel<false>, kThreads, out);
+}
+
 extern "C" int rt_bounce15(const void* nodes4, const void* clusters,
                            const void* state_in, void* state_out, void* key,
                            void* counts, int w, int bcap, int sky_on,
@@ -397,6 +403,10 @@ extern "C" int rt_bounce15(const void* nodes4, const void* clusters,
             (unsigned long long*)counts);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int rt_bounce15_attrs(int* out) {
+  return rt::kernel_attrs(bounce_kernel<true>, kThreads, out);
 }
 
 extern "C" int rt_bounce_packed(const void* nodes4, const void* clusters,
@@ -415,4 +425,8 @@ extern "C" int rt_bounce_packed(const void* nodes4, const void* clusters,
         (int32_t*)si_out, (int32_t*)key, (unsigned long long*)counts);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int rt_bounce_packed_attrs(int* out) {
+  return rt::kernel_attrs(bounce_packed_kernel, kThreads, out);
 }

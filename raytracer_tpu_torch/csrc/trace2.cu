@@ -37,7 +37,9 @@
 
 namespace {
 
-__global__ void __launch_bounds__(128)
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
     trace2_kernel(const float* __restrict__ nodes8,
                   const float* __restrict__ clusters,
                   const float* __restrict__ rays,
@@ -96,12 +98,15 @@ extern "C" int rt_trace2(const void* nodes8, const void* clusters,
                          int p, int num_nodes, float t_min, float t_max,
                          float det_eps, int flip, void* stream) {
   if (p > 0) {
-    const int threads = 128;
-    const int blocks = (p + threads - 1) / threads;
-    trace2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int blocks = (p + kThreads - 1) / kThreads;
+    trace2_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)nodes8, (const float*)clusters, (const float*)rays,
         (const uint8_t*)active, (float*)out, p, num_nodes, t_min, t_max,
         det_eps, flip);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int rt_trace2_attrs(int* out) {
+  return rt::kernel_attrs(trace2_kernel, kThreads, out);
 }

@@ -6,17 +6,13 @@
 // the tables resident in VMEM; this one gives every ray its own thread and
 // its own stack (walk.cuh).
 //
-// What bounds it on an H100: dependent loads. Each visit reads a 512-byte
-// node row, then 512-byte cluster rows for hit leaves, and the next node
-// id depends on the result. The flagship tables (about 2 MB of nodes4 and
-// 4 MB of clusters) stay in the 50 MB L2, so the loads are L2/L1 latency
-// rather than HBM bandwidth, and warp divergence (lanes of a warp walking
-// different paths) decides how many of them a warp waits on. The design
-// answers this only simply for now: read-only loads through the L1
-// (__ldg), rays in tile-major pixel order so a warp's primaries are
-// coherent, the stack in thread-local memory (cached in L1), and small
-// blocks (128 threads) for occupancy. Warp-coherent traversal, a
-// shared-memory stack and persistent threads are later work.
+// What bounds it on an H100: the walk's issued instructions and its
+// divergence (walk.cuh), not bytes: at 0.17 ms for the 307,200 primaries
+// of a 720p band it runs at about 11x the least time the operations of
+// their live slots and triangles need (PERF.md). Rays come in tile-major
+// pixel order, so a warp's primaries walk alike; each thread walks one ray
+// with its stack in local memory, in 128-thread blocks (8 resident per SM
+// at about 58 registers). Other block sizes measured no faster.
 //
 // Layout: rays f32[6, P] (origin xyz, direction xyz rows), active u8[P];
 // out f32[8, P] = t, normal xyz, albedo rgb, material type (t = t_max and
@@ -26,7 +22,9 @@
 
 namespace {
 
-__global__ void __launch_bounds__(128)
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
     trace4_kernel(const float* __restrict__ nodes4,
                   const float* __restrict__ clusters,
                   const float* __restrict__ rays,
@@ -58,12 +56,15 @@ extern "C" int rt_trace4(const void* nodes4, const void* clusters,
                          int p, float t_min, float t_max, float det_eps,
                          int flip, void* stream) {
   if (p > 0) {
-    const int threads = 128;
-    const int blocks = (p + threads - 1) / threads;
-    trace4_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int blocks = (p + kThreads - 1) / kThreads;
+    trace4_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)nodes4, (const float*)clusters, (const float*)rays,
         (const uint8_t*)active, (float*)out, p, t_min, t_max, det_eps,
         flip);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int rt_trace4_attrs(int* out) {
+  return rt::kernel_attrs(trace4_kernel, kThreads, out);
 }

@@ -22,6 +22,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu")
 HEADERS = ("walk.cuh",)
+KERNELS = ("trace4", "trace2", "bounce12", "bounce15", "bounce_packed")
+ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,6 +64,10 @@ def _declare(lib) -> None:
     lib.rt_bounce_packed.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                      i32, i32, i32, f32, i32, f32, f32, f32,
                                      vp]
+    for name in KERNELS:
+        fn = getattr(lib, f"rt_{name}_attrs")
+        fn.restype = i32
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
 
 
 def library():
@@ -106,6 +112,16 @@ def _build(so: str) -> None:
     os.replace(f"{tag}.tmp", so)
     for o in objs:
         os.remove(o)
+
+
+def kernel_attrs(name: str) -> dict:
+    """What a launch of kernel ``name`` (one of KERNELS) gets, from
+    ``cudaFuncGetAttributes`` and the occupancy calculator: registers and
+    local memory bytes a thread, shared memory bytes a block, resident
+    blocks per SM, threads a block."""
+    out = (ctypes.c_int * len(ATTRS))()
+    check(getattr(library(), f"rt_{name}_attrs")(out), f"rt_{name}_attrs")
+    return dict(zip(ATTRS, out))
 
 
 def check(err: int, what: str) -> None:

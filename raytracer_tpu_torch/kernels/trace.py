@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from raytracer_tpu_torch import knobs
+from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP
 from raytracer_tpu_torch.core.fast_types import (CLUSTER_SIZE, FastScene,
                                                  LEAF_CID_BITS,
                                                  LEAF_CID_MASK, WIDE_WIDTH)
@@ -44,7 +45,6 @@ from raytracer_tpu_torch.kernels.tracer import TraversalResult
 BLOCK_LANES = 128
 BLOCK = 8 * BLOCK_LANES    # primary tile: rays per compact pixel tile
 BBLOCK = 16 * BLOCK_LANES  # bounce-round grain: every width is a multiple
-STACK_CAP = 256            # kept in sync with bvh/bvh4.py and walk.cuh
 
 # Push-ordering comparator network (19 comparators), the JAX package's
 # ``pallas_trace._HIST8``: sorts (key, meta, push) by descending key.
@@ -110,9 +110,13 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
                active: torch.Tensor, t_min: float, t_max: float,
                det_eps: float, flip: bool = True):
     """Per-ray stack walk, plain torch. Returns (out f32[8, P] = t, normal
-    xyz, albedo rgb, material type; cid i32[P] = winner cluster id, 0 on
-    a miss or for inactive rays). Counts node visits and triangle tests
-    in ``launches.work``."""
+    xyz, albedo rgb, material type; cid i32[P] = winner cluster id, 0 on a
+    miss or for inactive rays). Counts in ``launches.work`` the work the
+    walk needs: node visits (``visits4``), slab tests and keys of live
+    child slots (``slots4``), visits that push two children or more and so
+    need the sorting network (``nets4``), and tests of live triangles
+    (``tris``, each hit leaf's count); keeps the largest stack depth
+    reached as ``stack4_max``."""
     dev = active.device
     p = active.shape[0]
     out = torch.zeros((8, p), dtype=torch.float32, device=dev)
@@ -150,6 +154,7 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
             hit = ((t_ex > t_en) & (t_ex > t_min)
                    & (t_en < closest[:, None]))            # [m, 8]
             meta = node[:, :, 6].to(torch.int32)
+            launches.work["slots4"] += int((meta != 0).sum())
             key = ((node[:, :, 0] + node[:, :, 3]) * dd[0][:, None]
                    + (node[:, :, 1] + node[:, :, 4]) * dd[1][:, None]
                    + (node[:, :, 2] + node[:, :, 5]) * dd[2][:, None])
@@ -157,7 +162,9 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
             # Far-first push order, then push the hit internal children.
             ks = [key[:, c] for c in range(WIDE_WIDTH)]
             ms = [meta[:, c] for c in range(WIDE_WIDTH)]
-            ps = [hit[:, c] & (meta[:, c] > 0) for c in range(WIDE_WIDTH)]
+            push = hit & (meta > 0)
+            launches.work["nets4"] += int((push.sum(1) >= 2).sum())
+            ps = [push[:, c] for c in range(WIDE_WIDTH)]
             for i, j in NET8:
                 sw = ks[j] > ks[i]
                 for f in (ks, ms, ps):
@@ -167,6 +174,8 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
             for c in range(WIDE_WIDTH):
                 stack[li, lsp] = ms[c] - 1
                 lsp = lsp + ps[c]
+            launches.work["stack4_max"] = max(launches.work["stack4_max"],
+                                              int(lsp.max()))
 
             # Leaf children, in child order.
             pr, pc = torch.nonzero(hit & (meta < 0), as_tuple=True)
@@ -174,7 +183,8 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
                 lid = -meta[pr, pc] - 1
                 cidp = lid & LEAF_CID_MASK
                 full = (lid >> LEAF_CID_BITS) >= CLUSTER_SIZE // 2
-                launches.work["tris"] += (pr.numel() + int(full.sum())) * 4
+                launches.work["tris"] += int((lid >> LEAF_CID_BITS).sum()
+                                             + pr.numel())
                 tri = clusters.index_select(0, cidp.to(torch.int64)).view(
                     -1, CLUSTER_SIZE, 16)
                 cand = _mt_candidates(
@@ -280,9 +290,10 @@ def _check_table(scene: FastScene, name: str, cols: int,
                  device: torch.device) -> None:
     t = getattr(scene, name)
     if (t.device != device or t.dtype != torch.float32
-            or not t.is_contiguous() or t.dim() != 2 or t.shape[1] != cols):
+            or not t.is_contiguous() or t.dim() != 2 or t.shape[1] != cols
+            or (t.is_cuda and t.data_ptr() % 16)):
         raise ValueError(f"scene.{name} must be contiguous f32[R, {cols}] "
-                         f"on {device}")
+                         f"on {device} (16-byte aligned on CUDA)")
 
 
 def _check_scene(scene: FastScene, device: torch.device) -> None:

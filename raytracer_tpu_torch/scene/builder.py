@@ -19,7 +19,8 @@ import torch
 
 from raytracer_tpu_torch import native_bridge
 from raytracer_tpu_torch.bvh.build import build_bvh
-from raytracer_tpu_torch.bvh.bvh4 import collapse4
+from raytracer_tpu_torch.bvh.bvh4 import (STACK_CAP, collapse4,
+                                          nodes4_stack_need)
 from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, CLUSTER_SIZE,
                                                  TRI_STRIDE, FastScene)
 from raytracer_tpu_torch.core.types import CameraUniforms
@@ -125,7 +126,13 @@ def build_fast_scene_from_arrays(verts: np.ndarray, mats: np.ndarray,
 
 def fast_scene_from_numpy(leaves: dict, device="cuda") -> FastScene:
     """The JAX package's FastScene leaves (name -> np.asarray(leaf)) ->
-    the port's FastScene on ``device``."""
+    the port's FastScene on ``device``. Refuses a ``nodes4`` whose walk
+    could push more than the kernels' STACK_CAP stack slots (a depth pass,
+    as ``collapse4`` checks the trees it builds)."""
+    need = nodes4_stack_need(np.asarray(leaves["nodes4"]))
+    if need > STACK_CAP:
+        raise ValueError(f"nodes4 would need {need} stack slots > "
+                         f"STACK_CAP {STACK_CAP}")
     put = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
     return FastScene(nodes8=put(leaves["nodes8"]),
                      clusters=put(leaves["clusters"]),

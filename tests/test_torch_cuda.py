@@ -168,3 +168,38 @@ def test_tonemap_kernel_matches_plain(scene):
         acc_k, img_k = tonemap_accumulate(acc.clone(), smp, fc, ex)
         acc_p, img_p = tonemap_plain(acc.clone(), smp, fc, ex)
         assert torch.equal(acc_k, acc_p) and torch.equal(img_k, img_p)
+
+
+def test_walk_kernels_at_the_stack_limit(scene):
+    """A 36-level tree whose walk pushes 246 stack entries (need 253 of
+    the 256 slots in local memory). Kernels A and B stay bit-equal to
+    their plain versions."""
+    from raytracer_tpu_torch.bvh.bvh4 import nodes4_stack_need
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import cuda_build
+    from raytracer_tpu_torch.kernels.bounce import (bounce12,
+                                                    bounce12_plain,
+                                                    pack_state)
+    from raytracer_tpu_torch.kernels.trace import trace4, trace4_plain
+    from raytracer_tpu_torch.scene import presets
+
+    n = 4096
+    deep, rays = presets.stack_limit_scene(n, device="cuda")
+    assert nodes4_stack_need(deep.nodes4.cpu().numpy()) == 253
+    for name in ("trace4", "bounce12"):
+        assert cuda_build.kernel_attrs(name)["local_bytes"] >= 4 * 256
+    cfg = RenderConfig()
+    active = torch.arange(n, device="cuda") % 5 != 0
+    got = trace4(deep, rays, active, cfg)
+    assert torch.equal(got, trace4_plain(deep, rays, active, cfg))
+    assert (got[0] < cfg.t_max).float().mean() > 0.5
+    g = torch.Generator(device="cuda").manual_seed(21)
+    seed = torch.randint(0, 2 ** 32, (n,), generator=g, device="cuda")
+    state = pack_state(tuple(rays[0:3]), tuple(rays[3:6]),
+                       (torch.ones(n, device="cuda"),) * 3, seed, active, 3,
+                       torch.arange(n, device="cuda"))
+    for bcap in (1, 2):
+        out_k = bounce12(deep, state, bcap, True, cfg)
+        out_p = bounce12_plain(deep, state, bcap, True, cfg)
+        for k, p in zip(out_k, out_p):
+            assert torch.equal(k, p)
