@@ -14,12 +14,16 @@ Phases, one or more lines each (any failure raises and exits non-zero):
    frame; kernel A on the middle 720p band of flagship primaries (307,200
    rays); kernel B on that band's sorted bounce-1 state and on a
    merged-tail-width state with mixed bounce budgets (0 included); kernel
-   5 (``trace2``) on the same primaries (0 differing lanes required), and
-   ``trace2`` / kernel A with the normal flip off on the 640x480 C12
-   primaries; the colour-carrying kernel (``bounce15``) on the sorted
-   bounce-1 band state at bcap 1 (a ``fused`` round) and on the same state
-   sorted by the pmega host key at bcap 9 (the pmega call); the packed
-   kernel on the bounce-1 state as the ``fused_packed`` round sorts it;
+   5 in its two designs, ``trace2_warp`` (one node id per warp) on the
+   same primaries and ``trace2`` (one thread per ray) on the split
+   engine's sorted bounce-1 round of that band, and both and kernel A
+   with the normal flip off on the 640x480 C12 primaries (0 differing
+   lanes required); the colour-carrying kernel (``bounce15``) on the
+   sorted bounce-1 band state at bcap 1 (a ``fused`` round) and on the
+   same state sorted by the pmega host key at bcap 9 (the pmega call,
+   persistent warps), with that call's lane occupancy under one ray per
+   thread; the packed kernel on the bounce-1 state as the
+   ``fused_packed`` round sorts it;
    kernel A and kernel B on a hand-built 36-level tree whose walk pushes
    246 stack entries (``presets.stack_limit_scene``, need 253 of the
    256-slot stack), bit-equal;
@@ -30,7 +34,7 @@ Phases, one or more lines each (any failure raises and exits non-zero):
 5. one 256x128 frame (2 bands, cross-band tail merge) through the
    kernels and through the plain versions, compared;
 6. ``RAYTPU_BOUNCE=pmega`` against the default path in turns (default,
-   pmega, pmega, default, twice), 16 720p frames each;
+   pmega, pmega, default, twice), 8 720p frames each;
 7. the other paths at full width through ``Renderer``: ``fused`` and
    ``fused_packed`` (4 720p frames each), ``split`` with
    ``RAYTPU_TRAVERSE=binary`` (2 frames), and the C12 tier (``c12_cube``,
@@ -82,10 +86,11 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean device time of fn() over reps runs (CUDA events, after one
-    warm-up run)."""
-    fn()
+    warm-up run unless the caller has just run fn: ``warm=False``)."""
+    if warm:
+        fn()
     _sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -167,9 +172,9 @@ def check_tonemap(results):
                               **bound(nbytes(accum, sample, acc_k, img_k)))
 
 
-def band_primaries(scene, cfg, cam):
-    """The middle band of the frame (the one that sees the most of the
-    scene): tile-major primaries exactly as
+def band_primaries(scene, cfg, cam, band=None):
+    """Band ``band`` of the frame (default the middle one, which sees the
+    most of the scene): tile-major primaries exactly as
     kernels/packet.render_linear_fast makes them."""
     import dataclasses
 
@@ -187,7 +192,7 @@ def band_primaries(scene, cfg, cam):
     p_pad = -(-p // grain) * grain
     xx, yy_local, alive = _tile_major_pixels(band_h, cfg.width, p_pad,
                                              "cuda")
-    yy = yy_local + (nb // 2) * band_h
+    yy = yy_local + (nb // 2 if band is None else band) * band_h
     seed = initial_seed(cam, bcfg, yy * cfg.width + xx, 0)
     seed, ray_o, ray_d = make_primary_rays(cam, bcfg, seed, xx, yy,
                                            cfg.height,
@@ -204,11 +209,16 @@ def trace_bytes(scene, rays, table: str) -> int:
 
 
 def compare_trace(scene, rays, active, cfg, name="trace4"):
-    """Kernel A (or ``trace2``) vs plain on the same rays -> (kernel out,
-    plain out, tie mask, max abs err outside ties, plain work)."""
+    """Kernel A (or ``trace2``, or ``trace2_warp``: ``trace2`` for coherent
+    rays) vs plain on the same rays -> (kernel out, plain out, tie mask,
+    max abs err outside ties, plain work)."""
     from raytracer_tpu_torch.kernels import trace
 
-    out_k = getattr(trace, name)(scene, rays, active, cfg)
+    if name == "trace2_warp":
+        name = "trace2"
+        out_k = trace.trace2(scene, rays, active, cfg, coherent=True)
+    else:
+        out_k = getattr(trace, name)(scene, rays, active, cfg)
     out_p, work = plain_work(
         lambda: getattr(trace, f"{name}_plain")(scene, rays, active, cfg))
     assert torch.equal(out_k[0], out_p[0]), f"{name} t differs from plain"
@@ -226,7 +236,8 @@ def check_trace(scene, cfg, cam, results):
     _, _, ties, err, work = compare_trace(scene, rays, alive, cfg)
     n_tie = int(ties.sum())
     ms = time_ms(lambda: trace4(scene, rays, alive, cfg), 10)
-    plain_ms = time_ms(lambda: trace4_plain(scene, rays, alive, cfg), 1)
+    plain_ms = time_ms(lambda: trace4_plain(scene, rays, alive, cfg), 1,
+                       warm=False)
     print(f"check kernel A, {rays.shape[1]} primaries: t bit-equal, tie "
           f"lanes {n_tie}, max abs err outside ties {err:.3g}; kernel "
           f"{ms:.4f} ms plain {plain_ms:.2f} ms; work {work}")
@@ -237,40 +248,50 @@ def check_trace(scene, cfg, cam, results):
 
 
 def check_trace2(scene, cfg, cam, c12, results):
-    """Kernel 5 on the flagship band primaries (flip on) and, with kernel
-    A, on the C12 primaries (flip off): 0 differing lanes."""
+    """Kernel 5 in its two designs, each at its path's shape: the warp
+    walk (``trace2_warp``) on the flagship band primaries (flip on), the
+    per-ray walk (``trace2``) on the split engine's sorted bounce-1 round;
+    then both and kernel A on the C12 primaries (flip off): 0 differing
+    lanes everywhere."""
     from raytracer_tpu_torch.kernels.trace import trace2, trace2_plain
 
     _, _, ray_o, ray_d, alive, _ = band_primaries(scene, cfg, cam)
-    rays = torch.stack([*ray_o, *ray_d]).contiguous()
-    _, _, ties, err, work = compare_trace(scene, rays, alive, cfg, "trace2")
-    ms = time_ms(lambda: trace2(scene, rays, alive, cfg), 10)
-    plain_ms = time_ms(lambda: trace2_plain(scene, rays, alive, cfg), 1)
-    print(f"check trace2, {rays.shape[1]} primaries (flip on): differing "
-          f"lanes {int(ties.sum())}; kernel {ms:.4f} ms plain "
-          f"{plain_ms:.2f} ms; work {work}")
-    assert not ties.any() and err == 0.0
-    results["trace2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    shapes = (("trace2_warp", "primaries",
+               torch.stack([*ray_o, *ray_d]).contiguous(), alive, True),
+              ("trace2", "split-round rays",
+               *split_round1(scene, cfg, cam), False))
+    for name, label, rays, active, coherent in shapes:
+        _, _, ties, err, work = compare_trace(scene, rays, active, cfg,
+                                              name)
+        ms = time_ms(lambda: trace2(scene, rays, active, cfg, coherent), 10)
+        plain_ms = time_ms(lambda: trace2_plain(scene, rays, active, cfg),
+                           1, warm=False)
+        print(f"check {name}, {rays.shape[1]} {label} ({int(active.sum())} "
+              f"active, flip on): differing lanes {int(ties.sum())}; kernel "
+              f"{ms:.4f} ms plain {plain_ms:.2f} ms; work {work}")
+        assert not ties.any() and err == 0.0
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              **bound(trace_bytes(scene, rays, "nodes8"),
                                      work))
 
     scene12, cfg12, cam12 = c12
     _, _, ray_o, ray_d, alive, _ = band_primaries(scene12, cfg12, cam12)
     rays = torch.stack([*ray_o, *ray_d]).contiguous()
-    for name in ("trace2", "trace4"):
+    for name in ("trace2_warp", "trace2", "trace4"):
         _, _, ties, err, _ = compare_trace(scene12, rays, alive, cfg12, name)
         print(f"check {name}, {rays.shape[1]} C12 primaries (flip off): "
               f"differing lanes {int(ties.sum())}")
         assert not ties.any() and err == 0.0
 
 
-def band_bounce1(scene, cfg, cam):
-    """The middle band after bounce 0 (kernel A + shade): (ray_o, ray_d,
-    color, atten, seed, alive, pix)."""
+def band_bounce1(scene, cfg, cam, band=None):
+    """A band (default the middle one) after bounce 0 (kernel A + shade):
+    (ray_o, ray_d, color, atten, seed, alive, pix)."""
     from raytracer_tpu_torch.kernels.trace import traverse
     from raytracer_tpu_torch.kernels.tracer import shade
 
-    _, seed, ray_o, ray_d, alive, pix = band_primaries(scene, cfg, cam)
+    _, seed, ray_o, ray_d, alive, pix = band_primaries(scene, cfg, cam,
+                                                       band)
     p = alive.shape[0]
     zero = torch.zeros(p, device="cuda")
     one = torch.ones(p, device="cuda")
@@ -278,6 +299,54 @@ def band_bounce1(scene, cfg, cam):
     o, d, color, atten, seed, alive = shade(
         res, ray_o, ray_d, (zero,) * 3, (one,) * 3, seed, alive, True, cfg)
     return o, d, color, atten, seed, alive, pix
+
+
+def split_round1(scene, cfg, cam):
+    """The split engine's first bounce round of the middle band, as
+    ``trace2`` gets it under ``RAYTPU_WAVE=split RAYTPU_TRAVERSE=binary``:
+    the bounce-1 state sorted by the host ``om9`` key (dead bit 31), dead
+    rays inactive -> (rays f32[6, P], active bool[P])."""
+    from raytracer_tpu_torch.kernels import wavefront
+    from raytracer_tpu_torch.kernels.bounce import (ROW_ALIVE,
+                                                    UNIFORM_BUDGET,
+                                                    pack_state)
+
+    with knob_env({"RAYTPU_TRAVERSE": "binary"}):
+        o, d, color, atten, seed, alive, pix = band_bounce1(scene, cfg, cam)
+    state = pack_state(o, d, atten, seed, alive, UNIFORM_BUDGET, pix,
+                       color=color)
+    state, _ = wavefront._sorted(
+        state, wavefront._state_key(state, scene, "split"))
+    return state[0:6].view(torch.float32).contiguous(), state[ROW_ALIVE] != 0
+
+
+def pmega_state(scene, cfg, cam, band=None):
+    """The state the pmega call gets for a band (default the middle one):
+    the colour-carrying bounce-1 state sorted by the host key."""
+    from raytracer_tpu_torch.kernels import wavefront
+    from raytracer_tpu_torch.kernels.bounce import UNIFORM_BUDGET, pack_state
+
+    o, d, color, atten, seed, alive, pix = band_bounce1(scene, cfg, cam,
+                                                        band)
+    flat = pack_state(o, d, atten, seed, alive, UNIFORM_BUDGET, pix,
+                      color=color)
+    order = torch.argsort(wavefront.sort_key(o, d, alive, *scene.bounds()),
+                          stable=True)
+    return flat.index_select(1, order)
+
+
+def lane_occupancy(state_in, state_out, warp: int = 32) -> dict:
+    """Iterations per ray of a bounce call (the budget it spent) and the
+    lane occupancy of one ray per thread: the iterations run over 32 x
+    the longest path of each warp of 32 consecutive rays."""
+    from raytracer_tpu_torch.kernels.bounce import ROW_BUDGET
+
+    iters = (state_in[ROW_BUDGET] - state_out[ROW_BUDGET]).to(torch.int64)
+    it = torch.nn.functional.pad(iters, (0, -iters.numel() % warp))
+    longest = int(it.view(-1, warp).amax(1).sum())
+    return dict(occupancy=int(iters.sum()) / max(warp * longest, 1),
+                mean_iterations=float(iters.float().mean()),
+                max_iterations=int(iters.max()))
 
 
 def compare_bounce(scene, state, cfg, label):
@@ -320,7 +389,7 @@ def check_bounce(scene, cfg, cam, results):
                                                    "round")
     ms = time_ms(lambda: bounce12(scene, state, 1, True, cfg), 10)
     plain_ms = time_ms(lambda: bounce12_plain(scene, state, 1, True, cfg),
-                       1)
+                       1, warm=False)
     print(f"check kernel B, sorted bounce-1 round of {p} rays: rays/live "
           f"{cnt}, differing lanes {n_diff} (walk tie lanes {n_tie}), max "
           f"abs err {err:.3g}; kernel {ms:.4f} ms plain {plain_ms:.2f} ms; "
@@ -430,10 +499,7 @@ def check_color_kernels(scene, cfg, cam, results):
         return compare_trace(scene, rays, state[-3] != 0, cfg)[2]
 
     fused, _ = wavefront._sorted(flat, wavefront._state_key(flat, scene))
-    smin, smax = scene.bounds()
-    order = torch.argsort(wavefront.sort_key(o, d, alive, smin, smax),
-                          stable=True)
-    pmega = flat.index_select(1, order)
+    pmega = pmega_state(scene, cfg, cam)
     rows = {}
     for label, state, bcap in (("fused round", fused, 1),
                                ("pmega call", pmega, cfg.max_bounces - 1)):
@@ -443,11 +509,19 @@ def check_color_kernels(scene, cfg, cam, results):
         n_diff, err = compare_outputs(got, want, walk_ties(state), label)
         ms = time_ms(lambda: bounce15(scene, state, bcap, True, cfg), 10)
         plain_ms = time_ms(
-            lambda: bounce15_plain(scene, state, bcap, True, cfg), 1)
+            lambda: bounce15_plain(scene, state, bcap, True, cfg), 1,
+            warm=False)
         print(f"check bounce15 bcap {bcap} ({label}, {p} rays): rays/live "
               f"{got[2].tolist()}, differing lanes {n_diff}, max abs err "
               f"{err:.3g}; kernel {ms:.4f} ms plain {plain_ms:.2f} ms; "
               f"work {work}")
+        if bcap > 1:
+            lanes = lane_occupancy(state, want[0])
+            print(f"pmega call lanes: {lanes['mean_iterations']:.4f} "
+                  f"iterations a ray (max {lanes['max_iterations']}); "
+                  f"occupancy of one ray per thread "
+                  f"{lanes['occupancy']:.4f} (iterations run / 32 x each "
+                  f"warp's longest path)")
         rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            **bound(2 * nbytes(state) + 4 * p + tables,
                                    work))
@@ -467,7 +541,8 @@ def check_color_kernels(scene, cfg, cam, results):
     n_diff, err = compare_outputs(got, want, ties, "packed round")
     ms = time_ms(lambda: bounce_packed(scene, sf, si, 1, True, cfg), 10)
     plain_ms = time_ms(
-        lambda: bounce_packed_plain(scene, sf, si, 1, True, cfg), 1)
+        lambda: bounce_packed_plain(scene, sf, si, 1, True, cfg), 1,
+        warm=False)
     print(f"check bounce_packed bcap 1 (fused_packed round, {p} rays): "
           f"rays/live {got[3].tolist()}, differing lanes {n_diff}, max abs "
           f"err {err:.3g}; kernel {ms:.4f} ms plain {plain_ms:.2f} ms")
@@ -644,13 +719,14 @@ def main() -> None:
     assert n_px <= TIE_FRACTION_MAX * cfg5.width * cfg5.height
 
     # Phase 6: pmega against the default path, in turns (two cycles of
-    # default, pmega, pmega, default: the host-bound frame is noisy).
+    # default, pmega, pmega, default, 8 frames each: the host-bound frame
+    # is noisy).
     pmega = {"RAYTPU_BOUNCE": "pmega"}
     turns = []
     for label, env in (("default", {}), ("pmega", pmega), ("pmega", pmega),
                        ("default", {})) * 2:
         kernels = ("trace4", "bounce15") if env else ("trace4", "bounce12")
-        turns.append((label, run_path(f"A/B {label}", scene, cfg, cam, 16,
+        turns.append((label, run_path(f"A/B {label}", scene, cfg, cam, 8,
                                       env, kernels)))
     for label in ("default", "pmega"):
         fps = [r["fps"] for lb, r in turns if lb == label]
@@ -666,16 +742,16 @@ def main() -> None:
                           ("trace4", "bounce_packed", "bounce15"))
     split_env = {"RAYTPU_WAVE": "split", "RAYTPU_TRAVERSE": "binary"}
     split_run = run_path("split+binary", scene, cfg, cam, 2, split_env,
-                         ("trace2", "tonemap"), warm=0)
+                         ("trace2", "trace2_warp", "tonemap"), warm=0)
     c12_runs = {}
-    for trav, walk in (("bvh4", "trace4"), ("binary", "trace2")):
+    for trav, walk in (("bvh4", "trace4"), ("binary", "trace2_warp")):
         c12_runs[walk] = run_path(
             f"C12 {trav}", scene12, cfg12, cam12, 16,
             {"RAYTPU_TRAVERSE": trav}, (walk, "tonemap"))
     write_png(os.path.join(REPO, "out", "chip_smoke_c12.png"),
               c12_runs["trace4"]["image"])
     assert np.array_equal(c12_runs["trace4"]["image"],
-                          c12_runs["trace2"]["image"])
+                          c12_runs["trace2_warp"]["image"])
 
     # Phase 8: a 256x128 frame per new path, kernels against plain.
     ties = int(TIE_FRACTION_MAX * cfg5.width * cfg5.height)
@@ -699,6 +775,7 @@ def main() -> None:
         "bounce12": main_run["counts"]["bounce12"],
         "tonemap": main_run["counts"]["tonemap"],
         "trace2": split_run["counts"]["trace2"],
+        "trace2_warp": split_run["counts"]["trace2_warp"],
         "bounce15": pmega_run["counts"]["bounce15"],
         "bounce_packed": packed_run["counts"]["bounce_packed"]}
     srcs = {"tonemap": ("triton", "raytracer_tpu_torch/kernels/tonemap.py",
@@ -709,16 +786,22 @@ def main() -> None:
                          "raytracer_tpu/kernels/pallas_mega.py:131"),
             "trace2": ("cuda", "raytracer_tpu_torch/csrc/trace2.cu",
                        "raytracer_tpu/kernels/pallas_trace.py:66"),
+            "trace2_warp": ("cuda", "raytracer_tpu_torch/csrc/trace2.cu",
+                            "raytracer_tpu/kernels/pallas_trace.py:66"),
             "bounce15": ("cuda", "raytracer_tpu_torch/csrc/bounce12.cu",
                          "raytracer_tpu/kernels/pallas_mega.py:800"),
             "bounce_packed": ("cuda", "raytracer_tpu_torch/csrc/bounce12.cu",
                               "raytracer_tpu/kernels/pallas_mega.py:645")}
     for k, (route, _, _) in srcs.items():
-        attrs = cuda_build.kernel_attrs(k) if route == "cuda" else {}
+        # The bounce15 row is the pmega call: its persistent-warp kernel.
+        attrs = (cuda_build.kernel_attrs(
+            {"bounce15": "bounce15_pmega"}.get(k, k))
+            if route == "cuda" else {})
         results[k].update({a: attrs.get(a) for a in cuda_build.ATTRS})
     paths = {"main": main_run, "pmega": pmega_run, "fused": fused_run,
              "fused_packed": packed_run, "split_binary": split_run,
-             "c12_bvh4": c12_runs["trace4"], "c12_binary": c12_runs["trace2"]}
+             "c12_bvh4": c12_runs["trace4"],
+             "c12_binary": c12_runs["trace2_warp"]}
     with open(os.path.join(REPO, "out", "chip_smoke_paths.json"), "w") as f:
         json.dump({"device": smi, "bounce15_fused": results["bounce15_fused"],
                    "paths": {k: {m: v for m, v in r.items() if m != "image"}

@@ -2,17 +2,25 @@
 more checkouts of the repo, in turns on one card.
 
     python kernel_times.py [--trees DIR ...] [--turns 2] [--reps 20]
+                           [--bcaps 2,3,5]
 
 Each checkout (a directory holding ``raytracer_tpu_torch/`` and
 ``native/``; default: this one) runs in a child process of its own that
 builds that checkout's kernels and imports its package. On the flagship
 scene at ``RenderConfig()`` it times, with CUDA events (mean of ``--reps``
 launches after one warm-up): kernel A (``trace4``) and ``trace2`` on the
-307,200 primaries of the middle 720p band, kernel B (``bounce12``) on that
-band's sorted bounce-1 state (``chip_smoke.py`` phase 3's shapes),
-``bounce15`` as the pmega call (bcap 9) and as a fused round (bcap 1), and
-``bounce_packed``. The inputs come from this checkout's
-``chip_smoke.py`` helpers, run against each checkout's package. Each
+307,200 primaries of the middle 720p band (``trace2`` as the bounce-0
+call launches it: its warp design where the checkout has one), ``trace2``
+also on the split engine's sorted bounce-1 round of that band
+(``trace2_split``), kernel B (``bounce12``) on the band's sorted bounce-1
+state (``chip_smoke.py`` phase 3's shapes), ``bounce15`` as the pmega
+call (bcap 9) on the middle band's state and on the top and bottom
+bands' (``bounce15_top``, ``bounce15_bottom``; with ``--bcaps``, also at
+those bcaps on the middle band, rows ``bounce15_b<k>``) and as a fused
+round (bcap 1), and ``bounce_packed``; and each pmega state's lane
+occupancy (``chip_smoke.lane_occupancy``). The inputs come from this
+checkout's ``chip_smoke.py`` helpers, run against each checkout's
+package. Each
 kernel's output is compared with its plain version on the same inputs
 (differing lanes are printed). Per kernel it also prints registers, local
 memory bytes, shared bytes and resident blocks per SM from the
@@ -31,13 +39,23 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("trace4", "bounce12", "bounce15", "bounce15_fused",
-           "bounce_packed", "trace2")
+KERNELS = ("trace4", "bounce12", "bounce15", "bounce15_top",
+           "bounce15_bottom", "bounce15_fused", "bounce_packed", "trace2",
+           "trace2_split")
+# Row -> the kernel whose attributes it reports, where the checkout's
+# cuda_build knows that kernel (else the row's name, or bounce15 for the
+# pmega rows).
+ATTRS_OF = {"trace2": "trace2_warp", "trace2_split": "trace2",
+            "bounce15": "bounce15_pmega", "bounce15_top": "bounce15_pmega",
+            "bounce15_bottom": "bounce15_pmega",
+            "bounce15_fused": "bounce15"}
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 
 
-def run_one(tree: str, reps: int) -> dict:
+def run_one(tree: str, reps: int, bcaps=()) -> dict:
     """Time and check the kernels of one checkout (in this process)."""
+    import inspect
+
     import torch
 
     import chip_smoke as cs     # this checkout's; imports no package
@@ -64,14 +82,17 @@ def run_one(tree: str, reps: int) -> dict:
     flat = bounce.pack_state(o, d, atten, seed, alive1,
                              bounce.UNIFORM_BUDGET, pix, color=color)
     fused, _ = wavefront._sorted(flat, wavefront._state_key(flat, scene))
-    smin, smax = scene.bounds()
-    order = torch.argsort(wavefront.sort_key(o, d, alive1, smin, smax),
-                          stable=True)
-    pmega = flat.index_select(1, order)
+    pmega = cs.pmega_state(scene, cfg, cam)
+    pmega_top = cs.pmega_state(scene, cfg, cam, 0)
+    pmega_bottom = cs.pmega_state(scene, cfg, cam, 2)
     sf = torch.stack([*o, *d, *color, *atten, alive1.to(torch.float32)])
     si = torch.stack([seed.to(torch.int32), pix])
     (sf, si), _ = wavefront._sorted((sf, si),
                                     wavefront._state_key((sf, si), scene))
+    srays, sact = cs.split_round1(scene, cfg, cam)
+    b0 = ({"coherent": True}
+          if "coherent" in inspect.signature(trace.trace2).parameters
+          else {})
     nb = cfg.max_bounces - 1
     calls = {
         "trace4": (lambda: trace.trace4(scene, rays, alive, cfg),
@@ -82,18 +103,40 @@ def run_one(tree: str, reps: int) -> dict:
         "bounce15": (lambda: bounce.bounce15(scene, pmega, nb, True, cfg),
                      lambda: bounce.bounce15_plain(scene, pmega, nb, True,
                                                    cfg)),
+        "bounce15_top": (
+            lambda: bounce.bounce15(scene, pmega_top, nb, True, cfg),
+            lambda: bounce.bounce15_plain(scene, pmega_top, nb, True, cfg)),
+        "bounce15_bottom": (
+            lambda: bounce.bounce15(scene, pmega_bottom, nb, True, cfg),
+            lambda: bounce.bounce15_plain(scene, pmega_bottom, nb, True,
+                                          cfg)),
         "bounce15_fused": (
             lambda: bounce.bounce15(scene, fused, 1, True, cfg),
             lambda: bounce.bounce15_plain(scene, fused, 1, True, cfg)),
         "bounce_packed": (
             lambda: bounce.bounce_packed(scene, sf, si, 1, True, cfg),
             lambda: bounce.bounce_packed_plain(scene, sf, si, 1, True, cfg)),
-        "trace2": (lambda: trace.trace2(scene, rays, alive, cfg),
+        "trace2": (lambda: trace.trace2(scene, rays, alive, cfg, **b0),
                    lambda: trace.trace2_plain(scene, rays, alive, cfg)),
+        "trace2_split": (
+            lambda: trace.trace2(scene, srays, sact, cfg),
+            lambda: trace.trace2_plain(scene, srays, sact, cfg)),
     }
+    attrs_of = dict(ATTRS_OF)
+    for k in bcaps:
+        calls[f"bounce15_b{k}"] = (
+            lambda k=k: bounce.bounce15(scene, pmega, k, True, cfg),
+            lambda k=k: bounce.bounce15_plain(scene, pmega, k, True, cfg))
+        attrs_of[f"bounce15_b{k}"] = ("bounce15_pmega" if k > 1
+                                      else "bounce15")
+    occupancy = {}
+    ins = {"bounce15": pmega, "bounce15_top": pmega_top,
+           "bounce15_bottom": pmega_bottom}
     res = {}
     for name, (kern, plain) in calls.items():
         got, want = kern(), plain()
+        if name in ins:
+            occupancy[name] = cs.lane_occupancy(ins[name], want[0])
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         lanes = torch.zeros(got[0].shape[-1], dtype=torch.bool,
@@ -107,12 +150,15 @@ def run_one(tree: str, reps: int) -> dict:
                 lanes[:] = True
         res[name] = dict(ms=cs.time_ms(kern, reps),
                          differing_lanes=int(lanes.sum()))
-    for name in KERNELS:
-        attrs = (cuda_build.kernel_attrs(name.split("_fused")[0])
+    for name in calls:
+        of = attrs_of.get(name, name)
+        if of not in getattr(cuda_build, "KERNELS", ()):
+            of = name.split("_")[0] if name.startswith("bounce15") else name
+        attrs = (cuda_build.kernel_attrs(of)
                  if hasattr(cuda_build, "kernel_attrs") else {})
         res[name].update({a: attrs.get(a) for a in ATTRS})
     return dict(tree=tree, device=torch.cuda.get_device_name(0),
-                kernels=res)
+                pmega_lanes=occupancy, kernels=res)
 
 
 def main(argv=None) -> int:
@@ -120,10 +166,14 @@ def main(argv=None) -> int:
     p.add_argument("--trees", nargs="*", default=[REPO])
     p.add_argument("--turns", type=int, default=2)
     p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--bcaps", default="",
+                   help="comma-separated extra bcaps for bounce15")
     p.add_argument("--one", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    bcaps = [int(k) for k in args.bcaps.split(",") if k]
     if args.one:
-        print(json.dumps(run_one(os.path.abspath(args.one), args.reps)))
+        print(json.dumps(run_one(os.path.abspath(args.one), args.reps,
+                                 bcaps)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -136,7 +186,8 @@ def main(argv=None) -> int:
         for tree in trees if turn % 2 == 0 else trees[::-1]:
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--one", tree,
-                 "--reps", str(args.reps)], capture_output=True, text=True)
+                 "--reps", str(args.reps), "--bcaps", args.bcaps],
+                capture_output=True, text=True)
             if out.returncode:
                 print(f"{tree} failed ({out.returncode}):\n"
                       f"{out.stdout[-3000:]}{out.stderr[-3000:]}",
@@ -147,7 +198,8 @@ def main(argv=None) -> int:
             res["turn"] = turn
             print(json.dumps(res), flush=True)
             runs[tree].append(res)
-    summary = {t: {k: [r["kernels"][k]["ms"] for r in rs] for k in KERNELS}
+    names = list(KERNELS) + [f"bounce15_b{k}" for k in bcaps]
+    summary = {t: {k: [r["kernels"][k]["ms"] for r in rs] for k in names}
                for t, rs in runs.items()}
     print(json.dumps({"device": smi, "ms_by_turn": summary}))
     return 1 if failed else 0

@@ -8,9 +8,11 @@ the flagship scene at ``RenderConfig()``: a few warm frames, then
 ``--frames`` frames under ``torch.profiler`` (CPU and CUDA activities).
 Prints one JSON line per path and round: wall ms per frame, device busy ms
 per frame (the union of kernel and copy intervals), the device idle share
-of the profiled span, kernel launches per frame, and the five kernels with
-the most device time. Paths run in turns, ``--rounds`` times, so two paths
-are compared on one card within one call. Needs a CUDA device.
+of the profiled span, kernel launches per frame, the eight kernels with
+the most device time, and the device time of each of the port's own
+kernels (the CUDA kernels of ``csrc/`` and the Triton tonemap). Paths
+run in turns, ``--rounds`` times, so two paths are compared on one card
+within one call. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -86,13 +88,18 @@ def profile_path(scene, cfg, env: dict, frames: int, warm: int) -> dict:
     for e in dev:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
             e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # The port's kernels: csrc/ defines them in anonymous namespaces.
+    port = {n: t for n, t in by_name.items()
+            if "(anonymous namespace)::" in n or "tonemap" in n}
     return {"wall_ms_per_frame": wall / frames * 1e3,
             "device_busy_ms_per_frame": busy / frames / 1e3,
             "device_idle_share": 1.0 - busy / span if span else None,
             "device_launches_per_frame": len(dev) / frames,
             "top_kernels_ms_per_frame": {
-                n: t / frames / 1e3 for n, t in top}}
+                n: t / frames / 1e3 for n, t in top},
+            "port_kernels_ms_per_frame": {
+                n: t / frames / 1e3 for n, t in port.items()}}
 
 
 def main(argv=None) -> int:

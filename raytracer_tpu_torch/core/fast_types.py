@@ -11,6 +11,10 @@ default layout knobs:
 * ``nodes4`` f32[Rpad, 128]: the 8-wide collapse of the same tree, one
   node per row, 8 children x [min(3) max(3) meta pad(9)]. meta > 0:
   internal wide id + 1; meta < 0: -((cid | (count-1) << 20) + 1); 0: empty.
+
+Derived on the port's side, not a JAX table: ``cluster_counts`` i32[Lpad],
+each cluster's live-triangle count (``live_counts``), which the binary
+walk reads to test only a leaf's live triangles.
 """
 
 from __future__ import annotations
@@ -27,6 +31,18 @@ LEAF_CID_BITS = 20        # wide leaf meta: cluster id bits, count above
 LEAF_CID_MASK = (1 << LEAF_CID_BITS) - 1
 
 
+def live_counts(clusters: torch.Tensor) -> torch.Tensor:
+    """i32[L]: per cluster row, 1 + the index of its last triangle record
+    holding a nonzero float (0 for an all-zero row). The packers fill a
+    cluster's first records and leave the rest all zero, so this is its
+    live-triangle count; an all-zero record never hits (det 0), so testing
+    only these keeps the result of testing all 8."""
+    live = (clusters.reshape(-1, CLUSTER_SIZE, TRI_STRIDE) != 0).any(2)
+    rank = torch.arange(1, CLUSTER_SIZE + 1, dtype=torch.int32,
+                        device=clusters.device)
+    return (live.to(torch.int32) * rank).amax(1).contiguous()
+
+
 @dataclasses.dataclass
 class FastScene:
     """Device-resident packed scene (tables above + host-side counts)."""
@@ -37,6 +53,10 @@ class FastScene:
     num_nodes: int
     num_triangles: int
     num_nodes4: int
+    cluster_counts: torch.Tensor = dataclasses.field(init=False)  # i32[Lpad]
+
+    def __post_init__(self):
+        self.cluster_counts = live_counts(self.clusters)
 
     @property
     def device(self) -> torch.device:

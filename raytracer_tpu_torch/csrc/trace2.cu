@@ -1,33 +1,52 @@
 // Kernel 5: closest hit of flat SoA rays by the skip-link walk of the
-// binary BVH.
+// binary BVH, in two designs.
 //
 // Replaces raytracer_tpu/kernels/pallas_trace.py _trace_kernel (via
 // _trace_call and pallas_traverse under RAYTPU_TRAVERSE != bvh4 or
 // RAYTPU_NODE_SRC=extract): bounce 0, the split rounds and the fixed-light
-// tier on that knob. The TPU kernel walks one node pointer per 1024-ray
-// tile through the union of its rays' paths; here each thread walks its
-// own ray. The walk is stackless and in pre-order, the GLSL reference's own
-// order: a hit internal node goes to its left child (-col7 - 1), anything
-// else (a miss, or a leaf after its triangles) to its skip link. A child's
-// box lies inside its parent's, so a ray that hits a child at some closest
-// t also hits its parent: the per-ray walk tests the same leaves in the
-// same order as the tile walk, and the closest hit and the winner on an
-// equal-t tie are the same.
+// tier on that knob. The walk is stackless and in pre-order, the GLSL
+// reference's own order: a hit internal node goes to its left child
+// (-col7 - 1), anything else (a miss, or a leaf after its triangles) to
+// its skip link. A child's box lies inside its parent's, and the slab
+// terms are monotone in the bounds, so a ray that hits a child at some
+// closest t also hits its parent: a walk of any union of rays' paths
+// tests each ray's leaves in that ray's own order. That makes both
+// designs, and the TPU kernel's tile walk, bit-equal to the per-ray walk,
+// equal-t tie winners included.
+//
+// - trace2_ray_kernel (rt_trace2; the split rounds): one thread walks one
+//   ray, with postponed leaves (the "while-while" loop of Aila and Laine,
+//   Understanding the Efficiency of Ray Traversal on GPUs, HPG 2009). A
+//   lane that hits a leaf parks it and stops; the others keep walking
+//   until each has parked one or finished, then the warp tests its parked
+//   leaves together, each lane only its leaf's live triangles.
+// - trace2_warp_kernel (rt_trace2_warp; bounce 0 and the fixed-light tier,
+//   whose warps hold neighbouring primaries): one node id per warp, the
+//   union walk of the TPU tile. A node is descended when any lane's ray
+//   hits it, its row read once as a broadcast; at a leaf the warp stages
+//   the 512-byte cluster row in shared memory with one coalesced load and
+//   every lane whose ray hit it tests the live triangles from there.
+//
+// What bounds it on an H100 (PERF.md, flagship, 307,200 rays): issued
+// instructions and divergence, not bytes (tables stay in the 50 MB L2).
+// One thread per ray with a leaf test inside the walk loop ran ~20x its
+// operation bound: a leaf's up to 8 Moller-Trumbore tests ran whenever
+// any lane hit one, with the other lanes idle. Two 16-byte node loads cut
+// the time by 3-4%, postponing leaves by a further 38% on primaries and
+// 27% on a split round, testing only live triangles by 2-4% more. The
+// union walk is 12% faster again on primaries but 57% slower on a split
+// round, whose rays scatter in direction, so the caller picks the design.
+// Prefetching a parked leaf into L1 or L2, and a register cap for 12
+// blocks per SM, measured slower.
 //
 // Table (core/fast_types.py): nodes8 f32[M, 8], one node per row: box min
 // xyz, max xyz, then two i32 columns stored as bits (read with
 // __float_as_int, never as values): skip link, and col7 = cluster id >= 0
 // for a leaf or -(left + 1) for an internal node. Rows >= num_nodes are
 // padding; the walk ends when the node id reaches num_nodes (the empty
-// scene has one all-miss node).
-//
-// What bounds it on an H100: dependent loads and divergence. A binary walk
-// makes several times more visits than the 8-wide walk of trace4.cu (each
-// a 32-byte row, the next id depending on the test), and a leaf reads a
-// 512-byte cluster row. The flagship tables fit in the 50 MB L2. The design
-// is the simplest right one: one thread per ray, no stack and no shared
-// memory, read-only loads through the L1 (__ldg), rays in tile-major pixel
-// order so a warp's primaries walk alike, blocks of 128 threads.
+// scene has one all-miss node). counts i32[L]: each cluster's live
+// triangles (FastScene.cluster_counts); the records past them are all
+// zero and never hit.
 //
 // Layout: rays f32[6, P] (origin xyz, direction xyz rows), active u8[P];
 // out f32[8, P] = t, normal xyz, albedo rgb, material type (t = t_max and
@@ -38,75 +57,170 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-    trace2_kernel(const float* __restrict__ nodes8,
-                  const float* __restrict__ clusters,
-                  const float* __restrict__ rays,
-                  const uint8_t* __restrict__ active, float* __restrict__ out,
-                  int p, int num_nodes, float t_min, float t_max,
-                  float det_eps, int flip) {
+struct Args {
+  const float4* nodes;  // nodes8 rows as pairs of 16-byte parts
+  const float* clusters;
+  const int* counts;
+  const float* rays;
+  const uint8_t* active;
+  float* out;
+  int p, num_nodes, flip;
+  float t_min, t_max, det_eps;
+};
+
+// Slab test of one nodes8 row, read as (min xyz, max x), (max yz, skip,
+// col7), against the ray's closest t.
+__device__ __forceinline__ bool slab_hit(const float4& a, const float4& b,
+                                         const rt::Ray& r, float ivx,
+                                         float ivy, float ivz, float t_min,
+                                         float closest) {
+  const float lo0 = (a.x - r.ox) * ivx, hi0 = (a.w - r.ox) * ivx;
+  const float lo1 = (a.y - r.oy) * ivy, hi1 = (b.x - r.oy) * ivy;
+  const float lo2 = (a.z - r.oz) * ivz, hi2 = (b.y - r.oz) * ivz;
+  const float t_en =
+      rt::max_nan(rt::min_nan(lo0, hi0),
+                  rt::max_nan(rt::min_nan(lo1, hi1), rt::min_nan(lo2, hi2)));
+  const float t_ex =
+      rt::min_nan(rt::max_nan(lo0, hi0),
+                  rt::min_nan(rt::max_nan(lo1, hi1), rt::max_nan(lo2, hi2)));
+  return (t_ex > t_en) && (t_ex > t_min) && (t_en < closest);
+}
+
+__device__ __forceinline__ rt::Ray load_ray(const Args& a, int i) {
+  const float* r = a.rays;
+  const int p = a.p;
+  return {r[i],         r[p + i],     r[2 * p + i],
+          r[3 * p + i], r[4 * p + i], r[5 * p + i]};
+}
+
+__device__ __forceinline__ void store_hit(const Args& a, int i,
+                                          const rt::Hit& h) {
+  float* o = a.out;
+  const int p = a.p;
+  o[i] = h.t;
+  o[p + i] = h.nx;
+  o[2 * p + i] = h.ny;
+  o[3 * p + i] = h.nz;
+  o[4 * p + i] = h.ar;
+  o[5 * p + i] = h.ag;
+  o[6 * p + i] = h.ab;
+  o[7 * p + i] = h.mt;
+}
+
+__global__ void __launch_bounds__(kThreads) trace2_ray_kernel(Args a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  rt::Hit h = {t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
-  if (active[i]) {
-    const rt::Ray r = {rays[i],         rays[p + i],     rays[2 * p + i],
-                       rays[3 * p + i], rays[4 * p + i], rays[5 * p + i]};
+  if (i >= a.p) return;
+  rt::Hit h = {a.t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
+  if (a.active[i]) {
+    const rt::Ray r = load_ray(a, i);
     const float ivx = 1.0f / r.dx, ivy = 1.0f / r.dy, ivz = 1.0f / r.dz;
     int node = 0;
-    while (node < num_nodes) {
-      const float* g = nodes8 + (size_t)node * 8;
-      const float lo0 = (__ldg(g + 0) - r.ox) * ivx;
-      const float hi0 = (__ldg(g + 3) - r.ox) * ivx;
-      const float lo1 = (__ldg(g + 1) - r.oy) * ivy;
-      const float hi1 = (__ldg(g + 4) - r.oy) * ivy;
-      const float lo2 = (__ldg(g + 2) - r.oz) * ivz;
-      const float hi2 = (__ldg(g + 5) - r.oz) * ivz;
-      const float t_en =
-          rt::max_nan(rt::min_nan(lo0, hi0),
-                      rt::max_nan(rt::min_nan(lo1, hi1),
-                                  rt::min_nan(lo2, hi2)));
-      const float t_ex =
-          rt::min_nan(rt::max_nan(lo0, hi0),
-                      rt::min_nan(rt::max_nan(lo1, hi1),
-                                  rt::max_nan(lo2, hi2)));
-      const bool hit = (t_ex > t_en) && (t_ex > t_min) && (t_en < h.t);
-      const int skip = __float_as_int(__ldg(g + 6));
-      const int col7 = __float_as_int(__ldg(g + 7));
-      if (hit && col7 >= 0) {
-        rt::mt_tris(clusters + (size_t)col7 * 128, 0, 8, r, t_min, det_eps,
-                    col7, h);
+    int leaf = -1;  // the parked leaf's cluster id
+    while (true) {
+      while (leaf < 0 && node < a.num_nodes) {
+        const float4 lo = __ldg(a.nodes + 2 * node);
+        const float4 hi = __ldg(a.nodes + 2 * node + 1);
+        const bool hit =
+            slab_hit(lo, hi, r, ivx, ivy, ivz, a.t_min, h.t);
+        const int col7 = __float_as_int(hi.w);
+        if (hit && col7 >= 0) leaf = col7;
+        node = (hit && col7 < 0) ? -col7 - 1 : __float_as_int(hi.z);
       }
-      node = (hit && col7 < 0) ? -col7 - 1 : skip;
+      if (leaf < 0) break;
+      rt::mt_tris(a.clusters + (size_t)leaf * 128, 0, __ldg(a.counts + leaf),
+                  r, a.t_min, a.det_eps, leaf, h);
+      leaf = -1;
     }
-    if (flip) rt::face_ray(r, h);
+    if (a.flip) rt::face_ray(r, h);
   }
-  out[i] = h.t;
-  out[p + i] = h.nx;
-  out[2 * p + i] = h.ny;
-  out[3 * p + i] = h.nz;
-  out[4 * p + i] = h.ar;
-  out[5 * p + i] = h.ag;
-  out[6 * p + i] = h.ab;
-  out[7 * p + i] = h.mt;
+  store_hit(a, i, h);
+}
+
+__global__ void __launch_bounds__(kThreads) trace2_warp_kernel(Args a) {
+  __shared__ float4 stage[kThreads];  // one cluster row per warp
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  float4* row = stage + (threadIdx.x - lane);
+  // Every lane of the warp takes part in the votes, rays or not.
+  const bool act = i < a.p && a.active[i];
+  rt::Hit h = {a.t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
+  rt::Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (act) r = load_ray(a, i);
+  const float ivx = 1.0f / r.dx, ivy = 1.0f / r.dy, ivz = 1.0f / r.dz;
+  int node = __any_sync(kFull, act) ? 0 : a.num_nodes;
+  while (node < a.num_nodes) {
+    const float4 lo = __ldg(a.nodes + 2 * node);
+    const float4 hi = __ldg(a.nodes + 2 * node + 1);
+    const bool hit =
+        act && slab_hit(lo, hi, r, ivx, ivy, ivz, a.t_min, h.t);
+    const int col7 = __float_as_int(hi.w);
+    const bool any = __any_sync(kFull, hit);
+    if (col7 < 0) {
+      node = any ? -col7 - 1 : __float_as_int(hi.z);
+      continue;
+    }
+    if (any) {
+      __syncwarp();
+      row[lane] = __ldg(reinterpret_cast<const float4*>(a.clusters) +
+                        (size_t)col7 * 32 + lane);
+      __syncwarp();
+      if (hit) {
+        rt::mt_tris<false>(reinterpret_cast<const float*>(row), 0,
+                           __ldg(a.counts + col7), r, a.t_min, a.det_eps,
+                           col7, h);
+      }
+    }
+    node = __float_as_int(hi.z);
+  }
+  if (i >= a.p) return;
+  if (act && a.flip) rt::face_ray(r, h);
+  store_hit(a, i, h);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const void* nodes8, const void* clusters,
+           const void* counts, const void* rays, const void* active,
+           void* out, int p, int num_nodes, float t_min, float t_max,
+           float det_eps, int flip, void* stream) {
+  if (p > 0) {
+    const Args a = {(const float4*)nodes8, (const float*)clusters,
+                    (const int*)counts,    (const float*)rays,
+                    (const uint8_t*)active, (float*)out,
+                    p,                     num_nodes,
+                    flip,                  t_min,
+                    t_max,                 det_eps};
+    kernel<<<(p + kThreads - 1) / kThreads, kThreads, 0,
+             (cudaStream_t)stream>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int rt_trace2(const void* nodes8, const void* clusters,
-                         const void* rays, const void* active, void* out,
-                         int p, int num_nodes, float t_min, float t_max,
-                         float det_eps, int flip, void* stream) {
-  if (p > 0) {
-    const int blocks = (p + kThreads - 1) / kThreads;
-    trace2_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)nodes8, (const float*)clusters, (const float*)rays,
-        (const uint8_t*)active, (float*)out, p, num_nodes, t_min, t_max,
-        det_eps, flip);
-  }
-  return (int)cudaGetLastError();
+                         const void* counts, const void* rays,
+                         const void* active, void* out, int p, int num_nodes,
+                         float t_min, float t_max, float det_eps, int flip,
+                         void* stream) {
+  return launch(trace2_ray_kernel, nodes8, clusters, counts, rays, active,
+                out, p, num_nodes, t_min, t_max, det_eps, flip, stream);
+}
+
+extern "C" int rt_trace2_warp(const void* nodes8, const void* clusters,
+                              const void* counts, const void* rays,
+                              const void* active, void* out, int p,
+                              int num_nodes, float t_min, float t_max,
+                              float det_eps, int flip, void* stream) {
+  return launch(trace2_warp_kernel, nodes8, clusters, counts, rays, active,
+                out, p, num_nodes, t_min, t_max, det_eps, flip, stream);
 }
 
 extern "C" int rt_trace2_attrs(int* out) {
-  return rt::kernel_attrs(trace2_kernel, kThreads, out);
+  return rt::kernel_attrs(trace2_ray_kernel, kThreads, out);
+}
+
+extern "C" int rt_trace2_warp_attrs(int* out) {
+  return rt::kernel_attrs(trace2_warp_kernel, kThreads, out);
 }

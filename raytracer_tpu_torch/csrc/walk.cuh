@@ -74,17 +74,29 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
+// A 16-byte load: read-only through the L1 from global memory (kGlobal),
+// or a plain load (a row staged in shared memory).
+template <bool kGlobal>
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  if constexpr (kGlobal) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
 // Moller-Trumbore against triangles [k0, k1) of one cluster row, each
 // record four 16-byte loads: (v0, e1.x), (e1.yz, e2.xy), (e2.z, albedo),
 // and, for a win only, (type, normal).
+template <bool kGlobal = true>
 __device__ __forceinline__ void mt_tris(const float* __restrict__ cr, int k0,
                                         int k1, const Ray& r, float t_min,
                                         float det_eps, int cid, Hit& h) {
   const float4* __restrict__ rec = reinterpret_cast<const float4*>(cr);
   for (int k = k0; k < k1; ++k) {
-    const float4 p = __ldg(rec + 4 * k);
-    const float4 q = __ldg(rec + 4 * k + 1);
-    const float4 u = __ldg(rec + 4 * k + 2);
+    const float4 p = ld4<kGlobal>(rec + 4 * k);
+    const float4 q = ld4<kGlobal>(rec + 4 * k + 1);
+    const float4 u = ld4<kGlobal>(rec + 4 * k + 2);
     const float v0x = p.x, v0y = p.y, v0z = p.z;
     const float e1x = p.w, e1y = q.x, e1z = q.y;
     const float e2x = q.z, e2y = q.w, e2z = u.x;
@@ -104,7 +116,7 @@ __device__ __forceinline__ void mt_tris(const float* __restrict__ cr, int k0,
     ok = ok && (uu >= 0.0f) && (uu <= 1.0f) && (vv >= 0.0f) &&
          (uu + vv <= 1.0f) && (tt > t_min) && (tt < h.t);
     if (ok) {
-      const float4 w = __ldg(rec + 4 * k + 3);
+      const float4 w = ld4<kGlobal>(rec + 4 * k + 3);
       h.t = tt;
       h.nx = w.y;
       h.ny = w.z;

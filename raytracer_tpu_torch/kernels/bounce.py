@@ -290,7 +290,9 @@ def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
     w = state.shape[1]
     out = torch.empty_like(state)
     key = torch.empty(w, dtype=torch.int32, device=state.device)
-    counts = torch.zeros(2, dtype=torch.int64, device=state.device)
+    # (rays, live), then the ray counter of the pmega call's persistent
+    # warps (bounce15 at bcap > 1).
+    counts = torch.zeros(3, dtype=torch.int64, device=state.device)
     lib = cuda_build.library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
     cuda_build.check(getattr(lib, f"rt_{name}")(
@@ -299,7 +301,7 @@ def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
         w, int(bcap), int(bool(sky_on)), cfg.fuzz, int(cfg.emissive_emits),
         cfg.t_min, cfg.t_max, cfg.det_eps, stream), f"rt_{name}")
     launches.kernel[name] += 1
-    return out, key, counts
+    return out, key, counts[:2]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

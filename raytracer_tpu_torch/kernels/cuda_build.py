@@ -22,7 +22,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu")
 HEADERS = ("walk.cuh",)
-KERNELS = ("trace4", "trace2", "bounce12", "bounce15", "bounce_packed")
+KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce15",
+           "bounce15_pmega", "bounce_packed")
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,9 +53,11 @@ def _declare(lib) -> None:
     lib.rt_trace4.restype = i32
     lib.rt_trace4.argtypes = [vp, vp, vp, vp, vp, i32, f32, f32, f32, i32,
                               vp]
-    lib.rt_trace2.restype = i32
-    lib.rt_trace2.argtypes = [vp, vp, vp, vp, vp, i32, i32, f32, f32, f32,
-                              i32, vp]
+    for name in ("rt_trace2", "rt_trace2_warp"):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, f32, f32, f32, i32,
+                       vp]
     for name in ("rt_bounce12", "rt_bounce15"):
         fn = getattr(lib, name)
         fn.restype = i32

@@ -120,7 +120,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
         _, ray_o, ray_d = make_primary_rays(cam, cfg, None, xx, yy, gh,
                                             jitter=False)
         return by_pixel(fixed_light_color(
-            traverse(scene, ray_o, ray_d, alive, cfg)))
+            traverse(scene, ray_o, ray_d, alive, cfg, coherent=True)))
 
     seed = initial_seed(cam, cfg, yy * w + xx, sample_index)
     seed, ray_o, ray_d = make_primary_rays(cam, cfg, seed, xx, yy, gh)
@@ -128,7 +128,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
     one = torch.ones(p_pad, dtype=torch.float32, device=dev)
     sky_on = cam.sky_host
 
-    res = traverse(scene, ray_o, ray_d, alive, cfg)
+    res = traverse(scene, ray_o, ray_d, alive, cfg, coherent=True)
     ray_o, ray_d, color, atten, seed, alive = shade(
         res, ray_o, ray_d, (zero, zero, zero), (one, one, one), seed, alive,
         sky_on, cfg)

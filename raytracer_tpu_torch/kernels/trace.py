@@ -18,8 +18,11 @@ internal node goes to its left child, anything else to its skip link).
 The TPU tile walk and a per-ray walk visit a ray's leaves in the same
 order (a child box lies inside its parent's, so a ray that hits the child
 hits the parent), so closest hit and winner agree bit for bit, ties
-included. ``traverse`` picks kernel A or 5 by the path knobs
-(``raytracer_tpu_torch/knobs.py``), as ``pallas_traverse`` does.
+included. It has two designs on the card: one thread per ray
+(``rt_trace2``, for the split rounds) and one node id per warp
+(``rt_trace2_warp``, the union walk, for coherent primaries); the caller
+says which (``coherent``). ``traverse`` picks kernel A or 5 by the path
+knobs (``raytracer_tpu_torch/knobs.py``), as ``pallas_traverse`` does.
 
 ``walk_plain`` is the plain PyTorch version of the per-ray walk, shared
 with kernel B's plain version (``kernels/bounce.py``). It advances every
@@ -222,13 +225,15 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
 
 
 def walk2_plain(nodes8: torch.Tensor, num_nodes: int,
-                clusters: torch.Tensor, ray_o, ray_d, active: torch.Tensor,
-                t_min: float, t_max: float, det_eps: float, flip: bool):
+                clusters: torch.Tensor, counts: torch.Tensor, ray_o, ray_d,
+                active: torch.Tensor, t_min: float, t_max: float,
+                det_eps: float, flip: bool):
     """Per-ray skip-link walk of the binary table, plain torch -> out
     f32[8, P] (t, normal xyz, albedo rgb, type). Every unfinished ray
     visits one node per step; a leaf it hits tests all 8 triangles of its
     cluster in order (strict ``t < closest``: the first strict minimum
-    wins). Counts node visits and triangle tests in ``launches.work``."""
+    wins). Counts node visits and the tests of live triangles (``counts``,
+    i32[L] per cluster; the rest never hit) in ``launches.work``."""
     dev = active.device
     p = active.shape[0]
     out = torch.zeros((8, p), dtype=torch.float32, device=dev)
@@ -262,9 +267,10 @@ def walk2_plain(nodes8: torch.Tensor, num_nodes: int,
             leaf = torch.nonzero(hit & (col7 >= 0)).squeeze(1)
             q = leaf.numel()
             if q:
-                launches.work["tris"] += q * CLUSTER_SIZE
-                tri = clusters.index_select(
-                    0, col7[leaf].to(torch.int64)).view(-1, CLUSTER_SIZE, 16)
+                cids = col7[leaf].to(torch.int64)
+                launches.work["tris"] += int(counts[cids].sum())
+                tri = clusters.index_select(0, cids).view(-1, CLUSTER_SIZE,
+                                                          16)
                 cand = _mt_candidates(
                     tri, list(oo[leaf].T), list(dd[leaf].T), closest[leaf],
                     torch.ones(q, dtype=torch.bool, device=dev), t_min,
@@ -356,24 +362,33 @@ def _check_scene2(scene: FastScene, device: torch.device) -> None:
     _check_table(scene, "clusters", 128, device)
     if not 0 < scene.num_nodes <= scene.nodes8.shape[0]:
         raise ValueError("scene.num_nodes out of range")
+    c = scene.cluster_counts
+    if (c.device != device or c.dtype != torch.int32
+            or c.shape != scene.clusters.shape[:1] or not c.is_contiguous()):
+        raise ValueError("scene.cluster_counts must be contiguous i32[L] "
+                         "beside scene.clusters")
 
 
 def trace2_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
-                 cfg: RenderConfig) -> torch.Tensor:
-    """Plain version of kernel 5 (binary walk); arguments and result as
+                 cfg: RenderConfig, coherent: bool = False) -> torch.Tensor:
+    """Plain version of kernel 5 (binary walk), of both its designs
+    (``coherent`` changes nothing here); arguments and result as
     ``trace4_plain``."""
     _check_scene2(scene, rays.device)
     _check_rays(rays, active)
     launches.plain["trace2"] += 1
     return walk2_plain(scene.nodes8, scene.num_nodes, scene.clusters,
-                       rays[0:3], rays[3:6], active, cfg.t_min, cfg.t_max,
-                       cfg.det_eps, _flip(cfg))
+                       scene.cluster_counts, rays[0:3], rays[3:6], active,
+                       cfg.t_min, cfg.t_max, cfg.det_eps, _flip(cfg))
 
 
 def trace2(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
-           cfg: RenderConfig) -> torch.Tensor:
+           cfg: RenderConfig, coherent: bool = False) -> torch.Tensor:
     """Kernel 5 on CUDA tensors, its plain version on CPU tensors (same
-    arguments and result as ``trace2_plain``)."""
+    arguments and result as ``trace2_plain``). ``coherent``: the rays of
+    a warp are neighbouring primaries, so the warp walks the union of
+    their paths (``trace2_warp``); else each thread walks its own ray
+    (``trace2``). Both give the same result bit for bit."""
     if rays.device.type == "cpu":
         return trace2_plain(scene, rays, active, cfg)
     if rays.device.type != "cuda":
@@ -383,23 +398,28 @@ def trace2(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     p = rays.shape[1]
     out = torch.empty((8, p), dtype=torch.float32, device=rays.device)
     act = active.to(torch.uint8)
+    name = "trace2_warp" if coherent else "trace2"
     lib = cuda_build.library()
     stream = torch.cuda.current_stream(rays.device).cuda_stream
-    cuda_build.check(lib.rt_trace2(
-        scene.nodes8.data_ptr(), scene.clusters.data_ptr(), rays.data_ptr(),
-        act.data_ptr(), out.data_ptr(), p, scene.num_nodes, cfg.t_min,
-        cfg.t_max, cfg.det_eps, int(_flip(cfg)), stream), "rt_trace2")
-    launches.kernel["trace2"] += 1
+    cuda_build.check(getattr(lib, f"rt_{name}")(
+        scene.nodes8.data_ptr(), scene.clusters.data_ptr(),
+        scene.cluster_counts.data_ptr(), rays.data_ptr(), act.data_ptr(),
+        out.data_ptr(), p, scene.num_nodes, cfg.t_min, cfg.t_max,
+        cfg.det_eps, int(_flip(cfg)), stream), f"rt_{name}")
+    launches.kernel[name] += 1
     return out
 
 
-def traverse(scene: FastScene, ray_o, ray_d, active,
-             cfg: RenderConfig) -> TraversalResult:
+def traverse(scene: FastScene, ray_o, ray_d, active, cfg: RenderConfig,
+             coherent: bool = False) -> TraversalResult:
     """Closest hit for flat [P] SoA rays: kernel A over the 8-wide table,
-    or kernel 5 over the binary table when the knobs ask for it."""
+    or kernel 5 over the binary table when the knobs ask for it (its warp
+    design for ``coherent`` rays: tile-major primaries)."""
     rays = torch.stack([*ray_o, *ray_d])
-    walk = trace2 if knobs.binary_traverse() else trace4
-    out = walk(scene, rays, active, cfg)
+    if knobs.binary_traverse():
+        out = trace2(scene, rays, active, cfg, coherent)
+    else:
+        out = trace4(scene, rays, active, cfg)
     return TraversalResult(out[0], out[0] < cfg.t_max,
                            (out[1], out[2], out[3]),
                            (out[4], out[5], out[6]), out[7])

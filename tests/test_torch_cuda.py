@@ -80,8 +80,10 @@ def test_bounce12_kernel_matches_plain(scene):
         assert torch.equal(cnt_k, cnt_p)
 
 
-def test_trace2_kernel_matches_plain(scene):
-    """Kernel 5 (binary walk) with the flip on and off."""
+@pytest.mark.parametrize("coherent", [False, True])
+def test_trace2_kernel_matches_plain(scene, coherent):
+    """Kernel 5 (binary walk), per-ray and warp design, with the flip on
+    and off, on incoherent rays."""
     from raytracer_tpu_torch.core.types import RenderConfig
     from raytracer_tpu_torch.kernels.trace import trace2, trace2_plain
 
@@ -90,10 +92,55 @@ def test_trace2_kernel_matches_plain(scene):
     active = torch.arange(8192, device="cuda") % 5 != 0
     for shading in ("path", "fixed_light"):
         cfg = RenderConfig(shading=shading)
-        got = trace2(scene, rays, active, cfg)
+        got = trace2(scene, rays, active, cfg, coherent)
         want = trace2_plain(scene, rays, active, cfg)
         assert torch.equal(got, want), shading
         assert (got[0] < cfg.t_max).float().mean() > 0.1
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+def test_trace2_kernel_matches_plain_on_a_sorted_round(scene, coherent):
+    """Kernel 5 on a round as the split engine hands it over: rays sorted
+    by the host om9 key, the dead (inactive) ones last."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.trace import trace2, trace2_plain
+    from raytracer_tpu_torch.kernels.wavefront import sort_key
+
+    n = 8192
+    o, d = _rays(n, 10)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    alive = torch.rand(n, generator=g, device="cuda") < 0.7
+    order = torch.argsort(sort_key(tuple(o), tuple(d), alive,
+                                   *scene.bounds()), stable=True)
+    rays = torch.cat([o, d])[:, order].contiguous()
+    active = alive[order]
+    cfg = RenderConfig()
+    got = trace2(scene, rays, active, cfg, coherent)
+    assert torch.equal(got, trace2_plain(scene, rays, active, cfg))
+    assert (got[0] < cfg.t_max).float().mean() > 0.1
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+def test_trace2_kernel_on_the_empty_scene(coherent):
+    """The one-node all-miss table: every lane misses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc, triton)")
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.trace import trace2, trace2_plain
+    from raytracer_tpu_torch.scene.builder import \
+        build_fast_scene_from_arrays
+
+    empty = build_fast_scene_from_arrays(np.zeros((0, 3, 3), np.float32),
+                                         np.zeros((0, 4), np.float32),
+                                         device="cuda")
+    assert empty.num_nodes == 1
+    o, d = _rays(1000, 12)
+    rays = torch.cat([o, d]).contiguous()
+    active = torch.arange(1000, device="cuda") % 3 != 0
+    cfg = RenderConfig()
+    got = trace2(empty, rays, active, cfg, coherent)
+    assert torch.equal(got, trace2_plain(empty, rays, active, cfg))
+    assert (got[0] == cfg.t_max).all() and (got[1:] == 0).all()
 
 
 def test_trace4_kernel_matches_plain_without_flip(scene):
@@ -135,6 +182,27 @@ def test_bounce15_kernel_matches_plain(scene):
                                              RenderConfig())
         assert torch.equal(out_k, out_p) and torch.equal(key_k, key_p)
         assert torch.equal(cnt_k, cnt_p)
+
+
+def test_bounce15_pmega_call_matches_plain(scene):
+    """The pmega call (bcap 9, persistent warps) on a width that is no
+    multiple of 32 or 128, with per-ray budgets 0-9 mixed: state, key and
+    counts bit-equal."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.bounce import (ROW_BUDGET, bounce15,
+                                                    bounce15_plain)
+
+    n = 8192 + 37
+    state = _color_state(n, 13)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    state[ROW_BUDGET] = torch.randint(0, 10, (n,), generator=g,
+                                      device="cuda", dtype=torch.int32)
+    cfg = RenderConfig()
+    got = bounce15(scene, state, cfg.max_bounces - 1, True, cfg)
+    want = bounce15_plain(scene, state, cfg.max_bounces - 1, True, cfg)
+    for k, p in zip(got, want):
+        assert torch.equal(k, p)
+    assert got[0].shape == state.shape and got[2][0] > n // 2
 
 
 def test_bounce_packed_kernel_matches_plain(scene):

@@ -103,6 +103,34 @@ def test_cluster_rows_are_packed_records():
         assert (recs == row).all(1).any()
 
 
+@pytest.mark.parametrize("make", [_cube_plane, _terrain, _empty],
+                         ids=["cube_plane", "terrain40", "empty"])
+def test_cluster_counts_are_the_builders_leaf_sizes(make):
+    """FastScene.cluster_counts, derived from the cluster rows, is the
+    triangle count the BVH builder gave each leaf (cluster ids in leaf
+    order), 0 on padding rows and on the empty scene's all-zero row; a
+    scene made from the JAX package's leaves derives the same counts."""
+    from raytracer_tpu_torch.bvh.build import build_bvh
+    from raytracer_tpu_torch.core.fast_types import CLUSTER_SIZE
+
+    verts, mats = make()
+    fs = build_fast_scene_from_arrays(verts, mats, device="cpu")
+    want = np.zeros(fs.clusters.shape[0], np.int32)
+    if verts.shape[0]:
+        bvh = build_bvh(verts, leaf_size=CLUSTER_SIZE)
+        ntri = bvh.node_ntri[bvh.node_tri >= 0]
+        want[:ntri.size] = ntri
+        assert want.sum() == verts.shape[0]
+    got = fs.cluster_counts
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+    leaves = {n: getattr(fs, n).numpy() for n in TABLES}
+    leaves.update({n: getattr(fs, n) for n in COUNTS})
+    np.testing.assert_array_equal(
+        fast_scene_from_numpy(leaves, device="cpu").cluster_counts.numpy(),
+        want)
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys\n"
             "import raytracer_tpu_torch\n"
