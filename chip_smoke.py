@@ -7,11 +7,12 @@ Phases, one or more lines each (any failure raises and exits non-zero):
 1. device: the card's name and its nvidia-smi name / power limit;
 2. build: nvcc builds every kernel of ``raytracer_tpu_torch/csrc`` (one
    process per source, all at once) into ``raytracer_tpu_torch/_build``;
-   Triton compiles the tonemap;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, with both times and the least time the card
    could take for the same work (``bound_ms``): the tonemap on a 1280x720
-   frame; kernel A on the middle 720p band of flagship primaries (307,200
+   band sum at spp 1 and 2 (0 differing bytes in the accumulator and the
+   image; its device time from the profiler and its call time); kernel A
+   on the middle 720p band of flagship primaries (307,200
    rays); kernel B on that band's sorted bounce-1 state and on a
    merged-tail-width state with mixed bounce budgets (0 included); kernel
    5 in its two designs, ``trace2_warp`` (one node id per warp) on the
@@ -23,7 +24,9 @@ Phases, one or more lines each (any failure raises and exits non-zero):
    same state sorted by the pmega host key at bcap 9 (the pmega call,
    persistent warps), with that call's lane occupancy under one ray per
    thread; the packed kernel on the bounce-1 state as the
-   ``fused_packed`` round sorts it;
+   ``fused_packed`` round sorts it, with its counting build's SIMD
+   efficiency of the walk's visit and leaf loops and its blocks' timer
+   spans (the round's drain and block-slot occupancy);
    kernel A and kernel B on a hand-built 36-level tree whose walk pushes
    246 stack entries (``presets.stack_limit_scene``, need 253 of the
    256-slot stack), bit-equal;
@@ -102,6 +105,33 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, match: str, cold: bool = False) -> float:
+    """Mean device time of a kernel named ``*match*`` (fn() launches one),
+    from the profiler's kernel durations over reps calls (after one
+    warm-up call; the profiler may drop a few events). ``cold``: a 256 MB
+    memset before each call evicts the 50 MB L2, so the call reads its
+    inputs from device memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = (torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+             if cold else None)
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if cold:
+                flush.zero_()
+            fn()
+        _sync()
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and match in e.name]
+    assert reps // 2 <= len(durs) <= reps, (
+        f"profiler saw {len(durs)} {match} kernels in {reps} calls")
+    return sum(durs) / len(durs) / 1e3
+
+
 def bound(nbytes: float, work=None) -> dict:
     """Least time for the work: the larger of the bytes over the memory
     rate and the operations (work counted by the plain version, priced by
@@ -143,33 +173,44 @@ def plain_work(fn):
 
 
 def check_tonemap(results):
+    """The tonemap on a 1280x720 band sum: accumulator and image bit-equal
+    to the plain version at spp 1 and 2; device and call time at spp 1
+    (the main path's)."""
     from raytracer_tpu_torch.kernels.tonemap import (tonemap_accumulate,
                                                      tonemap_plain)
 
     g = torch.Generator(device="cuda").manual_seed(11)
-    shape = (720, 1280, 3)
-    accum = torch.rand(shape, generator=g, device="cuda") * 1.5
-    sample = torch.rand(shape, generator=g, device="cuda") * 1.5
+    h, w = 720, 1280
+    accum = torch.rand((h, w, 3), generator=g, device="cuda") * 1.5
+    total = torch.rand((3, h * w), generator=g, device="cuda") * 3.0
     fc = torch.tensor(5, dtype=torch.int32, device="cuda")
     ex = torch.tensor(0.5, device="cuda")
-    acc_k, img_k = tonemap_accumulate(accum.clone(), sample, fc, ex)
-    acc_p, img_p = tonemap_plain(accum.clone(), sample, fc, ex)
-    _sync()
-    du8 = (img_k.int() - img_p.int()).abs()
-    equal = (du8 == 0).float().mean().item()
-    ulp = (acc_k.view(torch.int32).long()
-           - acc_p.view(torch.int32).long()).abs().max().item()
-    err = (acc_k - acc_p).abs().max().item()
+    n_diff = 0
+    for spp in (1, 2):
+        acc_k, img_k = tonemap_accumulate(accum.clone(), total, spp, fc, ex)
+        acc_p, img_p = tonemap_plain(accum.clone(), total, spp, fc, ex)
+        _sync()
+        n_diff += int((acc_k.view(torch.int32) != acc_p.view(torch.int32))
+                      .sum()) + int((img_k != img_p).sum())
     scratch = accum.clone()
-    ms = time_ms(lambda: tonemap_accumulate(scratch, sample, fc, ex), 50)
-    plain_ms = time_ms(lambda: tonemap_plain(scratch, sample, fc, ex), 50)
-    print(f"check tonemap 1280x720: u8 equal {equal * 100:.5f}% max u8 diff "
-          f"{du8.max().item()} accum max ulp {ulp} max abs {err:.3g}; "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    assert equal >= 0.9999 and du8.max().item() <= 1 and ulp <= 2
-    # Reads accum and sample, writes accum and the u8 frame.
-    results["tonemap"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              **bound(nbytes(accum, sample, acc_k, img_k)))
+
+    def call():
+        return tonemap_accumulate(scratch, total, 1, fc, ex)
+
+    ms = device_ms(call, 50, "tonemap", cold=True)
+    warm_ms = device_ms(call, 50, "tonemap")
+    call_ms = time_ms(call, 50)
+    plain_ms = time_ms(lambda: tonemap_plain(scratch, total, 1, fc, ex), 50)
+    print(f"check tonemap 1280x720, spp 1 and 2: differing accumulator "
+          f"words and image bytes {n_diff}; kernel on the device {ms:.4f} ms "
+          f"from device memory, {warm_ms:.4f} ms with its 25 MB in L2; "
+          f"{call_ms:.4f} ms a call; plain {plain_ms:.4f} ms")
+    assert n_diff == 0
+    # Reads the band sum and the accumulator, writes the accumulator and
+    # the u8 frame.
+    results["tonemap"] = dict(max_abs_err=0.0, ms=ms, warm_ms=warm_ms,
+                              call_ms=call_ms, plain_ms=plain_ms,
+                              **bound(nbytes(total, accum, acc_k, img_k)))
 
 
 def band_primaries(scene, cfg, cam, band=None):
@@ -333,6 +374,20 @@ def pmega_state(scene, cfg, cam, band=None):
     order = torch.argsort(wavefront.sort_key(o, d, alive, *scene.bounds()),
                           stable=True)
     return flat.index_select(1, order)
+
+
+def packed_state(scene, cfg, cam, band=None):
+    """The state the ``fused_packed`` round gets for a band (default the
+    middle one): the bounce-1 state packed and sorted as that engine does
+    -> (sf f32[13, P], si i32[2, P])."""
+    from raytracer_tpu_torch.kernels import wavefront
+
+    o, d, color, atten, seed, alive, pix = band_bounce1(scene, cfg, cam,
+                                                        band)
+    sf = torch.stack([*o, *d, *color, *atten, alive.to(torch.float32)])
+    si = torch.stack([seed.to(torch.int32), pix])
+    key = wavefront._state_key((sf, si), scene)
+    return wavefront._sorted((sf, si), key)[0]
 
 
 def lane_occupancy(state_in, state_out, warp: int = 32) -> dict:
@@ -529,10 +584,7 @@ def check_color_kernels(scene, cfg, cam, results):
     results["bounce15"] = rows["pmega call"]
     results["bounce15_fused"] = rows["fused round"]
 
-    sf = torch.stack([*o, *d, *color, *atten, alive.to(torch.float32)])
-    si = torch.stack([seed.to(torch.int32), pix])
-    (sf, si), _ = wavefront._sorted((sf, si),
-                                    wavefront._state_key((sf, si), scene))
+    sf, si = packed_state(scene, cfg, cam)
     got = bounce_packed(scene, sf, si, 1, True, cfg)
     want, work = plain_work(
         lambda: bounce_packed_plain(scene, sf, si, 1, True, cfg))
@@ -546,9 +598,48 @@ def check_color_kernels(scene, cfg, cam, results):
     print(f"check bounce_packed bcap 1 (fused_packed round, {p} rays): "
           f"rays/live {got[3].tolist()}, differing lanes {n_diff}, max abs "
           f"err {err:.3g}; kernel {ms:.4f} ms plain {plain_ms:.2f} ms")
+    eff = packed_round_profile(scene, sf, si, cfg, got)
+    print(f"packed round walk: SIMD efficiency {eff['visit_efficiency']:.4f}"
+          f" in the visit loop, {eff['leaf_efficiency']:.4f} in the leaf "
+          f"loop; {eff['blocks']} blocks over {eff['resident_blocks']} "
+          f"resident, span {eff['span_ms']:.4f} ms, last-wave share "
+          f"{eff['last_wave_share']:.4f}, drain share "
+          f"{eff['drain_share']:.4f}, block-slot occupancy "
+          f"{eff['slot_occupancy']:.4f} (counting build)")
     results["bounce_packed"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **bound(2 * nbytes(sf, si) + 4 * p + tables, work))
+
+
+def packed_round_profile(scene, sf, si, cfg, want) -> dict:
+    """The packed kernel's counting build on one round (results checked
+    equal to ``want``, the kernel's): the SIMD efficiency of the walk's
+    visit loop and of its leaf loop (active lanes per warp trip / 32);
+    the launch's blocks, the resident blocks the card holds, the span
+    from the first block's start to the last block's end, the share of
+    the span after the last block started (the partial last wave of one
+    ray per thread, where block slots go idle), the share after the first
+    block ended (the drain) and the block-slot occupancy (block time
+    summed over resident blocks x span)."""
+    from raytracer_tpu_torch.kernels.bounce import bounce_packed_count
+    from raytracer_tpu_torch.kernels.cuda_build import kernel_attrs
+
+    *got, tallies, times = bounce_packed_count(scene, sf, si, 1, True, cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), "counting build differs from the kernel"
+    vt, vl, lt, ll = (int(x) for x in tallies)
+    t = times.double()
+    span = float(t[:, 1].max() - t[:, 0].min())
+    resident = (kernel_attrs("bounce_packed")["blocks_per_sm"]
+                * torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(visit_efficiency=vl / (32 * max(vt, 1)),
+                leaf_efficiency=ll / (32 * max(lt, 1)),
+                visit_trips=vt, leaf_trips=lt, blocks=int(t.shape[0]),
+                resident_blocks=resident, span_ms=span / 1e6,
+                last_wave_share=float(t[:, 1].max() - t[:, 0].max()) / span,
+                drain_share=float(t[:, 1].max() - t[:, 1].min()) / span,
+                slot_occupancy=float((t[:, 1] - t[:, 0]).sum())
+                / (resident * span))
 
 
 @contextlib.contextmanager
@@ -653,7 +744,6 @@ def main() -> None:
     from raytracer_tpu_torch.core.types import RenderConfig
     from raytracer_tpu_torch.engine.renderer import Renderer
     from raytracer_tpu_torch.kernels import cuda_build, launches
-    from raytracer_tpu_torch.kernels.tonemap import tonemap_accumulate
     from raytracer_tpu_torch.scene import presets
     from raytracer_tpu_torch.scene.builder import \
         build_fast_scene_from_arrays
@@ -671,13 +761,8 @@ def main() -> None:
     t0 = time.perf_counter()
     cuda_build.library()
     t_nvcc = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    x = torch.zeros((8, 8, 3), device="cuda")
-    tonemap_accumulate(x, x.clone(), 0, 0.0)
-    _sync()
-    t_triton = time.perf_counter() - t0
     print(f"build: kernels {', '.join(cuda_build.SOURCES)} (nvcc, one "
-          f"process each) {t_nvcc:.1f} s, tonemap (triton) {t_triton:.1f} s")
+          f"process each) {t_nvcc:.1f} s")
 
     cfg = RenderConfig()
     scene = presets.flagship_scene()
@@ -778,7 +863,7 @@ def main() -> None:
         "trace2_warp": split_run["counts"]["trace2_warp"],
         "bounce15": pmega_run["counts"]["bounce15"],
         "bounce_packed": packed_run["counts"]["bounce_packed"]}
-    srcs = {"tonemap": ("triton", "raytracer_tpu_torch/kernels/tonemap.py",
+    srcs = {"tonemap": ("cuda", "raytracer_tpu_torch/csrc/tonemap.cu",
                         "raytracer_tpu/kernels/pallas_ops.py:25"),
             "trace4": ("cuda", "raytracer_tpu_torch/csrc/trace4.cu",
                        "raytracer_tpu/kernels/pallas_trace.py:266"),
@@ -792,11 +877,10 @@ def main() -> None:
                          "raytracer_tpu/kernels/pallas_mega.py:800"),
             "bounce_packed": ("cuda", "raytracer_tpu_torch/csrc/bounce12.cu",
                               "raytracer_tpu/kernels/pallas_mega.py:645")}
-    for k, (route, _, _) in srcs.items():
+    for k in srcs:
         # The bounce15 row is the pmega call: its persistent-warp kernel.
-        attrs = (cuda_build.kernel_attrs(
+        attrs = cuda_build.kernel_attrs(
             {"bounce15": "bounce15_pmega"}.get(k, k))
-            if route == "cuda" else {})
         results[k].update({a: attrs.get(a) for a in cuda_build.ATTRS})
     paths = {"main": main_run, "pmega": pmega_run, "fused": fused_run,
              "fused_packed": packed_run, "split_binary": split_run,

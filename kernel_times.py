@@ -2,7 +2,7 @@
 more checkouts of the repo, in turns on one card.
 
     python kernel_times.py [--trees DIR ...] [--turns 2] [--reps 20]
-                           [--bcaps 2,3,5]
+                           [--bcaps 2,3,5] [--rows ROW,...]
 
 Each checkout (a directory holding ``raytracer_tpu_torch/`` and
 ``native/``; default: this one) runs in a child process of its own that
@@ -17,17 +17,26 @@ state (``chip_smoke.py`` phase 3's shapes), ``bounce15`` as the pmega
 call (bcap 9) on the middle band's state and on the top and bottom
 bands' (``bounce15_top``, ``bounce15_bottom``; with ``--bcaps``, also at
 those bcaps on the middle band, rows ``bounce15_b<k>``) and as a fused
-round (bcap 1), and ``bounce_packed``; and each pmega state's lane
-occupancy (``chip_smoke.lane_occupancy``). The inputs come from this
+round (bcap 1), ``bounce_packed`` on the ``fused_packed`` round's state
+of the middle band and of the top and bottom bands
+(``bounce_packed_top``, ``bounce_packed_bottom``),
+``bounce12_pl`` (kernel B with the walk's postponed leaves, where the
+checkout has it), and the tonemap on a 1280x720 frame at spp 1: its
+kernel's device time from the profiler, after an L2 flush (``tonemap``)
+and with its inputs in L2 (``tonemap_warm``), and the time of a call
+(``tonemap_call``); with each pmega state's lane occupancy
+(``chip_smoke.lane_occupancy``) and, where the checkout has the packed
+kernel's counting build, each packed round's walk efficiency
+(``chip_smoke.packed_round_profile``). The inputs come from this
 checkout's ``chip_smoke.py`` helpers, run against each checkout's
-package. Each
-kernel's output is compared with its plain version on the same inputs
-(differing lanes are printed). Per kernel it also prints registers, local
-memory bytes, shared bytes and resident blocks per SM from the
-checkout's ``cuda_build.kernel_attrs`` (null where the checkout has
-none). Checkouts run in turns (A B C, C B A, ...), so drift of the card's
-clocks shows as a difference between turns. One JSON line per checkout
-and turn, then one summary line. Needs a CUDA device.
+package. Each kernel's output is compared with its plain version on the
+same inputs (differing lanes are printed). Per kernel it also prints
+registers, local memory bytes, shared bytes and resident blocks per SM
+from the checkout's ``cuda_build.kernel_attrs`` (null where the checkout
+has none). ``--rows`` times only the rows named. Checkouts run in turns
+(A B C, C B A, ...), so drift of the card's clocks shows as a difference
+between turns. One JSON line per checkout and turn, then one summary
+line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,20 +48,23 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("trace4", "bounce12", "bounce15", "bounce15_top",
-           "bounce15_bottom", "bounce15_fused", "bounce_packed", "trace2",
-           "trace2_split")
+KERNELS = ("trace4", "bounce12", "bounce12_pl", "bounce15", "bounce15_top",
+           "bounce15_bottom", "bounce15_fused", "bounce_packed",
+           "bounce_packed_top", "bounce_packed_bottom", "trace2",
+           "trace2_split", "tonemap", "tonemap_warm", "tonemap_call")
 # Row -> the kernel whose attributes it reports, where the checkout's
 # cuda_build knows that kernel (else the row's name, or bounce15 for the
 # pmega rows).
 ATTRS_OF = {"trace2": "trace2_warp", "trace2_split": "trace2",
             "bounce15": "bounce15_pmega", "bounce15_top": "bounce15_pmega",
             "bounce15_bottom": "bounce15_pmega",
-            "bounce15_fused": "bounce15"}
+            "bounce15_fused": "bounce15", "bounce_packed_top": "bounce_packed",
+            "bounce_packed_bottom": "bounce_packed", "tonemap_warm": "tonemap",
+            "tonemap_call": "tonemap"}
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 
 
-def run_one(tree: str, reps: int, bcaps=()) -> dict:
+def run_one(tree: str, reps: int, bcaps=(), rows=None) -> dict:
     """Time and check the kernels of one checkout (in this process)."""
     import inspect
 
@@ -62,8 +74,8 @@ def run_one(tree: str, reps: int, bcaps=()) -> dict:
     sys.path.insert(0, tree)
     from raytracer_tpu_torch.core.camera import default_camera
     from raytracer_tpu_torch.core.types import RenderConfig
-    from raytracer_tpu_torch.kernels import bounce, cuda_build, trace
-    from raytracer_tpu_torch.kernels import wavefront
+    from raytracer_tpu_torch.kernels import bounce, cuda_build, tonemap
+    from raytracer_tpu_torch.kernels import trace, wavefront
     from raytracer_tpu_torch.scene import presets
 
     pkg = os.path.dirname(os.path.dirname(cuda_build.__file__))
@@ -85,10 +97,9 @@ def run_one(tree: str, reps: int, bcaps=()) -> dict:
     pmega = cs.pmega_state(scene, cfg, cam)
     pmega_top = cs.pmega_state(scene, cfg, cam, 0)
     pmega_bottom = cs.pmega_state(scene, cfg, cam, 2)
-    sf = torch.stack([*o, *d, *color, *atten, alive1.to(torch.float32)])
-    si = torch.stack([seed.to(torch.int32), pix])
-    (sf, si), _ = wavefront._sorted((sf, si),
-                                    wavefront._state_key((sf, si), scene))
+    sf, si = cs.packed_state(scene, cfg, cam)
+    packed_top = cs.packed_state(scene, cfg, cam, 0)
+    packed_bottom = cs.packed_state(scene, cfg, cam, 2)
     srays, sact = cs.split_round1(scene, cfg, cam)
     b0 = ({"coherent": True}
           if "coherent" in inspect.signature(trace.trace2).parameters
@@ -116,12 +127,28 @@ def run_one(tree: str, reps: int, bcaps=()) -> dict:
         "bounce_packed": (
             lambda: bounce.bounce_packed(scene, sf, si, 1, True, cfg),
             lambda: bounce.bounce_packed_plain(scene, sf, si, 1, True, cfg)),
+        "bounce_packed_top": (
+            lambda: bounce.bounce_packed(scene, *packed_top, 1, True, cfg),
+            lambda: bounce.bounce_packed_plain(scene, *packed_top, 1, True,
+                                               cfg)),
+        "bounce_packed_bottom": (
+            lambda: bounce.bounce_packed(scene, *packed_bottom, 1, True,
+                                         cfg),
+            lambda: bounce.bounce_packed_plain(scene, *packed_bottom, 1,
+                                               True, cfg)),
         "trace2": (lambda: trace.trace2(scene, rays, alive, cfg, **b0),
                    lambda: trace.trace2_plain(scene, rays, alive, cfg)),
         "trace2_split": (
             lambda: trace.trace2(scene, srays, sact, cfg),
             lambda: trace.trace2_plain(scene, srays, sact, cfg)),
     }
+    if "bounce12_pl" in cuda_build.KERNELS:
+        calls["bounce12_pl"] = (
+            lambda: bounce._launch_rounds("bounce12_pl", scene, st12, 1,
+                                          True, cfg),
+            lambda: bounce.bounce12_plain(scene, st12, 1, True, cfg))
+    if rows:
+        calls = {k: v for k, v in calls.items() if k in rows}
     attrs_of = dict(ATTRS_OF)
     for k in bcaps:
         calls[f"bounce15_b{k}"] = (
@@ -130,6 +157,7 @@ def run_one(tree: str, reps: int, bcaps=()) -> dict:
         attrs_of[f"bounce15_b{k}"] = ("bounce15_pmega" if k > 1
                                       else "bounce15")
     occupancy = {}
+    packed_walk = {}
     ins = {"bounce15": pmega, "bounce15_top": pmega_top,
            "bounce15_bottom": pmega_bottom}
     res = {}
@@ -150,15 +178,63 @@ def run_one(tree: str, reps: int, bcaps=()) -> dict:
                 lanes[:] = True
         res[name] = dict(ms=cs.time_ms(kern, reps),
                          differing_lanes=int(lanes.sum()))
-    for name in calls:
+        if (name.startswith("bounce_packed")
+                and hasattr(bounce, "bounce_packed_count")):
+            state = {"bounce_packed": (sf, si),
+                     "bounce_packed_top": packed_top,
+                     "bounce_packed_bottom": packed_bottom}[name]
+            packed_walk[name] = cs.packed_round_profile(scene, *state, cfg,
+                                                        got)
+    if not rows or "tonemap" in rows:
+        res.update(tonemap_rows(tonemap, reps))
+    for name in res:
         of = attrs_of.get(name, name)
-        if of not in getattr(cuda_build, "KERNELS", ()):
+        if of not in getattr(cuda_build, "KERNELS", ()) and name in calls:
             of = name.split("_")[0] if name.startswith("bounce15") else name
         attrs = (cuda_build.kernel_attrs(of)
-                 if hasattr(cuda_build, "kernel_attrs") else {})
+                 if of in getattr(cuda_build, "KERNELS", ()) else {})
         res[name].update({a: attrs.get(a) for a in ATTRS})
     return dict(tree=tree, device=torch.cuda.get_device_name(0),
-                pmega_lanes=occupancy, kernels=res)
+                pmega_lanes=occupancy, packed_walk=packed_walk, kernels=res)
+
+
+def tonemap_rows(tonemap, reps: int) -> dict:
+    """The tonemap on a 1280x720 frame at spp 1 (the checkout's: the band
+    sum f32[3, H*W] and spp, or, before it took them, the [H, W, 3]
+    sample): the kernel's device time and a call's time; the bytes that
+    differ from the plain version."""
+    import inspect
+
+    import torch
+
+    import chip_smoke as cs
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    h, w = 720, 1280
+    accum = torch.rand((h, w, 3), generator=g, device="cuda") * 1.5
+    total = torch.rand((3, h * w), generator=g, device="cuda") * 3.0
+    fc = torch.tensor(5, dtype=torch.int32, device="cuda")
+    ex = torch.tensor(0.5, device="cuda")
+    if len(inspect.signature(tonemap.tonemap_plain).parameters) == 5:
+        args = (total, 1, fc, ex)
+    else:
+        args = (total.T.reshape(h, w, 3).contiguous(), fc, ex)
+    acc_k, img_k = tonemap.tonemap_accumulate(accum.clone(), *args)
+    acc_p, img_p = tonemap.tonemap_plain(accum.clone(), *args)
+    diff = int((acc_k.view(torch.int32) != acc_p.view(torch.int32)).sum()
+               + (img_k != img_p).sum())
+    scratch = accum.clone()
+
+    def call():
+        return tonemap.tonemap_accumulate(scratch, *args)
+
+    return {"tonemap": dict(ms=cs.device_ms(call, reps, "tonemap",
+                                            cold=True),
+                            differing_lanes=diff),
+            "tonemap_warm": dict(ms=cs.device_ms(call, reps, "tonemap"),
+                                 differing_lanes=diff),
+            "tonemap_call": dict(ms=cs.time_ms(call, reps),
+                                 differing_lanes=diff)}
 
 
 def main(argv=None) -> int:
@@ -168,12 +244,16 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--bcaps", default="",
                    help="comma-separated extra bcaps for bounce15")
+    p.add_argument("--rows", default="",
+                   help="comma-separated rows to time (default all; "
+                        "tonemap times its three rows)")
     p.add_argument("--one", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     bcaps = [int(k) for k in args.bcaps.split(",") if k]
+    rows = [k for k in args.rows.split(",") if k]
     if args.one:
         print(json.dumps(run_one(os.path.abspath(args.one), args.reps,
-                                 bcaps)))
+                                 bcaps, rows)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -186,7 +266,8 @@ def main(argv=None) -> int:
         for tree in trees if turn % 2 == 0 else trees[::-1]:
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--one", tree,
-                 "--reps", str(args.reps), "--bcaps", args.bcaps],
+                 "--reps", str(args.reps), "--bcaps", args.bcaps,
+                 "--rows", args.rows],
                 capture_output=True, text=True)
             if out.returncode:
                 print(f"{tree} failed ({out.returncode}):\n"
@@ -198,8 +279,11 @@ def main(argv=None) -> int:
             res["turn"] = turn
             print(json.dumps(res), flush=True)
             runs[tree].append(res)
-    names = list(KERNELS) + [f"bounce15_b{k}" for k in bcaps]
-    summary = {t: {k: [r["kernels"][k]["ms"] for r in rs] for k in names}
+    names = [k for k in KERNELS if not rows or k in rows
+             or k.startswith("tonemap") and "tonemap" in rows]
+    names += [f"bounce15_b{k}" for k in bcaps]
+    summary = {t: {k: [r["kernels"][k]["ms"] for r in rs
+                       if k in r["kernels"]] for k in names}
                for t, rs in runs.items()}
     print(json.dumps({"device": smi, "ms_by_turn": summary}))
     return 1 if failed else 0

@@ -9,7 +9,7 @@ kernels carry it on an NVIDIA Hopper card:
 
 * kernel A, ``csrc/trace4.cu`` (closest hit over the 8-wide BVH),
 * kernel B, ``csrc/bounce12.cu`` (one fused walk + shade round),
-* the tonemap, a Triton kernel in ``kernels/tonemap.py``.
+* the tonemap, ``csrc/tonemap.cu`` (accumulate, exposure, gamma, u8).
 
 Each kernel has a plain PyTorch version beside it. A wrapper runs the
 plain version for a CPU tensor and the kernel for a CUDA tensor.

@@ -10,7 +10,7 @@ Prints one JSON line per path and round: wall ms per frame, device busy ms
 per frame (the union of kernel and copy intervals), the device idle share
 of the profiled span, kernel launches per frame, the eight kernels with
 the most device time, and the device time of each of the port's own
-kernels (the CUDA kernels of ``csrc/`` and the Triton tonemap). Paths
+kernels (the CUDA kernels of ``csrc/``, the tonemap included). Paths
 run in turns, ``--rounds`` times, so two paths are compared on one card
 within one call. Needs a CUDA device.
 """
@@ -91,7 +91,7 @@ def profile_path(scene, cfg, env: dict, frames: int, warm: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # The port's kernels: csrc/ defines them in anonymous namespaces.
     port = {n: t for n, t in by_name.items()
-            if "(anonymous namespace)::" in n or "tonemap" in n}
+            if "(anonymous namespace)::" in n}
     return {"wall_ms_per_frame": wall / frames * 1e3,
             "device_busy_ms_per_frame": busy / frames / 1e3,
             "device_idle_share": 1.0 - busy / span if span else None,

@@ -50,7 +50,8 @@
 // (13% of them) are too few to fill the card, so each further iteration
 // costs about one walk's latency (the call grows 0.25 -> 0.34 -> 0.37 ms
 // from bcap 1 to 2 to 3), and a ray's iterations cannot overlap. The
-// bcap-1 rounds keep one ray per thread (persistence does not pay there).
+// bcap-1 rounds keep one ray per thread (persistence does not pay there,
+// see bounce_packed_kernel).
 //
 // RNG: PCG and the two-step u32 -> f32 conversion of pallas_mega._unit
 // (i32 convert, then + 2^32 when negative: two roundings, unlike the
@@ -107,15 +108,12 @@ struct RayState {
   unsigned int rays;    // iterations entered alive
 };
 
-// One walk + shade iteration of a live ray.
+// Shade a live ray after its walk (pallas_mega._kernel_core shade()):
+// h is the closest hit with the normal facing the ray.
 template <bool CarryColor>
-__device__ __forceinline__ void iterate(RayState& s, const Params& q) {
-  ++s.rays;
-  const rt::Hit h =
-      rt::walk(q.nodes4, q.clusters, s.r, q.t_min, q.t_max, q.det_eps,
-               true);
+__device__ __forceinline__ void shade(RayState& s, const rt::Hit& h,
+                                      const Params& q) {
   s.cid = h.cid;
-  // Shade (pallas_mega._kernel_core shade(); the ray is alive here).
   const rt::Ray& r = s.r;
   const bool hit = h.t < q.t_max;
   const bool miss = !hit;
@@ -241,10 +239,21 @@ __device__ __forceinline__ void iterate(RayState& s, const Params& q) {
   if (!(s.bud > 0)) s.act = false;
 }
 
+// One walk + shade iteration of a live ray.
+template <bool CarryColor, bool kPostpone = false>
+__device__ __forceinline__ void iterate(RayState& s, const Params& q) {
+  ++s.rays;
+  const rt::Hit h = rt::walk<kPostpone>(q.nodes4, q.clusters, s.r, q.t_min,
+                                        q.t_max, q.det_eps, true);
+  shade<CarryColor>(s, h, q);
+}
+
 // Up to bcap walk + shade iterations while the ray lives.
-template <bool CarryColor>
+template <bool CarryColor, bool kPostpone = false>
 __device__ __forceinline__ void run_ray(RayState& s, const Params& q) {
-  for (int b = 0; b < q.bcap && s.act; ++b) iterate<CarryColor>(s, q);
+  for (int b = 0; b < q.bcap && s.act; ++b) {
+    iterate<CarryColor, kPostpone>(s, q);
+  }
 }
 
 __device__ __forceinline__ int32_t cid_key(const RayState& s) {
@@ -323,8 +332,9 @@ __device__ __forceinline__ void store_ray(const RayState& s,
   key_out[i] = cid_key(s);
 }
 
-// One thread runs one ray through up to bcap iterations.
-template <bool CarryColor>
+// One thread runs one ray through up to bcap iterations. kPostpone (the
+// walk's postponed leaves) is measured on bounce12 only (rt_bounce12_pl).
+template <bool CarryColor, bool kPostpone = false>
 __global__ void __launch_bounds__(kThreads)
     bounce_kernel(Params q, const int32_t* __restrict__ st_in,
                   int32_t* __restrict__ st_out, int32_t* __restrict__ key_out,
@@ -336,7 +346,7 @@ __global__ void __launch_bounds__(kThreads)
   s.rays = 0;
   if (i < w) {
     load_ray<CarryColor>(s, st_in, i, w);
-    run_ray<CarryColor>(s, q);
+    run_ray<CarryColor, kPostpone>(s, q);
     store_ray<CarryColor>(s, st_in, st_out, key_out, i, w);
   }
   add_counts(counts, s.rays, s.act ? 1u : 0u);
@@ -421,6 +431,59 @@ __global__ void __launch_bounds__(kThreads)
 
 // Packed state: sf f32[13, w], si i32[si_rows, w] (seed, then rows passed
 // through); the budget is the constant 1 << 30.
+// What a counting build (rt_bounce_packed_count) writes: the walk's
+// tallies summed over warps, u64[4] = visit trips, visit lanes, leaf
+// trips, leaf lanes; and each block's first and last %globaltimer
+// reading (ns), u64[2 * blocks].
+struct CountOut {
+  unsigned long long* tallies;
+  unsigned long long* times;
+};
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Every thread of the block reaches this.
+template <class C>
+__device__ __forceinline__ void count_out(const C& count, const CountOut& co,
+                                          unsigned long long t0) {
+  if constexpr (C::kOn) {
+    const unsigned v[4] = {count.visit_trips, count.visit_lanes,
+                           count.leaf_trips, count.leaf_lanes};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned sum = __reduce_add_sync(0xffffffffu, v[j]);
+      if ((threadIdx.x & 31) == 0 && sum) {
+        atomicAdd(&co.tallies[j], (unsigned long long)sum);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      co.times[2 * blockIdx.x] = t0;
+      co.times[2 * blockIdx.x + 1] = globaltimer();
+    }
+  }
+}
+
+// The packed round (RAYTPU_WAVE=fused_packed, bcap 1 on the path): one
+// thread runs one ray, as bounce_kernel does.
+//
+// Measured against it on the flagship's rounds (PERF.md; NVIDIA H100
+// 80GB HBM3, 700.00 W): on the middle band (300,882 live rays) one ray per
+// thread makes 148,607 warp trips through the walk's visit loop at a SIMD
+// efficiency of 0.44 and 108,793 through its leaf loop at 0.155, and
+// leaves block slots idle for the last third of the launch. Postponed
+// leaves (walk<true>) cut leaf trips by a third but added 43% of visit
+// trips (+6%). Persistent warps that refill lanes in mid-walk from 32-ray
+// batches (91 registers, 5 blocks per SM) cut visit trips by 39% but not
+// leaf trips (+6%); with postponed leaves too they cut leaf trips by 54%
+// and the middle band's round by 4-8%, the top band's by 3%, but made the
+// bottom band's 10-13% slower (refilling at 8, 16 or 32 waiting lanes),
+// and the frame runs the middle and the bottom band's rounds: no gain.
+template <class C>
 __global__ void __launch_bounds__(kThreads)
     bounce_packed_kernel(Params q, int si_rows,
                          const float* __restrict__ sf_in,
@@ -428,9 +491,12 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ sf_out,
                          int32_t* __restrict__ si_out,
                          int32_t* __restrict__ key_out,
-                         unsigned long long* __restrict__ counts) {
+                         unsigned long long* __restrict__ counts,
+                         CountOut co) {
+  const unsigned long long t0 = C::kOn ? globaltimer() : 0ull;
   const int w = q.w;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  C count;
   RayState s;
   s.act = false;
   s.rays = 0;
@@ -447,7 +513,12 @@ __global__ void __launch_bounds__(kThreads)
     s.seed = (uint32_t)si_in[i];
     s.bud = 1 << 30;
     s.cid = 0;
-    run_ray<true>(s, q);
+    for (int b = 0; b < q.bcap && s.act; ++b) {
+      ++s.rays;
+      const rt::Hit h = rt::walk<false>(q.nodes4, q.clusters, s.r, q.t_min,
+                                        q.t_max, q.det_eps, true, count);
+      shade<true>(s, h, q);
+    }
     float* o = sf_out + i;
     o[0] = s.r.ox;
     o[w] = s.r.oy;
@@ -467,6 +538,22 @@ __global__ void __launch_bounds__(kThreads)
     key_out[i] = cid_key(s);
   }
   add_counts(counts, s.rays, s.act ? 1u : 0u);
+  count_out(count, co, t0);
+}
+
+template <class C>
+int launch_packed(const Params& q, int si_rows, const void* sf_in,
+                  const void* si_in, void* sf_out, void* si_out, void* key,
+                  void* counts, CountOut co, void* stream) {
+  if (q.w > 0) {
+    bounce_packed_kernel<C>
+        <<<(q.w + kThreads - 1) / kThreads, kThreads, 0,
+           (cudaStream_t)stream>>>(
+            q, si_rows, (const float*)sf_in, (const int32_t*)si_in,
+            (float*)sf_out, (int32_t*)si_out, (int32_t*)key,
+            (unsigned long long*)counts, co);
+  }
+  return (int)cudaGetLastError();
 }
 
 Params make_params(const void* nodes4, const void* clusters, int w, int bcap,
@@ -497,6 +584,30 @@ extern "C" int rt_bounce12(const void* nodes4, const void* clusters,
 
 extern "C" int rt_bounce12_attrs(int* out) {
   return rt::kernel_attrs(bounce_kernel<false>, kThreads, out);
+}
+
+// bounce12 with the walk's postponed leaves: measured (kernel_times.py),
+// not on any path.
+extern "C" int rt_bounce12_pl(const void* nodes4, const void* clusters,
+                              const void* state_in, void* state_out,
+                              void* key, void* counts, int w, int bcap,
+                              int sky_on, float fuzz, int emissive_emits,
+                              float t_min, float t_max, float det_eps,
+                              void* stream) {
+  if (w > 0) {
+    bounce_kernel<false, true>
+        <<<(w + kThreads - 1) / kThreads, kThreads, 0,
+           (cudaStream_t)stream>>>(
+            make_params(nodes4, clusters, w, bcap, sky_on, fuzz,
+                        emissive_emits, t_min, t_max, det_eps),
+            (const int32_t*)state_in, (int32_t*)state_out, (int32_t*)key,
+            (unsigned long long*)counts);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_bounce12_pl_attrs(int* out) {
+  return rt::kernel_attrs(bounce_kernel<false, true>, kThreads, out);
 }
 
 // Blocks of the pmega call: as many as stay resident on the card.
@@ -558,17 +669,30 @@ extern "C" int rt_bounce_packed(const void* nodes4, const void* clusters,
                                 int sky_on, float fuzz, int emissive_emits,
                                 float t_min, float t_max, float det_eps,
                                 void* stream) {
-  if (w > 0) {
-    bounce_packed_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        make_params(nodes4, clusters, w, bcap, sky_on, fuzz, emissive_emits,
-                    t_min, t_max, det_eps),
-        si_rows, (const float*)sf_in, (const int32_t*)si_in, (float*)sf_out,
-        (int32_t*)si_out, (int32_t*)key, (unsigned long long*)counts);
-  }
-  return (int)cudaGetLastError();
+  return launch_packed<rt::NoCount>(
+      make_params(nodes4, clusters, w, bcap, sky_on, fuzz, emissive_emits,
+                  t_min, t_max, det_eps),
+      si_rows, sf_in, si_in, sf_out, si_out, key, counts,
+      CountOut{nullptr, nullptr}, stream);
+}
+
+// The counting build of the packed round: the same launch, outputs and
+// counts, plus the walk's tallies u64[4] and each block's timer readings
+// u64[2 * blocks] (see CountOut).
+extern "C" int rt_bounce_packed_count(
+    const void* nodes4, const void* clusters, const void* sf_in,
+    const void* si_in, void* sf_out, void* si_out, void* key, void* counts,
+    void* tallies, void* times, int w, int si_rows, int bcap, int sky_on,
+    float fuzz, int emissive_emits, float t_min, float t_max, float det_eps,
+    void* stream) {
+  return launch_packed<rt::LaneCount>(
+      make_params(nodes4, clusters, w, bcap, sky_on, fuzz, emissive_emits,
+                  t_min, t_max, det_eps),
+      si_rows, sf_in, si_in, sf_out, si_out, key, counts,
+      CountOut{(unsigned long long*)tallies, (unsigned long long*)times},
+      stream);
 }
 
 extern "C" int rt_bounce_packed_attrs(int* out) {
-  return rt::kernel_attrs(bounce_packed_kernel, kThreads, out);
+  return rt::kernel_attrs(bounce_packed_kernel<rt::NoCount>, kThreads, out);
 }

@@ -29,7 +29,11 @@
 // for a ray that pushes fewer than two children. With that, kernel A uses
 // about 58 registers and kernel B 66, for 8 and 7 resident 128-thread
 // blocks per SM; 64- or 256-thread blocks and a register cap that buys
-// more blocks (it spills) were not faster.
+// more blocks (it spills) were not faster. Postponed leaves (walk<true>)
+// made kernel B 3.5% slower (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+// they add more visit trips than they save leaf trips; with warps that
+// refill lanes in mid-walk they paid on one band's round and not on
+// another's (bounce12.cu, bounce_packed_kernel).
 //
 // Build with -fmad=false and without fast math: every product, sum,
 // division and square root rounds as in the plain PyTorch version.
@@ -140,6 +144,55 @@ __device__ __forceinline__ void face_ray(const Ray& r, Hit& h) {
   h.nz = sgn * h.nz;
 }
 
+// Tallies of a counting build (LaneCount): the trips a warp makes through
+// the walk's visit loop and through its leaf loop, and the lanes active
+// in each, so that lanes / (32 x trips) is the loop's SIMD efficiency.
+// Only the lowest active lane of a trip counts it. NoCount compiles away.
+struct NoCount {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ void visit() {}
+  __device__ __forceinline__ void leaf() {}
+};
+
+struct LaneCount {
+  static constexpr bool kOn = true;
+  unsigned visit_trips = 0, visit_lanes = 0, leaf_trips = 0, leaf_lanes = 0;
+  __device__ __forceinline__ void visit() { tally(visit_trips, visit_lanes); }
+  __device__ __forceinline__ void leaf() { tally(leaf_trips, leaf_lanes); }
+  static __device__ __forceinline__ void tally(unsigned& trips,
+                                               unsigned& lanes) {
+    const unsigned m = __activemask();
+    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+      ++trips;
+      lanes += __popc(m);
+    }
+  }
+};
+
+// One ray's walk: visit() one node, then test_leaves(), then pop() the
+// next node, until the stack is empty. The stack is an array of its own
+// beside the struct: a struct holding it would stay in local memory as a
+// whole, its scalars too.
+struct Walk {
+  Ray r;
+  float ivx, ivy, ivz;
+  Hit h;
+  int nid, sp;
+  unsigned int leaves;  // hit leaf slots of node nid, not yet tested
+};
+
+__device__ __forceinline__ void walk_start(Walk& w, const Ray& r,
+                                           float t_max) {
+  w.r = r;
+  w.h = {t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
+  w.ivx = 1.0f / r.dx;
+  w.ivy = 1.0f / r.dy;
+  w.ivz = 1.0f / r.dz;
+  w.nid = 0;
+  w.sp = 0;
+  w.leaves = 0;
+}
+
 #define RT_CSWAP(i, j)                 \
   if (key[j] > key[i]) {               \
     const float tk = key[i];           \
@@ -150,7 +203,8 @@ __device__ __forceinline__ void face_ray(const Ray& r, Hit& h) {
     push[j] = tm;                      \
   }
 
-// Closest hit of one ray. Returns t = t_max and zeros on a miss.
+// Visit node w.nid against the closest t so far: push its hit internal
+// children far-first, and set w.leaves to its hit leaf slots.
 //
 // Each step does only the work that can change the result, in the order
 // of the full test:
@@ -161,79 +215,146 @@ __device__ __forceinline__ void face_ray(const Ray& r, Hit& h) {
 // - The network sorts (key, push) pairs, push = the hit internal child's
 //   meta or 0, and runs only when the ray pushes two children or more:
 //   one push needs no order.
+__device__ __forceinline__ void visit(Walk& w, int* stack,
+                                      const float* __restrict__ nodes4,
+                                      float t_min) {
+  const Ray& r = w.r;
+  const float4* __restrict__ row =
+      reinterpret_cast<const float4*>(nodes4) + (size_t)w.nid * 32;
+  const float closest = w.h.t;
+  float key[8];
+  int push[8];
+  int npush = 0;
+  unsigned int leaves = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 a = __ldg(row + 4 * c);
+    const float4 b = __ldg(row + 4 * c + 1);
+    const int meta = (int)b.z;
+    key[c] = 0.0f;
+    push[c] = 0;
+    if (meta != 0) {
+      const float lo0 = (a.x - r.ox) * w.ivx, hi0 = (a.w - r.ox) * w.ivx;
+      const float lo1 = (a.y - r.oy) * w.ivy, hi1 = (b.x - r.oy) * w.ivy;
+      const float lo2 = (a.z - r.oz) * w.ivz, hi2 = (b.y - r.oz) * w.ivz;
+      const float t_en =
+          max_nan(min_nan(lo0, hi0),
+                  max_nan(min_nan(lo1, hi1), min_nan(lo2, hi2)));
+      const float t_ex =
+          min_nan(max_nan(lo0, hi0),
+                  min_nan(max_nan(lo1, hi1), max_nan(lo2, hi2)));
+      const bool hit = (t_ex > t_en) && (t_ex > t_min) && (t_en < closest);
+      key[c] = (a.x + a.w) * r.dx + (a.y + b.x) * r.dy + (a.z + b.y) * r.dz;
+      if (hit && meta > 0) {
+        push[c] = meta;
+        ++npush;
+      }
+      if (hit && meta < 0) leaves |= 1u << c;
+    }
+  }
+  if (npush > 1) {
+    RT_CSWAP(0, 1) RT_CSWAP(2, 3) RT_CSWAP(4, 5) RT_CSWAP(6, 7)
+    RT_CSWAP(0, 2) RT_CSWAP(1, 3) RT_CSWAP(4, 6) RT_CSWAP(5, 7)
+    RT_CSWAP(1, 2) RT_CSWAP(5, 6) RT_CSWAP(0, 4) RT_CSWAP(3, 7)
+    RT_CSWAP(1, 5) RT_CSWAP(2, 6) RT_CSWAP(1, 4) RT_CSWAP(3, 6)
+    RT_CSWAP(2, 4) RT_CSWAP(3, 5) RT_CSWAP(3, 4)
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (push[c]) stack[w.sp++] = push[c] - 1;
+  }
+  w.leaves = leaves;
+}
+
+// Test node w.nid's hit leaves, then clear them.
 // - The hit leaves are a bit mask, taken lowest child first, so the lanes
 //   of a warp test their k-th hit leaves together, whatever slots those
 //   sit in (a loop over the 8 slots runs every slot any lane hits).
 // - A leaf tests its count live triangles. The slots past the count are
 //   all zero (the packers pad so), which no ray hits (det 0), so this
 //   keeps the result of testing whole half-clusters.
+template <class C>
+__device__ __forceinline__ void test_leaves(Walk& w,
+                                            const float* __restrict__ nodes4,
+                                            const float* __restrict__ clusters,
+                                            float t_min, float det_eps,
+                                            C& count) {
+  while (w.leaves) {
+    count.leaf();
+    const int c = __ffs(w.leaves) - 1;
+    w.leaves &= w.leaves - 1;
+    const int lid =
+        -(int)__ldg(nodes4 + (size_t)w.nid * 128 + 16 * c + 6) - 1;
+    const int cid = lid & kLeafCidMask;
+    mt_tris(clusters + (size_t)cid * 128, 0, (lid >> kLeafCidBits) + 1, w.r,
+            t_min, det_eps, cid, w.h);
+  }
+}
+
+// The next node off the stack; false when the walk has ended.
+__device__ __forceinline__ bool pop(Walk& w, const int* stack) {
+  if (w.sp == 0) return false;
+  w.nid = stack[--w.sp];
+  return true;
+}
+
+// One step of the walk: a visit and its leaves, or with kPostpone visits
+// until one hits a leaf, then its leaves (see walk()). False when the walk
+// has ended.
+template <bool kPostpone, class C>
+__device__ __forceinline__ bool walk_step(Walk& w, int* stack,
+                                          const float* __restrict__ nodes4,
+                                          const float* __restrict__ clusters,
+                                          float t_min, float det_eps,
+                                          C& count) {
+  if constexpr (kPostpone) {
+    bool more = true;
+    while (more && !w.leaves) {
+      count.visit();
+      visit(w, stack, nodes4, t_min);
+      if (!w.leaves) more = pop(w, stack);
+    }
+    if (!w.leaves) return false;
+  } else {
+    count.visit();
+    visit(w, stack, nodes4, t_min);
+  }
+  test_leaves(w, nodes4, clusters, t_min, det_eps, count);
+  return pop(w, stack);
+}
+
+// Closest hit of one ray. Returns t = t_max and zeros on a miss.
+//
+// kPostpone: postponed leaves (the "while-while" loop of Aila and Laine,
+// HPG 2009). A lane whose visit hits a leaf parks it and stops; the other
+// lanes visit on until each has parked leaves or ended, then the warp
+// tests its parked leaves together. A lane tests a visit's leaves before
+// it visits again, so each ray keeps its own visit and test order, and
+// its result is the same bit for bit.
+// count: the tallies of a counting build (LaneCount), or NoCount.
+template <bool kPostpone, class C>
+__device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
+                                    const float* __restrict__ clusters,
+                                    const Ray& r, float t_min, float t_max,
+                                    float det_eps, bool flip, C& count) {
+  Walk w;
+  int stack[kStackCap];
+  walk_start(w, r, t_max);
+  while (walk_step<kPostpone>(w, stack, nodes4, clusters, t_min, det_eps,
+                              count)) {
+  }
+  if (flip) face_ray(r, w.h);
+  return w.h;
+}
+
+template <bool kPostpone = false>
 __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
                                     const float* __restrict__ clusters,
                                     const Ray& r, float t_min, float t_max,
                                     float det_eps, bool flip) {
-  Hit h = {t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
-  const float ivx = 1.0f / r.dx, ivy = 1.0f / r.dy, ivz = 1.0f / r.dz;
-  int stack[kStackCap];
-  int sp = 0;
-  int nid = 0;
-  while (true) {
-    const float4* __restrict__ row =
-        reinterpret_cast<const float4*>(nodes4) + (size_t)nid * 32;
-    const float closest = h.t;
-    float key[8];
-    int push[8];
-    int npush = 0;
-    unsigned int leaves = 0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float4 a = __ldg(row + 4 * c);
-      const float4 b = __ldg(row + 4 * c + 1);
-      const int meta = (int)b.z;
-      key[c] = 0.0f;
-      push[c] = 0;
-      if (meta != 0) {
-        const float lo0 = (a.x - r.ox) * ivx, hi0 = (a.w - r.ox) * ivx;
-        const float lo1 = (a.y - r.oy) * ivy, hi1 = (b.x - r.oy) * ivy;
-        const float lo2 = (a.z - r.oz) * ivz, hi2 = (b.y - r.oz) * ivz;
-        const float t_en =
-            max_nan(min_nan(lo0, hi0),
-                    max_nan(min_nan(lo1, hi1), min_nan(lo2, hi2)));
-        const float t_ex =
-            min_nan(max_nan(lo0, hi0),
-                    min_nan(max_nan(lo1, hi1), max_nan(lo2, hi2)));
-        const bool hit = (t_ex > t_en) && (t_ex > t_min) && (t_en < closest);
-        key[c] = (a.x + a.w) * r.dx + (a.y + b.x) * r.dy + (a.z + b.y) * r.dz;
-        if (hit && meta > 0) {
-          push[c] = meta;
-          ++npush;
-        }
-        if (hit && meta < 0) leaves |= 1u << c;
-      }
-    }
-    if (npush > 1) {
-      RT_CSWAP(0, 1) RT_CSWAP(2, 3) RT_CSWAP(4, 5) RT_CSWAP(6, 7)
-      RT_CSWAP(0, 2) RT_CSWAP(1, 3) RT_CSWAP(4, 6) RT_CSWAP(5, 7)
-      RT_CSWAP(1, 2) RT_CSWAP(5, 6) RT_CSWAP(0, 4) RT_CSWAP(3, 7)
-      RT_CSWAP(1, 5) RT_CSWAP(2, 6) RT_CSWAP(1, 4) RT_CSWAP(3, 6)
-      RT_CSWAP(2, 4) RT_CSWAP(3, 5) RT_CSWAP(3, 4)
-    }
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      if (push[c]) stack[sp++] = push[c] - 1;
-    }
-    while (leaves) {
-      const int c = __ffs(leaves) - 1;
-      leaves &= leaves - 1;
-      const int lid = -(int)__ldg(nodes4 + (size_t)nid * 128 + 16 * c + 6) - 1;
-      const int cid = lid & kLeafCidMask;
-      mt_tris(clusters + (size_t)cid * 128, 0, (lid >> kLeafCidBits) + 1, r,
-              t_min, det_eps, cid, h);
-    }
-    if (sp == 0) break;
-    nid = stack[--sp];
-  }
-  if (flip) face_ray(r, h);
-  return h;
+  NoCount count;
+  return walk<kPostpone>(nodes4, clusters, r, t_min, t_max, det_eps, flip,
+                         count);
 }
 
 #undef RT_CSWAP

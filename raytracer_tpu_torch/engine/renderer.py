@@ -1,4 +1,4 @@
-"""The render step: bands -> linear frame -> accumulate + tonemap.
+"""The render step: bands -> band sum -> accumulate + tonemap.
 
 The port of ``raytracer_tpu/engine/renderer.py`` for the packet kernel:
 path shading on every ported bounce path (``raytracer_tpu_torch/knobs.py``)
@@ -47,11 +47,12 @@ def _num_bands(cfg: RenderConfig) -> int:
     return row_tiles
 
 
-def _render_linear(scene: FastScene, cam: CameraUniforms,
-                   cfg: RenderConfig):
-    """Linear radiance of one frame -> (f32[H, W, 3], rays traced (int64
-    tensor)). Bands, the spp loop and, where it applies, the cross-band
-    tail merge."""
+def _render_total(scene: FastScene, cam: CameraUniforms,
+                  cfg: RenderConfig):
+    """Radiance of one frame summed over its samples -> (f32[3, H*W],
+    rays traced (int64 tensor)). Bands, the spp loop and, where it
+    applies, the cross-band tail merge; the tonemap kernel divides by spp
+    and reads the planar layout as it stands."""
     if cfg.kernel != "packet":
         raise NotImplementedError("the port renders kernel='packet' only")
     spp = cfg.samples_per_pixel
@@ -82,16 +83,16 @@ def _render_linear(scene: FastScene, cam: CameraUniforms,
                 out_size=hw)
             total = total + tail
             rays = rays + trays
-    linear = (total / torch.tensor(float(spp), device=dev)).T
-    return linear.reshape(cfg.height, cfg.width, 3), rays
+    return total, rays
 
 
 def _render_step(scene: FastScene, cam: CameraUniforms, accum: torch.Tensor,
                  cfg: RenderConfig):
     """scene + camera + accumulation -> (new accum, u8 frame, stats)."""
-    linear, rays = _render_linear(scene, cam, cfg)
+    total, rays = _render_total(scene, cam, cfg)
     # The running average is written into ``accum`` in place.
-    new_accum, image = tonemap_accumulate(accum, linear.contiguous(),
+    new_accum, image = tonemap_accumulate(accum, total,
+                                          cfg.samples_per_pixel,
                                           cam.frame_count, cam.exposure)
     stats = {"rays_traced": rays,
              "samples": (cam.fc_host + 1) * cfg.samples_per_pixel}

@@ -332,13 +332,9 @@ def bounce15(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
     return _launch_rounds("bounce15", scene, state, bcap, sky_on, cfg)
 
 
-def bounce_packed(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
-                  bcap: int, sky_on: bool, cfg: RenderConfig):
-    """The packed kernel on CUDA tensors, its plain version on CPU tensors
-    (same arguments and results as ``bounce_packed_plain``)."""
-    if not _on_cuda(sf):
-        return bounce_packed_plain(scene, sf, si, bcap, sky_on, cfg)
-    _check_packed(scene, sf, si)
+def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
+                   si: torch.Tensor, bcap: int, sky_on: bool,
+                   cfg: RenderConfig, *extra: torch.Tensor):
     w = sf.shape[1]
     sf_out = torch.empty_like(sf)
     si_out = torch.empty_like(si)
@@ -346,11 +342,40 @@ def bounce_packed(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
     counts = torch.zeros(2, dtype=torch.int64, device=sf.device)
     lib = cuda_build.library()
     stream = torch.cuda.current_stream(sf.device).cuda_stream
-    cuda_build.check(lib.rt_bounce_packed(
+    cuda_build.check(getattr(lib, f"rt_{name}")(
         scene.nodes4.data_ptr(), scene.clusters.data_ptr(), sf.data_ptr(),
         si.data_ptr(), sf_out.data_ptr(), si_out.data_ptr(), key.data_ptr(),
-        counts.data_ptr(), w, si.shape[0], int(bcap), int(bool(sky_on)),
-        cfg.fuzz, int(cfg.emissive_emits), cfg.t_min, cfg.t_max,
-        cfg.det_eps, stream), "rt_bounce_packed")
-    launches.kernel["bounce_packed"] += 1
+        counts.data_ptr(), *(t.data_ptr() for t in extra), w, si.shape[0],
+        int(bcap), int(bool(sky_on)), cfg.fuzz, int(cfg.emissive_emits),
+        cfg.t_min, cfg.t_max, cfg.det_eps, stream), f"rt_{name}")
+    launches.kernel[name] += 1
     return sf_out, si_out, key, counts
+
+
+def bounce_packed(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
+                  bcap: int, sky_on: bool, cfg: RenderConfig):
+    """The packed kernel on CUDA tensors, its plain version on CPU tensors
+    (same arguments and results as ``bounce_packed_plain``)."""
+    if not _on_cuda(sf):
+        return bounce_packed_plain(scene, sf, si, bcap, sky_on, cfg)
+    _check_packed(scene, sf, si)
+    return _launch_packed("bounce_packed", scene, sf, si, bcap, sky_on, cfg)
+
+
+def bounce_packed_count(scene: FastScene, sf: torch.Tensor,
+                        si: torch.Tensor, bcap: int, sky_on: bool,
+                        cfg: RenderConfig):
+    """The counting build of the packed kernel (CUDA tensors only): the
+    results of ``bounce_packed``, then the walk's tallies int64[4] (visit
+    trips, lanes active in them, leaf trips, lanes active in them, summed
+    over warps) and each launched block's first and last ``%globaltimer``
+    reading, int64[blocks, 2] in ns."""
+    if not _on_cuda(sf):
+        raise ValueError("the counting build runs on the card only")
+    _check_packed(scene, sf, si)
+    tallies = torch.zeros(4, dtype=torch.int64, device=sf.device)
+    times = torch.zeros((-(-sf.shape[1] // 128), 2), dtype=torch.int64,
+                        device=sf.device)
+    out = _launch_packed("bounce_packed_count", scene, sf, si, bcap, sky_on,
+                         cfg, tallies, times)
+    return (*out, tallies, times[times[:, 0] != 0])

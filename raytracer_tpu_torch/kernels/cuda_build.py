@@ -20,10 +20,10 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu")
+SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu", "tonemap.cu")
 HEADERS = ("walk.cuh",)
-KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce15",
-           "bounce15_pmega", "bounce_packed")
+KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce12_pl",
+           "bounce15", "bounce15_pmega", "bounce_packed", "tonemap")
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -58,7 +58,7 @@ def _declare(lib) -> None:
         fn.restype = i32
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, f32, f32, f32, i32,
                        vp]
-    for name in ("rt_bounce12", "rt_bounce15"):
+    for name in ("rt_bounce12", "rt_bounce12_pl", "rt_bounce15"):
         fn = getattr(lib, name)
         fn.restype = i32
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, f32, i32, f32,
@@ -67,6 +67,11 @@ def _declare(lib) -> None:
     lib.rt_bounce_packed.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                      i32, i32, i32, f32, i32, f32, f32, f32,
                                      vp]
+    lib.rt_bounce_packed_count.restype = i32
+    lib.rt_bounce_packed_count.argtypes = [vp] * 10 + [
+        i32, i32, i32, i32, f32, i32, f32, f32, f32, vp]
+    lib.rt_tonemap.restype = i32
+    lib.rt_tonemap.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp]
     for name in KERNELS:
         fn = getattr(lib, f"rt_{name}_attrs")
         fn.restype = i32

@@ -1,6 +1,7 @@
 """Launch counts of the hand-written kernels and calls of their plain
 versions, keyed by wrapper name ("trace4", "trace2", "bounce12",
-"bounce15", "bounce_packed", "tonemap").
+"bounce15", "bounce_packed", "tonemap"; the measurement builds
+"bounce12_pl" and "bounce_packed_count" run on no path).
 
 A wrapper adds one to ``kernel`` where it launches its kernel and to
 ``plain`` where it runs the plain version, and nowhere else, so a run can

@@ -18,7 +18,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture(scope="module")
 def scene():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (and nvcc, triton)")
+        pytest.skip("needs an NVIDIA GPU (and nvcc)")
     from raytracer_tpu_torch.scene.builder import \
         build_fast_scene_from_arrays
     from raytracer_tpu_torch.utils import assets
@@ -124,7 +124,7 @@ def test_trace2_kernel_matches_plain_on_a_sorted_round(scene, coherent):
 def test_trace2_kernel_on_the_empty_scene(coherent):
     """The one-node all-miss table: every lane misses."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (and nvcc, triton)")
+        pytest.skip("needs an NVIDIA GPU (and nvcc)")
     from raytracer_tpu_torch.core.types import RenderConfig
     from raytracer_tpu_torch.kernels.trace import trace2, trace2_plain
     from raytracer_tpu_torch.scene.builder import \
@@ -225,17 +225,82 @@ def test_bounce_packed_kernel_matches_plain(scene):
         assert torch.equal(got[1][1:], si[1:])
 
 
-def test_tonemap_kernel_matches_plain(scene):
+def _packed(n, seed, si_rows, dead=False):
+    from raytracer_tpu_torch.kernels.bounce import (ROW_ALIVE, ROW_PIX,
+                                                    ROW_SEED)
+
+    state = _color_state(n, seed)
+    alive = torch.zeros(n, device="cuda") if dead else \
+        state[ROW_ALIVE].float()
+    sf = torch.cat([state[0:12].view(torch.float32), alive[None]])
+    si = torch.stack([state[ROW_SEED]]
+                     + [state[ROW_PIX] * (k + 1) for k in range(si_rows - 1)])
+    return sf.contiguous(), si.contiguous()
+
+
+@pytest.mark.parametrize("width", [1, 31, 33, 129, 307200])
+def test_bounce_packed_kernel_matches_plain_at_widths(scene, width):
+    """The packed round at widths around a warp and a block and at the
+    720p band's full round, with 2 and 3 si rows and an all-dead state:
+    state, key and counts bit-equal."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.bounce import (bounce_packed,
+                                                    bounce_packed_plain)
+
+    cfg = RenderConfig()
+    for si_rows, dead in ((2, False), (3, False), (2, True)):
+        sf, si = _packed(width, 40 + si_rows, si_rows, dead)
+        got = bounce_packed(scene, sf, si, 1, True, cfg)
+        want = bounce_packed_plain(scene, sf, si, 1, True, cfg)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (si_rows, dead)
+        assert torch.equal(got[1][1:], si[1:])
+        if dead:
+            assert got[3].tolist() == [0, 0]
+
+
+def test_bounce_packed_counting_build(scene):
+    """The counting build returns the kernel's results, walk tallies and a
+    timer pair per block."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.bounce import (bounce_packed,
+                                                    bounce_packed_count)
+
+    cfg = RenderConfig()
+    sf, si = _packed(8192 + 5, 50, 2)
+    *got, tallies, times = bounce_packed_count(scene, sf, si, 1, True, cfg)
+    for g, w in zip(got, bounce_packed(scene, sf, si, 1, True, cfg)):
+        assert torch.equal(g, w)
+    vt, vl, lt, ll = tallies.tolist()
+    assert 0 < vt <= vl <= 32 * vt and 0 < lt <= ll <= 32 * lt
+    assert times.shape[0] >= 1 and (times[:, 1] >= times[:, 0]).all()
+
+
+@pytest.mark.parametrize("hw", [(720, 1280), (128, 256), (37, 51)])
+def test_tonemap_kernel_matches_plain(scene, hw):
+    """The tonemap on a planar band sum at 1280x720, 256x128 and an H*W
+    that is no multiple of 4 (the scalar path): accumulator and image
+    bit-equal, with spp 1 and 2, fc 0 and > 0, and a pixel at the
+    half-to-even point."""
     from raytracer_tpu_torch.kernels.tonemap import (tonemap_accumulate,
                                                      tonemap_plain)
 
+    h, w = hw
     g = torch.Generator(device="cuda").manual_seed(4)
-    acc = torch.rand((72, 128, 3), generator=g, device="cuda") * 1.5
-    smp = torch.rand((72, 128, 3), generator=g, device="cuda") * 1.5
-    for fc, ex in ((0, 0.0), (3, 0.5), (7, -1.0)):
-        acc_k, img_k = tonemap_accumulate(acc.clone(), smp, fc, ex)
-        acc_p, img_p = tonemap_plain(acc.clone(), smp, fc, ex)
-        assert torch.equal(acc_k, acc_p) and torch.equal(img_k, img_p)
+    acc = torch.rand((h, w, 3), generator=g, device="cuda") * 1.5
+    total = torch.rand((3, h * w), generator=g, device="cuda") * 3.0
+    total[:, 0] = -0.5
+    for spp, fc, ex in ((1, 0, 0.0), (2, 3, 0.5), (2, 7, -1.0)):
+        total[:, 1] = 0.25 * spp
+        fc_t = torch.tensor(fc, dtype=torch.int32, device="cuda")
+        ex_t = torch.tensor(ex, dtype=torch.float32, device="cuda")
+        acc_k, img_k = tonemap_accumulate(acc.clone(), total, spp, fc_t,
+                                          ex_t)
+        acc_p, img_p = tonemap_plain(acc.clone(), total, spp, fc_t, ex_t)
+        assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
+        assert torch.equal(img_k, img_p)
+        if fc == 0:
+            assert (img_k.view(-1, 3)[1] == 128).all()
 
 
 def test_walk_kernels_at_the_stack_limit(scene):

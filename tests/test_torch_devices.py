@@ -91,3 +91,16 @@ def test_profile_busy_time_is_the_union_of_intervals():
 
     assert _busy_us([]) == 0.0
     assert _busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17.0
+
+
+def test_packed_counting_build_refuses_cpu_tensors():
+    """The packed kernel's counting build has no plain version: on CPU
+    tensors it raises instead of counting nothing."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.bounce import bounce_packed_count
+
+    scene = builder.build_fast_scene_from_arrays(*_tris(), device="cpu")
+    sf = torch.zeros((13, 4))
+    si = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="card"):
+        bounce_packed_count(scene, sf, si, 1, True, RenderConfig())

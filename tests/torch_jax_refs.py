@@ -245,7 +245,10 @@ def job_bounce(inp):
 
 
 def job_tonemap(inp):
-    """tonemap_accumulate (Pallas, interpret) and renderer.tonemap."""
+    """tonemap_accumulate (Pallas, interpret) and renderer.tonemap; with
+    ``xsamples`` f32[k, H, W, 3], ``xfc`` and ``xexposure`` f32[k], also
+    the accumulate + tonemap of each of those samples (``xacc_j``,
+    ``ximg_j``)."""
     import jax.numpy as jnp
 
     from raytracer_tpu.engine.renderer import tonemap
@@ -260,6 +263,13 @@ def job_tonemap(inp):
         out[f"img_{j}"] = np.asarray(img)
         out[f"plain_img_{j}"] = np.asarray(
             tonemap(jnp.asarray(inp["linear"]), jnp.float32(ex)))
+    for j, (fc, ex) in enumerate(zip(inp.get("xfc", ()),
+                                     inp.get("xexposure", ()))):
+        acc, img = tonemap_accumulate(
+            jnp.asarray(inp["accum"]), jnp.asarray(inp["xsamples"][j]),
+            jnp.float32(fc), jnp.float32(ex), interpret=True)
+        out[f"xacc_{j}"] = np.asarray(acc)
+        out[f"ximg_{j}"] = np.asarray(img)
     return out
 
 
