@@ -45,6 +45,24 @@ Phases, one or more lines each (any failure raises and exits non-zero):
    ``out/chip_smoke_c12.png``;
 8. a 256x128 frame per new path through the kernels and the plain
    versions, compared;
+9. the five presets (``scene/presets.ALL_PRESETS``) at their own widths,
+   each built from its ``Scene`` by ``build_fast_scene`` on the card and
+   rendered on the default path, one warm frame then
+   ``Renderer.render_chain`` of 8 frames: triangles, build seconds, FPS,
+   ms per frame, Mrays/s and each kernel's launches per frame; writes
+   ``out/preset_<name>.png``;
+10. chain against frames: ``render_chain(k=8)`` and 8 ``render`` calls
+    on the flagship at 1280x720, 0 differing accumulator and image bytes;
+11. the headless app: a preset's ``Scene`` saved as JSON, rendered 16
+    frames twice by ``python -m raytracer_tpu_torch.apps.headless``
+    with ``--checkpoint`` (the second run resumes), against one
+    straight run of 32 frames: 0 differing accumulator bytes;
+12. the per-ray path (``kernel="wavefront"``, ``rng_mode="reference"``,
+    a ``GpuScene``) on ``cube_plane`` at 160x120, 2 frames, on the card
+    and on the CPU in this process (at most ``TIE_FRACTION_MAX`` of the
+    u8 pixels differ), and its frame time on the card at 1280x720
+    (``cube_plane``, 1 bounce) and at 640x480 (``sphere_light``, 10
+    bounces);
 
 then a JSON line of per-kernel results (with each CUDA kernel's
 registers, local and shared bytes and resident blocks per SM as the main
@@ -736,6 +754,194 @@ def small_frame(label, scene, cfg, cam, env, kernels, max_px: int):
     return n_px
 
 
+def run_preset(name: str, make, k: int = 8) -> dict:
+    """One preset at its own config: its Scene built on the card, one
+    warm frame, then ``render_chain`` of k frames with the launch counts
+    reset just before and read just after; fails unless each kernel of
+    its path launched and no plain version ran."""
+    from raytracer_tpu_torch.engine.renderer import Renderer, _num_bands
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.scene.builder import build_fast_scene
+    from raytracer_tpu_torch.utils.png import write_png
+
+    p = make()
+    cfg = p.config
+    t0 = time.perf_counter()
+    scene = build_fast_scene(p.scene.create_snapshot())
+    _sync()
+    build_s = time.perf_counter() - t0
+
+    def uniforms(fc):
+        p.camera.frame_count = fc
+        return p.camera.uniforms(sky_enabled=p.sky_enabled,
+                                 exposure=p.exposure)
+
+    r = Renderer(cfg)
+    accum, _, _ = r.render(scene, uniforms(0))
+    uni = uniforms(1)
+    _sync()
+    launches.reset()
+    t0 = time.perf_counter()
+    accum, image, stats = r.render_chain(scene, uni, accum, k)
+    _sync()
+    dt = time.perf_counter() - t0
+    counts, plain_counts = dict(launches.kernel), dict(launches.plain)
+    img = image.cpu().numpy()
+    kernels = ("trace4", "tonemap") + (
+        ("bounce12",) if cfg.max_bounces > 1 else ())
+    for kn in kernels:
+        assert counts.get(kn, 0) > 0, f"{kn} never launched on {name}"
+    assert not plain_counts, f"plain versions ran on {name}"
+    assert bool(torch.isfinite(accum).all()), f"{name}: non-finite accum"
+    assert img.min() != img.max(), f"{name}: image is one value"
+    assert float(stats["samples"]) == k + 1
+    write_png(os.path.join(REPO, "out", f"preset_{name}.png"), img)
+    rays = float(stats["rays_traced"]) * k
+    run = dict(triangles=scene.num_triangles, build_s=build_s,
+               width=cfg.width, height=cfg.height, bounces=cfg.max_bounces,
+               bands=_num_bands(cfg), frames=k, fps=k / dt, ms=dt / k * 1e3,
+               mrays=rays / dt / 1e6,
+               launches_per_frame={n: c / k for n, c in counts.items()},
+               image_mean=float(img.mean()))
+    print(f"preset {name} {cfg.width}x{cfg.height}, {cfg.max_bounces} "
+          f"bounces, {run['bands']} bands: {run['triangles']} triangles, "
+          f"built in {build_s:.3f} s; render_chain of {k}: "
+          f"{run['fps']:.3f} FPS, {run['ms']:.2f} ms/frame, "
+          f"{run['mrays']:.2f} Mrays/s; launches per frame "
+          f"{run['launches_per_frame']}; image mean {run['image_mean']:.3f}")
+    return run
+
+
+def check_chain(scene, cfg, cam, k: int = 8) -> dict:
+    """render_chain(k) against k render calls: 0 differing accumulator
+    and image bytes."""
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+
+    r = Renderer(cfg)
+    accum = None
+    for fc in range(k):
+        cam.frame_count = fc
+        accum, image, _ = r.render(scene, cam.uniforms(), accum)
+    cam.frame_count = 0
+    launches.reset()
+    c_accum, c_image, stats = r.render_chain(scene, cam.uniforms(), None, k)
+    _sync()
+    counts = dict(launches.kernel)
+    n_acc = int((c_accum.view(torch.int32) != accum.view(torch.int32))
+                .sum())
+    n_img = int((c_image != image).sum())
+    print(f"chain against frames {cfg.width}x{cfg.height}, k {k}: "
+          f"differing accumulator words {n_acc}, image bytes {n_img}; "
+          f"chain launches {counts}; samples {stats['samples']}")
+    assert n_acc == 0 and n_img == 0
+    for kn in ("trace4", "bounce12", "tonemap"):
+        assert counts.get(kn, 0) > 0, f"{kn} never launched in the chain"
+    assert counts["tonemap"] == k and not launches.plain
+    return dict(k=k, differing_accum_words=n_acc, differing_image_bytes=n_img,
+                launches=counts)
+
+
+def check_headless(frames: int = 16) -> dict:
+    """A preset's Scene as JSON through the headless app: two runs of
+    ``frames`` with one checkpoint (the second resumes) against one
+    straight run of 2 * frames, 0 differing accumulator bytes."""
+    from raytracer_tpu_torch.apps import headless
+    from raytracer_tpu_torch.scene import presets
+
+    d = os.path.join(REPO, "out", "headless")
+    os.makedirs(d, exist_ok=True)
+    scene_json = os.path.join(d, "sphere_light.json")
+    presets.config2_sphere_light().scene.save_json(scene_json)
+    ck, straight = os.path.join(d, "ck.npz"), os.path.join(d, "straight.npz")
+    for f in (ck, straight):
+        if os.path.exists(f):
+            os.remove(f)
+    cmd = [sys.executable, "-m", "raytracer_tpu_torch.apps.headless",
+           "--scene", scene_json, "--frames", str(frames), "--chain", "0",
+           "--checkpoint", ck, "--stats-json", "-o",
+           os.path.join(d, "resumed.png")]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"headless failed:\n{proc.stderr[-4000:]}")
+        stats = json.loads(proc.stdout.strip().splitlines()[-1])
+        stats["command_s"] = time.perf_counter() - t0
+        runs.append(stats)
+        print(f"headless --scene sphere_light.json --frames {frames} "
+              f"--chain 0 --checkpoint: {stats}")
+    headless.main(["--scene", scene_json, "--frames", str(2 * frames),
+                   "--chain", "0", "--checkpoint", straight, "-o",
+                   os.path.join(d, "straight.png")])
+    with np.load(ck) as a, np.load(straight) as b:
+        n_diff = int((a["accum"].view(np.int32)
+                      != b["accum"].view(np.int32)).sum())
+        fcs = (int(a["frame_count"]), int(b["frame_count"]))
+    print(f"headless resume against a straight run of {2 * frames} frames: "
+          f"frame counts {fcs}, differing accumulator words {n_diff}")
+    assert n_diff == 0 and fcs == (2 * frames, 2 * frames)
+    assert runs[1]["samples"] == 2 * frames
+    return dict(runs=runs, differing_accum_words=n_diff)
+
+
+def check_per_ray() -> dict:
+    """The per-ray path on a GpuScene: cube_plane at 160x120, 2 frames,
+    card against CPU (at most TIE_FRACTION_MAX of the u8 pixels differ);
+    then its frame times on the card at 1280x720 (cube_plane) and at
+    640x480 (sphere_light, 10 bounces)."""
+    import dataclasses
+
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scene.builder import build_gpu_scene
+
+    def frames(p, scene, device, n):
+        cfg = dataclasses.replace(p.config, kernel="wavefront",
+                                  rng_mode="reference")
+        r = Renderer(cfg)
+        accum, ms = None, []
+        for fc in range(n):
+            p.camera.frame_count = fc
+            uni = p.camera.uniforms(p.sky_enabled, p.exposure, device=device)
+            t0 = time.perf_counter()
+            accum, image, stats = r.render(scene, uni, accum)
+            if device == "cuda":
+                _sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return image.cpu().numpy(), ms, int(stats["rays_traced"])
+
+    p = presets.config1_cube_plane(160, 120)
+    snap = p.scene.create_snapshot()
+    launches.reset()
+    img_k, ms_k, rays_k = frames(p, build_gpu_scene(snap), "cuda", 2)
+    counts = dict(launches.kernel)
+    img_c, ms_c, rays_c = frames(p, build_gpu_scene(snap, device="cpu"),
+                                 "cpu", 2)
+    n_px = int((img_k != img_c).any(-1).sum())
+    print(f"per-ray path cube_plane 160x120, 2 frames: u8 differing pixels "
+          f"card vs CPU {n_px}, rays {rays_k} vs {rays_c}; card "
+          f"{ms_k[-1]:.2f} ms/frame, CPU {ms_c[-1]:.2f}; card launches "
+          f"{counts}")
+    assert n_px <= TIE_FRACTION_MAX * 160 * 120
+    assert counts.get("tonemap") == 2 and img_k.min() != img_k.max()
+    out = dict(differing_pixels=n_px, ms_160x120=ms_k, cpu_ms=ms_c)
+    for label, p, n in (("cube_plane_1280x720",
+                         presets.config1_cube_plane(1280, 720), 3),
+                        ("sphere_light_640x480",
+                         presets.config2_sphere_light(), 2)):
+        img, ms, rays = frames(p, build_gpu_scene(
+            p.scene.create_snapshot()), "cuda", n)
+        out[label] = dict(ms=ms, rays=rays)
+        print(f"per-ray path {label}, {p.config.max_bounces} bounces: "
+              f"{', '.join(f'{m:.2f}' for m in ms)} ms/frame (first "
+              f"warm), {rays} rays/frame, image mean {img.mean():.3f}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -855,6 +1061,16 @@ def main() -> None:
         small_frame(f"C12 {trav}", scene12, cfg8, cam8,
                     {"RAYTPU_TRAVERSE": trav}, (walk,), 0)
 
+    # Phase 9: the five presets at their own widths.
+    from raytracer_tpu_torch.scene.presets import ALL_PRESETS
+
+    preset_runs = {name: run_preset(name, make)
+                   for name, make in ALL_PRESETS.items()}
+    # Phases 10-12: chain against frames, the headless app, per-ray path.
+    chain = check_chain(scene, cfg, cam)
+    headless_run = check_headless()
+    per_ray = check_per_ray()
+
     launches_on_path = {
         "trace4": main_run["counts"]["trace4"],
         "bounce12": main_run["counts"]["bounce12"],
@@ -891,7 +1107,10 @@ def main() -> None:
                    "paths": {k: {m: v for m, v in r.items() if m != "image"}
                              for k, r in paths.items()},
                    "ab": [(lb, {m: v for m, v in r.items() if m != "image"})
-                          for lb, r in turns]}, f, indent=1)
+                          for lb, r in turns],
+                   "presets": preset_runs, "chain": chain,
+                   "headless": headless_run, "per_ray": per_ray}, f,
+                  indent=1)
     print(json.dumps({"kernels": [
         dict(name=k, route=route, source=src, replaces=rep,
              launches=launches_on_path[k], **results[k])

@@ -1,86 +1,204 @@
-"""Headless renderer CLI on the GPU: flagship scene -> frames -> PNG.
+"""Headless renderer CLI: scene -> accumulated frames -> PNG.
 
+    python -m raytracer_tpu_torch.apps.headless --scene scene.json \\
+        --frames 64 --width 1280 --height 720 --exposure 1.0 -o out.png
     python -m raytracer_tpu_torch.apps.headless --flagship -o out.png \\
-        --width 1280 --height 720 --frames 16 --stats-json
+        --frames 16 --stats-json
 
-Renders on ``cuda`` and raises when there is no card.
+The port of ``raytracer_tpu.apps.headless``: a scene JSON
+(``Scene.save_json``), the reference default scene or the flagship scene,
+rendered on ``cuda`` (the default; it raises when there is no card) or on
+the CPU with ``--device cpu``. ``--checkpoint`` saves the accumulator and
+frame count and resumes from them; ``--chain`` renders that many frames a
+``Renderer.render_chain`` call.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
+import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.camera import default_camera
+from raytracer_tpu_torch.core.camera import Camera, default_camera
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.engine.renderer import Renderer
+from raytracer_tpu_torch.scene.builder import (build_fast_scene,
+                                               build_gpu_scene)
 from raytracer_tpu_torch.scene.presets import flagship_scene
+from raytracer_tpu_torch.scene.scene import Scene, default_scene
+from raytracer_tpu_torch.utils import assets
+from raytracer_tpu_torch.utils.log import get_logger
 from raytracer_tpu_torch.utils.png import write_png
+
+_log = get_logger("headless")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raytracer_tpu_torch.apps.headless",
         description="GPU path tracer, headless: render a scene to PNG.")
-    p.add_argument("--flagship", action="store_true", required=True,
-                   help="the ~50k-triangle flagship scene")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--scene", help="scene JSON file (Scene.save_json)")
+    src.add_argument("--default-scene", action="store_true",
+                     help="reference default scene (ground plane + car "
+                          "slot) from the --assets dir")
+    src.add_argument("--flagship", action="store_true",
+                     help="the ~50k-triangle flagship scene")
     p.add_argument("-o", "--output", default="render.png")
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     p.add_argument("--frames", type=int, default=16,
                    help="accumulation frames (progressive samples)")
+    p.add_argument("--spp", type=int, default=1,
+                   help="samples per pixel per frame")
     p.add_argument("--max-bounces", type=int, default=10)
     p.add_argument("--exposure", type=float, default=0.0, help="stops")
     p.add_argument("--no-sky", action="store_true")
-    p.add_argument("--assets", action="append", default=[],
-                   help="directory to search for FinalBaseMesh.obj")
+    p.add_argument("--kernel", choices=("packet", "wavefront"),
+                   default="packet",
+                   help="packet: the packet kernels over a FastScene; "
+                        "wavefront: the per-ray path over a GpuScene")
+    p.add_argument("--rng", choices=("progressive", "reference"),
+                   default="progressive")
+    p.add_argument("--camera", metavar="X,Y,Z",
+                   help="camera origin (default: reference pose -25,30,140)")
+    p.add_argument("--look-at", metavar="X,Y,Z", default="0,0,0")
+    p.add_argument("--vfov", type=float, default=20.0)
+    p.add_argument("--assets", help="asset search dir override")
     p.add_argument("--stats-json", action="store_true",
                    help="print a stats JSON line at the end")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="render device (cuda raises without a card)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="multi-device mesh: not ported (ROADMAP.md queue 1, "
+                        "Multi-GPU); 0 = one device")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sample-parallel mesh axis: not ported (see "
+                        "--devices)")
+    p.add_argument("--checkpoint", metavar="FILE.npz",
+                   help="save the accumulation state here at the end; if "
+                        "the file exists, resume from it (render N more "
+                        "frames on top)")
+    p.add_argument("--chain", type=int, default=0,
+                   help="progressive frames per Renderer.render_chain call "
+                        "(bit-identical to sequential frames). 0 = auto "
+                        "(largest of 8/4/2 dividing --frames), 1 = off")
     return p
+
+
+def _parse_vec(s: str):
+    return tuple(float(x) for x in s.split(","))
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.frames < 1:
         build_parser().error("--frames must be >= 1")
-    if not torch.cuda.is_available():
-        raise RuntimeError("the headless renderer needs a CUDA device")
+    if args.devices or args.sp != 1:
+        raise NotImplementedError(
+            "--devices / --sp: multi-device rendering is not ported "
+            "(ROADMAP.md queue 1, Multi-GPU)")
+    dev = args.device
+    if dev == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs a CUDA device")
+    if args.assets:
+        os.environ["RAYTPU_ASSETS"] = args.assets
+
     cfg = RenderConfig(width=args.width, height=args.height,
-                       max_bounces=args.max_bounces)
+                       max_bounces=args.max_bounces,
+                       samples_per_pixel=args.spp,
+                       kernel=args.kernel, rng_mode=args.rng)
     t0 = time.perf_counter()
-    scene = flagship_scene("cuda", search=args.assets)
+    if args.flagship:
+        if cfg.kernel != "packet":
+            build_parser().error("--flagship renders --kernel packet")
+        device_scene = flagship_scene(
+            dev, search=[args.assets] if args.assets else [])
+    else:
+        if args.default_scene:
+            scene_graph = default_scene(
+                asset_dir=args.assets or assets.REPO_ASSETS)
+        else:
+            scene_graph = Scene.load_json(args.scene)
+        build = build_fast_scene if cfg.kernel == "packet" else \
+            build_gpu_scene
+        device_scene = build(scene_graph.create_snapshot(), device=dev)
     build_ms = (time.perf_counter() - t0) * 1e3
 
-    cam = default_camera(args.width, args.height)
+    if args.camera:
+        cam = Camera(origin=_parse_vec(args.camera),
+                     look_at=_parse_vec(args.look_at),
+                     vfov_deg=args.vfov,
+                     aspect_ratio=args.width / args.height)
+    else:
+        cam = default_camera(args.width, args.height)
     renderer = Renderer(cfg)
+
+    # Checkpoint / resume: the accumulator and the frame count persist
+    # across runs.
     accum = None
-    rays = 0
+    start_frame = 0
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        with np.load(args.checkpoint) as ckpt:
+            if tuple(ckpt["accum"].shape) == (args.height, args.width, 3):
+                accum = torch.from_numpy(
+                    np.array(ckpt["accum"], np.float32)).to(dev)
+                start_frame = int(ckpt["frame_count"])
+                _log.info("resumed %s at frame %d", args.checkpoint,
+                          start_frame)
+            else:
+                _log.warning("checkpoint resolution mismatch; starting "
+                             "fresh")
+
+    chain = args.chain
+    if chain <= 0:  # auto: chain when it divides the frame budget
+        chain = next((k for k in (8, 4, 2) if args.frames % k == 0), 1)
+
     t0 = time.perf_counter()
-    for f in range(args.frames):
+    stats = {}
+    f = start_frame
+    end = start_frame + args.frames
+    while f < end:
+        k = min(chain, end - f)
         cam.frame_count = f
-        uni = cam.uniforms(sky_enabled=not args.no_sky,
-                           exposure=args.exposure, device="cuda")
-        accum, image, stats = renderer.render(scene, uni, accum)
-        rays = rays + stats["rays_traced"]
+        uniforms = cam.uniforms(sky_enabled=not args.no_sky,
+                                exposure=args.exposure, device=dev)
+        if k > 1:
+            accum, image, stats = renderer.render_chain(
+                device_scene, uniforms, accum, k)
+        else:
+            accum, image, stats = renderer.render(device_scene, uniforms,
+                                                  accum)
+        f += k
     pixels = image.cpu().numpy()
     render_s = time.perf_counter() - t0
+
     write_png(args.output, pixels)
+    _log.info("wrote %s", args.output)
+    if args.checkpoint:
+        np.savez(args.checkpoint, accum=accum.cpu().numpy(),
+                 frame_count=end)
 
     if args.stats_json:
         print(json.dumps({
             "output": args.output,
-            "device": torch.cuda.get_device_name(0),
+            "device": (torch.cuda.get_device_name(accum.device)
+                       if dev == "cuda" else "cpu"),
             "resolution": f"{args.width}x{args.height}",
-            "triangles": scene.num_triangles,
+            "triangles": int(device_scene.num_triangles),
             "frames": args.frames,
+            "samples": float(stats["samples"]),
             "build_ms": round(build_ms, 1),
             "render_s": round(render_s, 3),
             "fps": round(args.frames / render_s, 3),
-            "mrays_per_s": round(float(rays) / render_s / 1e6, 3),
+            "mrays_per_s": round(
+                float(stats["rays_traced"]) * args.frames / render_s / 1e6,
+                3),
         }))
     return 0
 

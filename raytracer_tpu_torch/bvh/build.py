@@ -13,7 +13,7 @@ import dataclasses
 
 import numpy as np
 
-from raytracer_tpu_torch import native_bridge
+from raytracer_tpu_torch import knobs, native_bridge
 
 
 @dataclasses.dataclass
@@ -34,6 +34,7 @@ class HostBVH:
 
 def build_bvh(tris: np.ndarray, leaf_size: int = 1) -> HostBVH:
     """f32[T, 3, 3] triangle soup (T > 0) -> HostBVH."""
+    knobs.fixed("RAYTPU_BVH", "RAYTPU_NATIVE")
     tris = np.asarray(tris, np.float32)
     if tris.shape[0] == 0:
         raise ValueError("cannot build BVH from empty triangle list")

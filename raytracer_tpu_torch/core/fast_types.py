@@ -23,6 +23,8 @@ import dataclasses
 
 import torch
 
+from raytracer_tpu_torch import knobs
+
 CLUSTER_SIZE = 8          # triangles per leaf cluster
 TRI_STRIDE = 16           # floats per packed triangle
 CLUSTER_ROW = CLUSTER_SIZE * TRI_STRIDE  # 128
@@ -56,6 +58,7 @@ class FastScene:
     cluster_counts: torch.Tensor = dataclasses.field(init=False)  # i32[Lpad]
 
     def __post_init__(self):
+        knobs.fixed("RAYTPU_CLUSTER", "RAYTPU_WIDE")
         self.cluster_counts = live_counts(self.clusters)
 
     @property

@@ -1,10 +1,12 @@
-"""Render configuration and per-frame camera uniforms.
+"""Render configuration, per-frame camera uniforms and the per-ray scene.
 
 ``RenderConfig`` is a field-for-field copy of ``raytracer_tpu.core.types.
 RenderConfig`` (same defaults and validation), so one config describes a
 frame in both packages. ``CameraUniforms`` holds the per-frame UBO surface
 as torch tensors on the render device, plus host mirrors of the scalars
 that steer host control flow (so reading them never waits on the card).
+``FlatBVH`` and ``GpuScene`` are the JAX package's per-ray scene layout
+(``raytracer_tpu.core.types``) as torch tensors, with host-int counts.
 """
 
 from __future__ import annotations
@@ -82,6 +84,48 @@ class CameraUniforms:
             exposure=f32(exposure),
             fc_host=int(frame_count),
             sky_host=bool(sky_enabled))
+
+
+@dataclasses.dataclass
+class FlatBVH:
+    """Binary BVH in pre-order, structure of arrays (the JAX twin's
+    layout): internal nodes ``node_tri`` -1, ``node_data`` = left child,
+    ``node_count`` = right child; leaves ``node_tri`` = triangle index,
+    ``node_data`` = -(tri + 1), ``node_count`` = -1. ``node_skip`` is the
+    pre-order escape link (the node count past the end), so a walk is
+    stackless: box hit and internal -> i + 1, else skip."""
+
+    node_min: torch.Tensor    # f32[M, 3]
+    node_max: torch.Tensor    # f32[M, 3]
+    node_tri: torch.Tensor    # i32[M]
+    node_skip: torch.Tensor   # i32[M]
+    node_data: torch.Tensor   # i32[M]
+    node_count: torch.Tensor  # i32[M]
+
+    @property
+    def num_nodes(self) -> int:
+        return self.node_min.shape[0]
+
+
+@dataclasses.dataclass
+class GpuScene:
+    """Per-ray scene: triangles in BVH order and their materials (r, g, b,
+    type), padded to power-of-two capacities like the JAX twin (padding
+    nodes are unreachable, padding triangles degenerate)."""
+
+    bvh: FlatBVH
+    tri_verts: torch.Tensor   # f32[Tpad, 3, 3]
+    materials: torch.Tensor   # f32[Tpad, 4]
+    num_triangles: int
+    num_nodes: int
+
+    @property
+    def capacity(self) -> int:
+        return self.tri_verts.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_verts.device
 
 
 # Material type codes (reference VulkanApp.java:483-488).

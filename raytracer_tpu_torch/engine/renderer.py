@@ -1,11 +1,16 @@
 """The render step: bands -> band sum -> accumulate + tonemap.
 
-The port of ``raytracer_tpu/engine/renderer.py`` for the packet kernel:
-path shading on every ported bounce path (``raytracer_tpu_torch/knobs.py``)
-and the fixed-light tier. PyTorch runs eagerly, so Python loops replace
-``lax.scan`` / ``fori_loop`` and there is no jit cache and no environment
-fingerprint: the path knobs are read at call time. The frame tail always
-goes through the tonemap kernel (``kernels/tonemap.py``).
+The port of ``raytracer_tpu/engine/renderer.py``: the packet kernel over a
+``FastScene`` (path shading on every ported bounce path,
+``raytracer_tpu_torch/knobs.py``, and the fixed-light tier), and the
+per-ray path (``kernels/tracer.render_linear``) for a ``GpuScene`` or
+``kernel="wavefront"``, as the JAX renderer routes them. PyTorch runs
+eagerly, so Python loops replace ``lax.scan`` / ``fori_loop`` and there is
+no jit cache and no environment fingerprint: the path knobs are read at
+call time. The frame tail always goes through the tonemap kernel
+(``kernels/tonemap.py``), which accumulates and tonemaps in one launch;
+``render_chain`` runs k frames as k steps (no CUDA graph: the sorted
+rounds read their live count on the host once a round).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
 from raytracer_tpu_torch.kernels.packet import (render_linear_fast,
                                                 tail_merge_widths)
 from raytracer_tpu_torch.kernels.tonemap import tonemap_accumulate
+from raytracer_tpu_torch.kernels.tracer import render_linear
 from raytracer_tpu_torch.kernels.wavefront import wavefront_tail
 
 
@@ -47,14 +53,14 @@ def _num_bands(cfg: RenderConfig) -> int:
     return row_tiles
 
 
-def _render_total(scene: FastScene, cam: CameraUniforms,
-                  cfg: RenderConfig):
+def _render_total(scene, cam: CameraUniforms, cfg: RenderConfig):
     """Radiance of one frame summed over its samples -> (f32[3, H*W],
     rays traced (int64 tensor)). Bands, the spp loop and, where it
     applies, the cross-band tail merge; the tonemap kernel divides by spp
-    and reads the planar layout as it stands."""
-    if cfg.kernel != "packet":
-        raise NotImplementedError("the port renders kernel='packet' only")
+    and reads the planar layout as it stands. A ``FastScene`` with
+    ``kernel="packet"`` renders through the packet kernels, anything else
+    through the per-ray path (no tail merge there)."""
+    packet = cfg.kernel == "packet" and isinstance(scene, FastScene)
     spp = cfg.samples_per_pixel
     nb = _num_bands(cfg)
     band_h = cfg.height // nb
@@ -62,19 +68,24 @@ def _render_total(scene: FastScene, cam: CameraUniforms,
     hw = cfg.height * cfg.width
     dev = scene.device
     tm = (tail_merge_widths(cfg, band_h, nb)
-          if knobs.tail_merge_active(cfg) else None)
+          if packet and knobs.tail_merge_active(cfg) else None)
 
     total = torch.zeros((3, hw), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(spp):
         bands, survivors = [], []
         for b in range(nb):
-            color, brays, surv = render_linear_fast(
-                scene, cam, band_cfg, sample_index=i, y_offset=b * band_h,
-                global_height=cfg.height,
-                tail_handoff=tm[0] if tm else None)
+            if packet:
+                color, brays, surv = render_linear_fast(
+                    scene, cam, band_cfg, sample_index=i,
+                    y_offset=b * band_h, global_height=cfg.height,
+                    tail_handoff=tm[0] if tm else None)
+                survivors.append(surv)
+            else:
+                color, brays = render_linear(
+                    scene, cam, band_cfg, sample_index=i,
+                    y_offset=b * band_h, global_height=cfg.height)
             bands.append(color)
-            survivors.append(surv)
             rays = rays + brays
         total = total + torch.cat(bands, dim=1)
         if tm is not None:
@@ -86,7 +97,7 @@ def _render_total(scene: FastScene, cam: CameraUniforms,
     return total, rays
 
 
-def _render_step(scene: FastScene, cam: CameraUniforms, accum: torch.Tensor,
+def _render_step(scene, cam: CameraUniforms, accum: torch.Tensor,
                  cfg: RenderConfig):
     """scene + camera + accumulation -> (new accum, u8 frame, stats)."""
     total, rays = _render_total(scene, cam, cfg)
@@ -109,14 +120,36 @@ class Renderer:
         return torch.zeros((self.cfg.height, self.cfg.width, 3),
                            dtype=torch.float32, device=device)
 
-    def render(self, scene: FastScene, cam: CameraUniforms,
+    def render(self, scene, cam: CameraUniforms,
                accum: Optional[torch.Tensor] = None):
-        """One frame -> (accum, u8 image [H, W, 3], stats). ``accum`` is
-        updated in place and returned; ``accum=None`` starts a new
-        accumulation run."""
+        """One frame of a FastScene or GpuScene -> (accum, u8 image
+        [H, W, 3], stats). ``accum`` is updated in place and returned;
+        ``accum=None`` starts a new accumulation run."""
         if accum is None:
             accum = self.new_accumulator(scene.device)
         return _render_step(scene, cam, accum, self.cfg)
+
+    def render_chain(self, scene, cam: CameraUniforms,
+                     accum: Optional[torch.Tensor], k: int):
+        """k progressive frames from ``cam``'s frame count, the count
+        advancing a step a frame -> (accum, u8 image of the final
+        accumulator, stats averaged per frame: ``rays_traced`` / k and
+        ``samples`` = end frame count * spp). Bit-equal to k ``render``
+        calls; the caller's frame counter should advance by k."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if accum is None:
+            accum = self.new_accumulator(scene.device)
+        rays = torch.zeros((), dtype=torch.int64, device=accum.device)
+        fc = cam.fc_host
+        for i in range(k):
+            cam_i = dataclasses.replace(
+                cam, fc_host=fc + i, frame_count=torch.tensor(
+                    fc + i, dtype=torch.int32, device=accum.device))
+            accum, image, stats = _render_step(scene, cam_i, accum, self.cfg)
+            rays = rays + stats["rays_traced"]
+        return accum, image, {"rays_traced": rays / k,
+                              "samples": (fc + k) * self.cfg.samples_per_pixel}
 
     def render_to_numpy(self, scene, cam, accum=None):
         accum, image, stats = self.render(scene, cam, accum)

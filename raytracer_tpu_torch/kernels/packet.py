@@ -32,6 +32,7 @@ def tail_merge_widths(cfg: RenderConfig, band_h: int, nb: int):
     or None when it cannot apply (one band, one bounce, fixed light, or a
     band too small to have deep levels). The handoff is the band ladder
     width nearest band rays / 4 (>= MIN_WIDTH)."""
+    knobs.fixed("RAYTPU_TAIL_MERGE")
     if nb <= 1 or cfg.max_bounces <= 1 or cfg.shading == "fixed_light":
         return None
     p = band_h * cfg.width
@@ -73,6 +74,7 @@ def _pmega(scene: FastScene, ray_o, ray_d, color, atten, seed, alive,
     bounce in ONE ``bounce15`` call (bcap = max_bounces - 1, budget never
     gating); colours deposit at the sorted pixel ids. The kernel's key is
     not used. Returns (color f32[3, P + 1], rays traced in the call)."""
+    knobs.fixed("RAYTPU_SORT_KEY")
     smin, smax = scene.bounds()
     key = wavefront.sort_key(ray_o, ray_d, alive, smin, smax)
     state = pack_state(ray_o, ray_d, atten, seed, alive, UNIFORM_BUDGET, pix,
@@ -99,6 +101,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
     if cfg.height % 8 or cfg.width % 8:
         raise ValueError("fast path needs resolution divisible by 8")
     knobs.bounce0()
+    knobs.fixed("RAYTPU_COMPACT_FLOOR", "RAYTPU_COMPACT_RATIO")
     h, w = cfg.height, cfg.width
     gh = global_height or h
     p = h * w

@@ -1,9 +1,16 @@
-"""Ray generation and bounce-0 shading in plain torch ops.
+"""Ray generation, shading and the per-ray path in plain torch ops.
 
-The port of ``raytracer_tpu.kernels.tracer``'s pieces on the main path:
-``initial_seed``, ``make_primary_rays``, ``sky_color``, ``scatter``,
-``shade`` and ``fixed_light_color``. Vectors are (x, y, z) tuples of flat
-[P] f32 tensors, and every expression keeps the JAX version's evaluation order, so results are
+The port of ``raytracer_tpu.kernels.tracer``: ``initial_seed``,
+``make_primary_rays``, ``sky_color``, ``scatter``, ``shade`` and
+``fixed_light_color`` (the main path's bounce 0), and the per-ray
+GLSL-parity path over a ``GpuScene``: ``traverse`` (the stackless
+skip-link walk of the binary BVH, every ray in lockstep) and
+``render_linear``. The JAX package runs that path as XLA while loops with
+no Pallas kernel, so it stays plain PyTorch on the card too: each walk
+step and each bounce ends in a host read of its ``.any()`` loop condition
+(one sync an iteration, as the JAX loop condition is evaluated each
+iteration). Vectors are (x, y, z) tuples of flat [P] f32 tensors, and
+every expression keeps the JAX version's evaluation order, so results are
 bit-equal where the JAX side is evaluated without FMA contraction.
 
 Division by a non-power-of-two constant goes through a 0-d tensor on the
@@ -18,12 +25,23 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
+from raytracer_tpu_torch.core.types import (CameraUniforms, GpuScene,
+                                            RenderConfig)
 from raytracer_tpu_torch.kernels import rng
 
 
 def _dot(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _sub(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def _cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
 
 
 def _length(a):
@@ -181,3 +199,131 @@ def initial_seed(cam: CameraUniforms, cfg: RenderConfig, pixel,
     stream = (cam.frame_count.to(torch.int64) * cfg.samples_per_pixel
               + sample_index + 1) & rng.M32
     return pixel ^ rng.pcg((stream * 0x9E3779B9) & rng.M32)
+
+
+def traverse(scene: GpuScene, ray_o, ray_d, active,
+             cfg: RenderConfig) -> TraversalResult:
+    """Closest triangle hit of every ray, in lockstep (the JAX
+    ``tracer.traverse``): a box-hit internal node steps to i + 1 (its left
+    child), anything else to ``node_skip[i]``; a ray is done when its node
+    reaches ``num_nodes``, and dead rays start there. Normals are flipped
+    toward the ray except for the fixed-light tier."""
+    bvh = scene.bvh
+    num_nodes = scene.num_nodes
+    p = ray_o[0].shape[0]
+    dev = ray_o[0].device
+    tri9 = scene.tri_verts.reshape(-1, 9)
+    inv_d = (1.0 / ray_d[0], 1.0 / ray_d[1], 1.0 / ray_d[2])
+
+    node = torch.where(active, 0, num_nodes).to(torch.int32)
+    closest_t = torch.full((p,), cfg.t_max, dtype=torch.float32, device=dev)
+    hit_tri = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    nx = torch.zeros(p, dtype=torch.float32, device=dev)
+    ny, nz = torch.zeros_like(nx), torch.zeros_like(nx)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    while bool((node < num_nodes).any()):
+        in_flight = node < num_nodes
+        safe = torch.where(in_flight, node, zero).to(torch.int64)
+        nmin = bvh.node_min.index_select(0, safe)
+        nmax = bvh.node_max.index_select(0, safe)
+        tri = bvh.node_tri.index_select(0, safe)
+        skip = bvh.node_skip.index_select(0, safe)
+
+        # Slab test, t-bounded by the ray's closest hit; min / max
+        # propagate NaN as jnp.minimum / maximum do.
+        t_enter = t_exit = None
+        for ax in range(3):
+            t0 = (nmin[:, ax] - ray_o[ax]) * inv_d[ax]
+            t1 = (nmax[:, ax] - ray_o[ax]) * inv_d[ax]
+            lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            t_enter = lo if t_enter is None else torch.maximum(t_enter, lo)
+            t_exit = hi if t_exit is None else torch.minimum(t_exit, hi)
+        box_hit = ((t_exit > t_enter) & (t_exit > cfg.t_min)
+                   & (t_enter < closest_t) & in_flight)
+        is_leaf = tri >= 0
+        leaf_hit = box_hit & is_leaf
+
+        # Moller-Trumbore for rays at a hit leaf.
+        t_idx = torch.where(leaf_hit, tri, zero)
+        tv = tri9.index_select(0, t_idx.to(torch.int64))
+        v0 = (tv[:, 0], tv[:, 1], tv[:, 2])
+        e1 = (tv[:, 3] - tv[:, 0], tv[:, 4] - tv[:, 1], tv[:, 5] - tv[:, 2])
+        e2 = (tv[:, 6] - tv[:, 0], tv[:, 7] - tv[:, 1], tv[:, 8] - tv[:, 2])
+        pvec = _cross(ray_d, e2)
+        det = _dot(e1, pvec)
+        ok = ~((det > -cfg.det_eps) & (det < cfg.det_eps))
+        inv_det = 1.0 / torch.where(ok, det, 1.0)
+        s = _sub(ray_o, v0)
+        u = inv_det * _dot(s, pvec)
+        ok = ok & (u >= 0.0) & (u <= 1.0)
+        qvec = _cross(s, e1)
+        v = inv_det * _dot(ray_d, qvec)
+        ok = ok & (v >= 0.0) & (u + v <= 1.0)
+        t = inv_det * _dot(e2, qvec)
+        ok = ok & (t > cfg.t_min) & (t < closest_t)
+        upd = leaf_hit & ok
+
+        n_raw = _cross(e1, e2)
+        inv_len = 1.0 / torch.where(upd, _length(n_raw), 1.0)
+        n_unit = _scale(n_raw, inv_len)
+        if cfg.shading != "fixed_light":
+            flip = _dot(ray_d, n_unit) > 0.0
+            n_unit = _where(flip, _scale(n_unit, -1.0), n_unit)
+
+        closest_t = torch.where(upd, t, closest_t)
+        hit_tri = torch.where(upd, t_idx, hit_tri)
+        nx = torch.where(upd, n_unit[0], nx)
+        ny = torch.where(upd, n_unit[1], ny)
+        nz = torch.where(upd, n_unit[2], nz)
+
+        descend = box_hit & ~is_leaf
+        node = torch.where(in_flight, torch.where(descend, node + 1, skip),
+                           node)
+
+    hit = hit_tri >= 0
+    m = scene.materials.index_select(
+        0, torch.where(hit, hit_tri, zero).to(torch.int64))
+    return TraversalResult(closest_t, hit, (nx, ny, nz),
+                           (m[:, 0], m[:, 1], m[:, 2]), m[:, 3])
+
+
+def render_linear(scene: GpuScene, cam: CameraUniforms, cfg: RenderConfig,
+                  sample_index: int = 0, y_offset: int = 0,
+                  global_height: int | None = None):
+    """One sample per pixel of a band (cfg.height rows from global row
+    ``y_offset`` of a ``global_height``-row frame) -> (color f32[3, h*w]
+    in raster order, rays traced (int64 tensor)). Bounces run while any
+    ray is alive, up to ``cfg.max_bounces``; an exhausted path keeps
+    colour 0."""
+    if not isinstance(scene, GpuScene):
+        raise TypeError("the per-ray path renders a GpuScene "
+                        "(scene/builder.build_gpu_scene)")
+    h, w = cfg.height, cfg.width
+    gh = global_height or h
+    p = h * w
+    dev = scene.device
+    i = torch.arange(p, dtype=torch.int64, device=dev)
+    yy = i // w + y_offset
+    xx = i % w
+    seed = initial_seed(cam, cfg, yy * w + xx, sample_index)
+    alive = torch.ones(p, dtype=torch.bool, device=dev)
+
+    if cfg.shading == "fixed_light":
+        _, ray_o, ray_d = make_primary_rays(cam, cfg, seed, xx, yy, gh,
+                                            jitter=False)
+        color = fixed_light_color(traverse(scene, ray_o, ray_d, alive, cfg))
+        return torch.stack(color), torch.tensor(p, device=dev)
+
+    seed, ray_o, ray_d = make_primary_rays(cam, cfg, seed, xx, yy, gh)
+    zero = torch.zeros(p, dtype=torch.float32, device=dev)
+    one = torch.ones(p, dtype=torch.float32, device=dev)
+    color, atten = (zero, zero, zero), (one, one, one)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    b = 0
+    while b < cfg.max_bounces and bool(alive.any()):
+        rays = rays + alive.sum()
+        res = traverse(scene, ray_o, ray_d, alive, cfg)
+        ray_o, ray_d, color, atten, seed, alive = shade(
+            res, ray_o, ray_d, color, atten, seed, alive, cam.sky_host, cfg)
+        b += 1
+    return torch.stack(color), rays

@@ -87,6 +87,8 @@ def sort_key(ray_o, ray_d, alive, smin, smax,
 def round_widths(p: int) -> list[int]:
     """Level schedule p, ~p/2, ~p/4, ... floored at MIN_WIDTH, each a
     whole number of BBLOCK tiles."""
+    knobs.fixed("RAYTPU_WAVE_MINW", "RAYTPU_WAVE_BCAP", "RAYTPU_TAIL_BCAP",
+                "RAYTPU_ORDER_MINW", "RAYTPU_DEEP_SUB", "RAYTPU_DEEP_MAXW")
     widths = [p]
     while True:
         nxt = (widths[-1] // 2 // BBLOCK) * BBLOCK
@@ -220,6 +222,9 @@ def wavefront_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
     if p % BBLOCK:
         raise ValueError(f"ray count {p} not a multiple of {BBLOCK}")
     engine = knobs.wave_engine()
+    knobs.fixed("RAYTPU_SORT_KEY", "RAYTPU_GLUE", "RAYTPU_DEPOSIT")
+    if engine == "fused_packed":
+        knobs.fixed("RAYTPU_PACK_GATHER")
     if handoff_width is not None and engine == "split":
         raise ValueError("tail handoff requires a fused wavefront path")
     if engine == "fused12":
@@ -269,6 +274,7 @@ def wavefront_tail(scene: FastScene, state: torch.Tensor, sky_on: bool,
     while its budget is > 0: rays handed off at their bounce cap die there,
     black without the colour carry, keeping their colour with it. Returns
     (color f32[3, out_size], rays traced)."""
+    knobs.fixed("RAYTPU_SORT_KEY", "RAYTPU_GLUE", "RAYTPU_DEPOSIT")
     alive = state[ROW_ALIVE] != 0
     kill = alive & (state[ROW_BUDGET] <= 0)
     nocolor = state.shape[0] == STATE_ROWS

@@ -17,6 +17,17 @@ the ``RAYTPU_B0`` variants) raises ``NotImplementedError`` naming the knob.
 * ``RAYTPU_NODE_SRC``: ``pack`` or ``extract``; ``extract`` also selects
   the binary walk;
 * ``RAYTPU_B0``: ``pallas`` only (bounce 0 through the traversal kernel).
+
+The JAX package's other result-bearing knobs select A/B variants that the
+port has not ported (``FIXED``: tail merge, sort key, round schedule and
+glue, table layout, BVH builder, native library). Each is read where the
+JAX package reads it, and any value but its JAX default raises
+``NotImplementedError``.
+
+The JAX package's TPU tile-shape knobs change no result and do not apply
+to the port, which does not read them: ``RAYTPU_PALLAS_SUBLANES``,
+``RAYTPU_PALLAS_BSUBLANES``, ``RAYTPU_PALLAS_UNROLL`` and
+``RAYTPU_TRAVERSE_UNROLL``.
 """
 
 from __future__ import annotations
@@ -27,6 +38,42 @@ BOUNCE_PATHS = ("wave", "pmega")
 WAVE_ENGINES = ("fused12", "fused", "fused_packed", "split")
 NODE_SOURCES = ("pack", "extract")
 
+# Knob -> its JAX default, the only value the port accepts. Read sites
+# (the JAX package's in parentheses):
+# * ``kernels/packet.tail_merge_widths``: TAIL_MERGE (packet.py:488);
+# * ``kernels/wavefront.py`` rounds and tail, ``packet._pmega``: SORT_KEY
+#   (wavefront.py:333, :803; packet.py:695), GLUE (:409), DEPOSIT (:180),
+#   PACK_GATHER on the fused_packed engine (:661);
+# * ``wavefront.round_widths``, the level schedule: WAVE_MINW, WAVE_BCAP,
+#   TAIL_BCAP, ORDER_MINW, DEEP_SUB, DEEP_MAXW (wavefront.py:57-94, read
+#   at import there);
+# * ``packet.render_linear_fast`` with the bounce path: COMPACT_FLOOR and
+#   COMPACT_RATIO (packet.py:320-322, the ``mega`` bounce path's);
+# * ``FastScene``: CLUSTER and WIDE (fast_types.py:40, :67);
+# * ``bvh/build.build_bvh``: BVH and NATIVE (build.py:103-104);
+#   ``scene/builder.py``: NATIVE, LEAF_COUNTS (builder.py:252, :294);
+#   ``scene/objloader.load_obj``: NATIVE (objloader.py:24).
+FIXED = {
+    "RAYTPU_TAIL_MERGE": "1",
+    "RAYTPU_SORT_KEY": "cid",
+    "RAYTPU_GLUE": "one",
+    "RAYTPU_DEPOSIT": "grave",
+    "RAYTPU_PACK_GATHER": "col",
+    "RAYTPU_WAVE_MINW": "8192",
+    "RAYTPU_WAVE_BCAP": "1",
+    "RAYTPU_TAIL_BCAP": "1",
+    "RAYTPU_ORDER_MINW": "0",
+    "RAYTPU_DEEP_SUB": "0",
+    "RAYTPU_DEEP_MAXW": "200000",
+    "RAYTPU_COMPACT_FLOOR": "1024",
+    "RAYTPU_COMPACT_RATIO": "2",
+    "RAYTPU_CLUSTER": "8",
+    "RAYTPU_WIDE": "8",
+    "RAYTPU_BVH": "sah",
+    "RAYTPU_NATIVE": "1",
+    "RAYTPU_LEAF_COUNTS": "1",
+}
+
 
 def _read(name: str, default: str, allowed) -> str:
     value = os.environ.get(name, default)
@@ -35,6 +82,13 @@ def _read(name: str, default: str, allowed) -> str:
             f"{name}={value!r} selects a path the port does not have "
             f"(ported: {', '.join(allowed)})")
     return value
+
+
+def fixed(*names: str) -> None:
+    """Read each knob of ``FIXED`` named; raise unless it is unset or at
+    its JAX default."""
+    for name in names:
+        _read(name, FIXED[name], (FIXED[name],))
 
 
 def bounce0() -> str:

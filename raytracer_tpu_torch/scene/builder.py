@@ -1,29 +1,40 @@
-"""Scene packing: triangle soup -> ``FastScene`` tensors on a device.
+"""Scene packing: instances -> triangle soup -> ``FastScene`` (packet
+path) or ``GpuScene`` (per-ray path) tensors on a device.
 
-Builds the same tables, with the same capacity buckets and padding, as
-``raytracer_tpu.scene.builder.build_fast_scene_from_arrays`` at its
-default knobs (binned-SAH tree, native cluster packing, count-encoded
-8-wide collapse). Everything is NumPy or the native library until the
+``gather_triangles`` loads and transforms each instance (a mesh that
+fails to load is skipped with a warning). The packers build the same
+tables, with the same capacity buckets and padding, as
+``raytracer_tpu.scene.builder`` at its default knobs (binned-SAH tree,
+native cluster packing, count-encoded 8-wide collapse; leaf size 1 for
+the per-ray scene). Everything is NumPy or the native library until the
 final ``torch.from_numpy(...).to(device)``.
 
-Also carries state across from the JAX package: ``fast_scene_from_numpy``
-and ``camera_uniforms_from_numpy`` rebuild the port's types from the JAX
-package's leaves (taken with ``np.asarray``), so tests can feed both sides
-from the same tables.
+Also carries state across from the JAX package: ``fast_scene_from_numpy``,
+``gpu_scene_from_numpy`` and ``camera_uniforms_from_numpy`` rebuild the
+port's types from the JAX package's leaves (taken with ``np.asarray``),
+so tests can feed both sides from the same tables.
 """
 
 from __future__ import annotations
 
+import time
+from typing import Sequence
+
 import numpy as np
 import torch
 
-from raytracer_tpu_torch import native_bridge
+from raytracer_tpu_torch import knobs, native_bridge
 from raytracer_tpu_torch.bvh.build import build_bvh
 from raytracer_tpu_torch.bvh.bvh4 import (STACK_CAP, collapse4,
                                           nodes4_stack_need)
 from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, CLUSTER_SIZE,
                                                  TRI_STRIDE, FastScene)
-from raytracer_tpu_torch.core.types import CameraUniforms
+from raytracer_tpu_torch.core.types import CameraUniforms, FlatBVH, GpuScene
+from raytracer_tpu_torch.scene.objloader import load_obj
+from raytracer_tpu_torch.scene.scene import ModelInstance
+from raytracer_tpu_torch.utils.log import get_logger
+
+_log = get_logger("srt")
 
 _MIN_CAPACITY = 64
 _BIG = np.float32(1e30)
@@ -35,6 +46,118 @@ def _bucket(n: int) -> int:
     while c < n:
         c *= 2
     return c
+
+
+def gather_triangles(
+    instances: Sequence[ModelInstance],
+) -> tuple[np.ndarray, np.ndarray]:
+    """Load + transform all instances -> (verts f32[T,3,3], mats f32[T,4]).
+    An instance whose mesh fails to load is skipped with a warning; a knob
+    the port refuses still raises."""
+    all_verts = []
+    all_mats = []
+    for i, inst in enumerate(instances):
+        try:
+            tris = load_obj(inst.model_path)
+        except NotImplementedError:
+            raise
+        except Exception as e:  # skip-and-continue policy
+            _log.warning("failed to load model %s (%s): %s",
+                         inst.display_name, inst.model_path, e)
+            continue
+        if tris.shape[0] == 0:
+            continue
+        tris = inst.transform(tris)
+        mat = np.empty((tris.shape[0], 4), np.float32)
+        mat[:, 0:3] = np.asarray(inst.color, np.float32)
+        mat[:, 3] = inst.material_type
+        all_verts.append(tris.astype(np.float32))
+        all_mats.append(mat)
+        _log.debug("instance [%d] %s: %d triangles", i, inst.display_name,
+                   tris.shape[0])
+    if not all_verts:
+        return np.zeros((0, 3, 3), np.float32), np.zeros((0, 4), np.float32)
+    return np.concatenate(all_verts), np.concatenate(all_mats)
+
+
+def _put(device):
+    return lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def build_gpu_scene(instances: Sequence[ModelInstance], leaf_size: int = 1,
+                    device="cuda") -> GpuScene:
+    """Instances -> the per-ray GpuScene on ``device``."""
+    verts, mats = gather_triangles(instances)
+    return build_gpu_scene_from_arrays(verts, mats, leaf_size=leaf_size,
+                                       device=device)
+
+
+def build_gpu_scene_from_arrays(verts: np.ndarray, mats: np.ndarray,
+                                leaf_size: int = 1,
+                                device="cuda") -> GpuScene:
+    """Pack a transformed triangle soup into the per-ray GpuScene: the
+    triangles in BVH order, padded to power-of-two buckets (the empty
+    scene: one unreachable leaf and degenerate triangles)."""
+    t0 = time.perf_counter()
+    verts = np.asarray(verts, np.float32)
+    mats = np.asarray(mats, np.float32)
+    n = verts.shape[0]
+    if n == 0:
+        tcap = mcap = _MIN_CAPACITY
+        host = dict(
+            node_min=np.full((mcap, 3), _BIG, np.float32),
+            node_max=np.full((mcap, 3), -_BIG, np.float32),
+            node_tri=np.zeros(mcap, np.int32),
+            node_skip=np.ones(mcap, np.int32),
+            node_data=np.full(mcap, -1, np.int32),
+            node_count=np.full(mcap, -1, np.int32))
+        tri_verts = np.zeros((tcap, 3, 3), np.float32)
+        materials = np.zeros((tcap, 4), np.float32)
+        num_tris, num_nodes = 0, 1
+    else:
+        bvh = build_bvh(verts, leaf_size=leaf_size)
+        n_refs = len(bvh.order)
+        tcap = _bucket(n_refs)
+        mcap = _bucket(bvh.num_nodes)
+        tri_verts = np.zeros((tcap, 3, 3), np.float32)
+        tri_verts[:n_refs] = verts[bvh.order]
+        materials = np.zeros((tcap, 4), np.float32)
+        materials[:n_refs] = mats[bvh.order]
+        host = dict(
+            node_min=np.full((mcap, 3), _BIG, np.float32),
+            node_max=np.full((mcap, 3), -_BIG, np.float32),
+            node_tri=np.zeros(mcap, np.int32),
+            node_skip=np.full(mcap, bvh.num_nodes, np.int32),
+            node_data=np.full(mcap, -1, np.int32),
+            node_count=np.full(mcap, -1, np.int32))
+        for k in host:
+            host[k][:bvh.num_nodes] = getattr(bvh, k)
+        num_tris, num_nodes = n_refs, bvh.num_nodes
+    put = _put(device)
+    scene = GpuScene(bvh=FlatBVH(**{k: put(v) for k, v in host.items()}),
+                     tri_verts=put(tri_verts), materials=put(materials),
+                     num_triangles=int(num_tris), num_nodes=int(num_nodes))
+    _log.info("scene built: %d tris, %d nodes (caps %d/%d) in %.1f ms",
+              num_tris, num_nodes, tcap, mcap,
+              (time.perf_counter() - t0) * 1e3)
+    return scene
+
+
+def gpu_scene_from_numpy(leaves: dict, device="cuda") -> GpuScene:
+    """The JAX package's GpuScene leaves (``FlatBVH`` field names, plus
+    ``tri_verts``, ``materials``, ``num_triangles``, ``num_nodes``; each
+    np.asarray'd) -> the port's GpuScene on ``device``."""
+    put = lambda k, dt: torch.from_numpy(np.array(leaves[k], dt)).to(device)
+    return GpuScene(
+        bvh=FlatBVH(node_min=put("node_min", np.float32),
+                    node_max=put("node_max", np.float32),
+                    **{k: put(k, np.int32) for k in (
+                        "node_tri", "node_skip", "node_data",
+                        "node_count")}),
+        tri_verts=put("tri_verts", np.float32),
+        materials=put("materials", np.float32),
+        num_triangles=int(leaves["num_triangles"]),
+        num_nodes=int(leaves["num_nodes"]))
 
 
 def pack_tri_records(v9: np.ndarray, m4: np.ndarray) -> np.ndarray:
@@ -56,6 +179,7 @@ def pack_tri_records(v9: np.ndarray, m4: np.ndarray) -> np.ndarray:
 
 def _host_tables(verts: np.ndarray, mats: np.ndarray):
     """NumPy tables (nodes8, clusters, nodes4, num_nodes, num_nodes4)."""
+    knobs.fixed("RAYTPU_NATIVE", "RAYTPU_LEAF_COUNTS")
     n = verts.shape[0]
     if n == 0:
         mcap = _MIN_CAPACITY
@@ -111,17 +235,28 @@ def _host_tables(verts: np.ndarray, mats: np.ndarray):
     return nodes8, clusters, nodes4, num_nodes, n4
 
 
+def build_fast_scene(instances: Sequence[ModelInstance],
+                     device="cuda") -> FastScene:
+    """Instances -> the packet path's FastScene on ``device``."""
+    verts, mats = gather_triangles(instances)
+    return build_fast_scene_from_arrays(verts, mats, device=device)
+
+
 def build_fast_scene_from_arrays(verts: np.ndarray, mats: np.ndarray,
                                  device="cuda") -> FastScene:
     """Pack a triangle soup (f32[T,3,3] verts, f32[T,4] rgb+type mats)
     into a FastScene on ``device``."""
+    t0 = time.perf_counter()
     verts = np.asarray(verts, np.float32)
     mats = np.asarray(mats, np.float32)
     nodes8, clusters, nodes4, num_nodes, n4 = _host_tables(verts, mats)
-    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return FastScene(nodes8=put(nodes8), clusters=put(clusters),
-                     nodes4=put(nodes4), num_nodes=int(num_nodes),
-                     num_triangles=int(verts.shape[0]), num_nodes4=int(n4))
+    put = _put(device)
+    fs = FastScene(nodes8=put(nodes8), clusters=put(clusters),
+                   nodes4=put(nodes4), num_nodes=int(num_nodes),
+                   num_triangles=int(verts.shape[0]), num_nodes4=int(n4))
+    _log.info("fast scene packed: %d tris, %d nodes in %.1f ms",
+              verts.shape[0], num_nodes, (time.perf_counter() - t0) * 1e3)
+    return fs
 
 
 def fast_scene_from_numpy(leaves: dict, device="cuda") -> FastScene:

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from raytracer_tpu_torch import native_bridge
+from raytracer_tpu_torch import knobs, native_bridge
 
 
 def load_obj(path: str) -> np.ndarray:
     """Parse a .obj file -> f32[T, 3, 3] triangles (v0, v1, v2)."""
+    knobs.fixed("RAYTPU_NATIVE")
     return native_bridge.load_obj(path)

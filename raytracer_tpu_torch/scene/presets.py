@@ -1,7 +1,18 @@
-"""Ready-made scenes."""
+"""Ready-made scenes: the five reference configurations (``Preset``,
+``ALL_PRESETS``, as the JAX package's ``scene/presets.py`` defines them),
+the flagship and ``c12_cube`` benchmark scenes, and a stack-limit tree.
+
+Preset meshes resolve through ``utils.assets``; a mesh that is absent
+falls back to a procedural one, written once as an .obj into the port's
+own cache dir so presets stay plain ``ModelInstance`` lists (JSON
+serialisable).
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import tempfile
 from typing import Sequence
 
 import numpy as np
@@ -11,9 +22,171 @@ from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP, nodes4_stack_need
 from raytracer_tpu_torch.core.camera import Camera
 from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, LEAF_CID_BITS,
                                                  WIDE_WIDTH, FastScene)
+from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.scene.builder import build_fast_scene_from_arrays
 from raytracer_tpu_torch.scene.objloader import load_obj
+from raytracer_tpu_torch.scene.scene import ModelInstance, Scene
 from raytracer_tpu_torch.utils import assets
+
+
+@dataclasses.dataclass
+class Preset:
+    name: str
+    scene: Scene
+    camera: Camera
+    config: RenderConfig
+    sky_enabled: bool = True
+    exposure: float = 0.0
+
+
+def _procedural_obj(name: str, tris: np.ndarray) -> str:
+    """A generated mesh as an .obj in the port's cache dir
+    (``raytpu_torch_assets`` under the temp dir). The file is written
+    under a temporary name and moved into place, so no reader (another
+    process, or the JAX package's cache) ever sees it half written."""
+    cache = os.path.join(tempfile.gettempdir(), "raytpu_torch_assets")
+    os.makedirs(cache, exist_ok=True)
+    path = os.path.join(cache, name)
+    if not os.path.exists(path):
+        fd, tmp = tempfile.mkstemp(prefix=name + ".", suffix=".part",
+                                   dir=cache)
+        os.close(fd)
+        try:
+            assets.write_obj(tmp, tris)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return path
+
+
+def _asset_or(name: str, fallback_tris) -> str:
+    try:
+        return assets.asset_path(name)
+    except FileNotFoundError:
+        return _procedural_obj(name, fallback_tris())
+
+
+def _ground(y=-10.0, extent=150.0, color=(0.5, 0.5, 0.5)) -> ModelInstance:
+    return ModelInstance(
+        model_path=_asset_or("ground_plane.obj", assets.make_ground_plane),
+        display_name="Ground Plane", position=(0.0, y, 0.0),
+        scale=(extent, 1.0, extent), color=color, material_type=0.0)
+
+
+def config1_cube_plane(width=640, height=480) -> Preset:
+    """Cube + ground plane, matte, sky, fixed camera, single bounce."""
+    scene = Scene([
+        _ground(),
+        ModelInstance(model_path=_asset_or("cube.obj", assets.make_cube),
+                      display_name="Cube", position=(0.0, -6.0, 0.0),
+                      scale=(6.0, 6.0, 6.0), color=(1.0, 0.2, 0.2)),
+    ])
+    cam = Camera(origin=(-25.0, 30.0, 140.0), look_at=(0.0, -4.0, 0.0),
+                 vfov_deg=20.0, aspect_ratio=width / height)
+    return Preset("cube_plane", scene, cam,
+                  RenderConfig(width=width, height=height, max_bounces=1))
+
+
+def config2_sphere_light(width=640, height=480) -> Preset:
+    """Metal sphere + plane lit by an emissive sphere, no sky."""
+    scene = Scene([
+        _ground(),
+        ModelInstance(
+            model_path=_procedural_obj("icosphere3.obj",
+                                       assets.make_icosphere(3, 5.0)),
+            display_name="Metal Sphere", position=(0.0, -5.0, 0.0),
+            color=(0.8, 0.8, 0.9), material_type=1.0),
+        ModelInstance(
+            model_path=_procedural_obj("icosphere2.obj",
+                                       assets.make_icosphere(2, 3.0)),
+            display_name="Light", position=(12.0, 14.0, 6.0),
+            color=(4.0, 4.0, 4.0), material_type=3.0),
+    ])
+    cam = Camera(origin=(-20.0, 12.0, 60.0), look_at=(0.0, -4.0, 0.0),
+                 vfov_deg=25.0, aspect_ratio=width / height)
+    return Preset("sphere_light", scene, cam,
+                  RenderConfig(width=width, height=height), sky_enabled=False)
+
+
+def config3_moon(width=1280, height=720) -> Preset:
+    """Emissive Moon.obj (icosphere fallback) over a plane, no sky,
+    1280x720."""
+    scene = Scene([
+        _ground(color=(0.4, 0.4, 0.45)),
+        ModelInstance(
+            model_path=_asset_or("Moon.obj",
+                                 lambda: assets.make_icosphere(3, 1.0)),
+            display_name="Moon", position=(0.0, 6.0, 0.0),
+            scale=(10.0, 10.0, 10.0), color=(2.5, 2.4, 2.2),
+            material_type=3.0),
+    ])
+    cam = Camera(origin=(-25.0, 30.0, 140.0), look_at=(0.0, 0.0, 0.0),
+                 vfov_deg=20.0, aspect_ratio=width / height)
+    return Preset("moon_emissive", scene, cam,
+                  RenderConfig(width=width, height=height),
+                  sky_enabled=False)
+
+
+def config4_two_humans(width=1280, height=720) -> Preset:
+    """Two FinalBaseMesh figures side by side (the terrain
+    ``make_terrain(n=158)`` stands in for the mesh when it is absent)."""
+    body = _asset_or("FinalBaseMesh.obj",
+                     lambda: assets.make_terrain(n=158))
+    scene = Scene([
+        _ground(),
+        ModelInstance(model_path=body, display_name="Human",
+                      position=(-9.0, -10.0, 0.0), scale=(2.0, 2.0, 2.0),
+                      color=(0.7, 0.6, 0.5)),
+        ModelInstance(model_path=body, display_name="Human2",
+                      position=(9.0, -10.0, 2.0), scale=(2.0, 2.0, 2.0),
+                      color=(0.5, 0.55, 0.7)),
+    ])
+    cam = Camera(origin=(-25.0, 30.0, 140.0), look_at=(0.0, 8.0, 0.0),
+                 vfov_deg=25.0, aspect_ratio=width / height)
+    return Preset("two_humans", scene, cam,
+                  RenderConfig(width=width, height=height))
+
+
+def config5_car_showcase(width=1920, height=1080) -> Preset:
+    """Mixed Lambertian / metal / emissive, exposure +0.5, 1920x1080: the
+    car slot holds ``white_mesh.obj`` (an icosphere when absent), beside a
+    background terrain and an emissive sun."""
+    scene = Scene([
+        _ground(color=(0.35, 0.35, 0.35)),
+        ModelInstance(
+            model_path=_asset_or("white_mesh.obj",
+                                 lambda: assets.make_icosphere(4, 6.0)),
+            display_name="Car", position=(0.0, -8.0, 0.0),
+            scale=(2.0, 2.0, 2.0), color=(0.6, 0.7, 0.1),
+            material_type=1.0),
+        ModelInstance(
+            model_path=_procedural_obj("terrain_bg2.obj",
+                                       assets.make_terrain(n=120,
+                                                           extent=120.0,
+                                                           height=2.0)),
+            display_name="Terrain", position=(0.0, -14.0, -120.0),
+            scale=(1.0, 0.6, 1.0), color=(0.45, 0.5, 0.4)),
+        ModelInstance(
+            model_path=_procedural_obj("icosphere2.obj",
+                                       assets.make_icosphere(2, 3.0)),
+            display_name="Sun", position=(30.0, 60.0, 20.0),
+            scale=(4.0, 4.0, 4.0), color=(5.0, 4.8, 4.5),
+            material_type=3.0),
+    ])
+    cam = Camera(origin=(-14.0, 4.0, 42.0), look_at=(0.0, -4.0, 0.0),
+                 vfov_deg=30.0, aspect_ratio=width / height)
+    return Preset("car_showcase", scene, cam,
+                  RenderConfig(width=width, height=height), exposure=0.5)
+
+
+ALL_PRESETS = {
+    "cube_plane": config1_cube_plane,
+    "sphere_light": config2_sphere_light,
+    "moon_emissive": config3_moon,
+    "two_humans": config4_two_humans,
+    "car_showcase": config5_car_showcase,
+}
 
 
 def flagship_arrays(search: Sequence[str] = ()):

@@ -336,3 +336,43 @@ def test_walk_kernels_at_the_stack_limit(scene):
         out_p = bounce12_plain(deep, state, bcap, True, cfg)
         for k, p in zip(out_k, out_p):
             assert torch.equal(k, p)
+
+
+def test_chain_equals_sequential_frames_on_the_card(scene):
+    """render_chain(k=8) leaves the accumulator and the u8 image
+    bit-equal to 8 render calls, through the kernels."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+
+    cfg = RenderConfig(width=256, height=128, band_rays=16384)
+    cam = default_camera(cfg.width, cfg.height)
+    r = Renderer(cfg)
+    accum = None
+    for fc in range(8):
+        cam.frame_count = fc
+        accum, image, _ = r.render(scene, cam.uniforms(), accum)
+    cam.frame_count = 0
+    launches.reset()
+    c_accum, c_image, stats = r.render_chain(scene, cam.uniforms(), None, 8)
+    assert launches.kernel["tonemap"] == 8 and not launches.plain
+    assert torch.equal(c_accum.view(torch.int32), accum.view(torch.int32))
+    assert torch.equal(c_image, image) and stats["samples"] == 8
+
+
+def test_preset_built_on_the_card_equals_its_cpu_tables():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc)")
+    from raytracer_tpu_torch.scene.builder import build_fast_scene
+    from raytracer_tpu_torch.scene.presets import config2_sphere_light
+
+    snap = config2_sphere_light().scene.create_snapshot()
+    gpu = build_fast_scene(snap)
+    cpu = build_fast_scene(snap, device="cpu")
+    assert gpu.device.type == "cuda"
+    for name in ("nodes8", "clusters", "nodes4", "cluster_counts"):
+        assert getattr(gpu, name).cpu().numpy().tobytes() == \
+            getattr(cpu, name).numpy().tobytes(), name
+    assert (gpu.num_nodes, gpu.num_triangles, gpu.num_nodes4) == \
+        (cpu.num_nodes, cpu.num_triangles, cpu.num_nodes4)

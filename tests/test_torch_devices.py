@@ -8,6 +8,8 @@ its plain version); with a card its tensors lie there. Only the CPU tests
 pass ``device="cpu"``. The profiling app refuses to run without a card.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ import torch
 from raytracer_tpu_torch.core.camera import Camera
 from raytracer_tpu_torch.core.types import CameraUniforms
 from raytracer_tpu_torch.scene import builder, presets
+from raytracer_tpu_torch.scene.scene import ModelInstance
 from raytracer_tpu_torch.utils import assets
 
 
@@ -42,6 +45,24 @@ def _camera_leaves():
             "sky_enabled": 1, "exposure": 0.0}
 
 
+def _cube_obj():
+    """A cube .obj in the working directory (the test's tmp_path)."""
+    assets.write_obj("cube.obj", assets.make_cube())
+    return os.path.abspath("cube.obj")
+
+
+def _gpu_leaves():
+    scene = builder.build_gpu_scene_from_arrays(*_tris(), device="cpu")
+    leaves = {k: getattr(scene.bvh, k).numpy() for k in (
+        "node_min", "node_max", "node_tri", "node_skip", "node_data",
+        "node_count")}
+    leaves.update(tri_verts=scene.tri_verts.numpy(),
+                  materials=scene.materials.numpy(),
+                  num_triangles=scene.num_triangles,
+                  num_nodes=scene.num_nodes)
+    return leaves
+
+
 ENTRY_POINTS = {
     "CameraUniforms.create": lambda: CameraUniforms.create(
         (0, 0, 0), (-1, -1, -1), (2, 0, 0), (0, 2, 0)).origin,
@@ -54,6 +75,14 @@ ENTRY_POINTS = {
     "camera_uniforms_from_numpy": lambda: builder
     .camera_uniforms_from_numpy(_camera_leaves()).frame_count,
     "flagship_scene": lambda: presets.flagship_scene().nodes8,
+    "build_fast_scene": lambda: builder.build_fast_scene(
+        [ModelInstance(_cube_obj())]).clusters,
+    "build_gpu_scene": lambda: builder.build_gpu_scene(
+        [ModelInstance(_cube_obj())]).tri_verts,
+    "build_gpu_scene_from_arrays": lambda: builder
+    .build_gpu_scene_from_arrays(*_tris()).bvh.node_min,
+    "gpu_scene_from_numpy": lambda: builder.gpu_scene_from_numpy(
+        _gpu_leaves()).materials,
 }
 
 
@@ -63,7 +92,9 @@ def has_card():
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
-def test_entry_point_defaults_to_the_card(monkeypatch, has_card, name):
+def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path, has_card,
+                                          name):
+    monkeypatch.chdir(tmp_path)
     # A small stand-in for the 49k-triangle flagship mesh.
     monkeypatch.setattr(presets, "flagship_arrays",
                         lambda search=(): (*_tris(), "cube"))

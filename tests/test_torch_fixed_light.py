@@ -12,6 +12,8 @@
   ``shading="fixed_light"``), walking the 8-wide table and, under
   ``RAYTPU_TRAVERSE=binary``, the binary one: u8 images equal, linear
   accumulators within 2e-5.
+
+The three JAX references come from one child process (``run_jobs``).
 """
 
 import numpy as np
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from test_torch_trace2 import random_rays, scene_arrays
-from torch_jax_refs import run_job, tie_lanes
+from torch_jax_refs import run_jobs, tie_lanes
 
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.engine.renderer import Renderer
@@ -48,19 +50,26 @@ def _sub(ref, prefix):
             if k.startswith(prefix)}
 
 
+TRAVERSALS = ("bvh4", "binary")
+
+
 @pytest.fixture(scope="module")
-def rays_case(tmp_path_factory):
+def refs(tmp_path_factory):
+    """Kernel A's fixed-light outputs on random rays and the C12 frame
+    under each traversal, from one JAX child process."""
     verts, mats = scene_arrays()
     scene = build_fast_scene_from_arrays(verts, mats, device="cpu")
     rays, active = random_rays(scene, n=1024, seed=23)
     inp = dict(verts=verts, mats=mats, rays=rays, active=active,
                shadings=np.array(["fixed_light"]))
-    return scene, inp, run_job("trace_shadings", inp,
-                               tmp_path_factory.mktemp("fl"))
+    out = run_jobs([("trace_shadings", inp, {})]
+                   + [("frames", c12_inputs(), {"RAYTPU_TRAVERSE": t})
+                      for t in TRAVERSALS], tmp_path_factory.mktemp("fl"))
+    return (scene, inp, out[0]), dict(zip(TRAVERSALS, out[1:]))
 
 
-def test_trace4_plain_without_flip_matches_pallas(rays_case):
-    scene, inp, ref = rays_case
+def test_trace4_plain_without_flip_matches_pallas(refs):
+    scene, inp, ref = refs[0]
     cfg = RenderConfig(shading="fixed_light")
     rays = torch.from_numpy(inp["rays"]).contiguous()
     active = torch.from_numpy(inp["active"])
@@ -75,11 +84,9 @@ def test_trace4_plain_without_flip_matches_pallas(rays_case):
     assert ((rays[3:6].numpy() * got[1:4]).sum(0)[hit] > 0).any()
 
 
-@pytest.mark.parametrize("traverse", ["bvh4", "binary"])
-def test_c12_frame_matches_jax(tmp_path, monkeypatch, traverse):
-    env = {"RAYTPU_TRAVERSE": traverse}
-    inp = c12_inputs()
-    ref = run_job("frames", inp, tmp_path, env=env)
+@pytest.mark.parametrize("traverse", TRAVERSALS)
+def test_c12_frame_matches_jax(refs, monkeypatch, traverse):
+    ref = refs[1][traverse]
     scene = fast_scene_from_numpy(_sub(ref, "scene_"), device="cpu")
     uni = camera_uniforms_from_numpy(_sub(ref, "cam0_"), device="cpu")
     monkeypatch.setenv("RAYTPU_TRAVERSE", traverse)

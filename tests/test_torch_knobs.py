@@ -1,0 +1,123 @@
+"""Every result-bearing knob of the JAX package that selects a variant
+the port has not ported (``knobs.FIXED``) is read where the JAX package
+reads it: a non-default value raises ``NotImplementedError`` naming the
+knob, and the knob set to its JAX default runs as before.
+
+Each knob is exercised through the entry point that reads it: a tiny
+frame (16x8, three bounces, one band: bounce 0, the sorted rounds, the
+tail-merge decision), the same frame on the ``fused_packed`` engine or
+the pmega path, a scene build, or an .obj load."""
+
+import numpy as np
+import pytest
+import torch
+
+from raytracer_tpu_torch import knobs
+from raytracer_tpu_torch.core.camera import Camera
+from raytracer_tpu_torch.core.types import RenderConfig
+from raytracer_tpu_torch.engine.renderer import Renderer
+from raytracer_tpu_torch.scene.builder import build_fast_scene_from_arrays
+from raytracer_tpu_torch.scene.objloader import load_obj
+from raytracer_tpu_torch.utils import assets
+
+torch.set_num_threads(2)
+
+
+def _arrays():
+    cube = assets.make_cube() * 4.0 + np.array([0, -6, 0], np.float32)
+    plane = (assets.make_ground_plane() * np.array([150, 1, 150], np.float32)
+             + np.array([0, -10, 0], np.float32))
+    verts = np.concatenate([plane, cube]).astype(np.float32)
+    mats = np.full((verts.shape[0], 4), 0.6, np.float32)
+    mats[:, 3] = 0.0
+    return verts, mats
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return build_fast_scene_from_arrays(*_arrays(), device="cpu")
+
+
+def _frame(scene, env=None):
+    def run(mp):
+        for k, v in (env or {}).items():
+            mp.setenv(k, v)
+        cfg = RenderConfig(width=16, height=8, max_bounces=3)
+        uni = Camera((-10.0, 6.0, 30.0), (0.0, -6.0, 0.0), vfov_deg=40.0,
+                     aspect_ratio=2.0).uniforms(device="cpu")
+        accum, _, _ = Renderer(cfg).render(scene, uni)
+        assert accum.max() > 0
+    return run
+
+
+def _build(mp):
+    build_fast_scene_from_arrays(*_arrays(), device="cpu")
+
+
+def _load(tmp_path):
+    path = tmp_path / "cube.obj"
+    assets.write_obj(str(path), assets.make_cube())
+
+    def run(mp):
+        assert load_obj(str(path)).shape == (12, 3, 3)
+    return run
+
+
+ENTRY = {
+    "RAYTPU_TAIL_MERGE": "frame", "RAYTPU_SORT_KEY": "frame",
+    "RAYTPU_GLUE": "frame", "RAYTPU_DEPOSIT": "frame",
+    "RAYTPU_PACK_GATHER": "packed", "RAYTPU_WAVE_MINW": "frame",
+    "RAYTPU_WAVE_BCAP": "frame", "RAYTPU_TAIL_BCAP": "frame",
+    "RAYTPU_ORDER_MINW": "frame", "RAYTPU_DEEP_SUB": "frame",
+    "RAYTPU_DEEP_MAXW": "frame", "RAYTPU_COMPACT_FLOOR": "frame",
+    "RAYTPU_COMPACT_RATIO": "frame", "RAYTPU_CLUSTER": "build",
+    "RAYTPU_WIDE": "build", "RAYTPU_BVH": "build", "RAYTPU_NATIVE": "load",
+    "RAYTPU_LEAF_COUNTS": "build",
+}
+# Values the JAX package accepts for each knob (each selects another path
+# there).
+OTHER = {"RAYTPU_TAIL_MERGE": "0", "RAYTPU_SORT_KEY": "om9",
+         "RAYTPU_GLUE": "perfield", "RAYTPU_DEPOSIT": "rows",
+         "RAYTPU_PACK_GATHER": "row", "RAYTPU_WAVE_MINW": "2048",
+         "RAYTPU_WAVE_BCAP": "2", "RAYTPU_TAIL_BCAP": "3",
+         "RAYTPU_ORDER_MINW": "65536", "RAYTPU_DEEP_SUB": "32",
+         "RAYTPU_DEEP_MAXW": "100000", "RAYTPU_COMPACT_FLOOR": "512",
+         "RAYTPU_COMPACT_RATIO": "4", "RAYTPU_CLUSTER": "4",
+         "RAYTPU_WIDE": "16", "RAYTPU_BVH": "median", "RAYTPU_NATIVE": "0",
+         "RAYTPU_LEAF_COUNTS": "0"}
+
+
+def test_every_fixed_knob_has_a_case():
+    assert set(ENTRY) == set(knobs.FIXED) == set(OTHER)
+
+
+@pytest.mark.parametrize("knob", list(knobs.FIXED))
+def test_fixed_knob_raises_off_its_default(knob, scene, tmp_path,
+                                           monkeypatch):
+    entry = {"frame": _frame(scene),
+             "packed": _frame(scene, {"RAYTPU_WAVE": "fused_packed"}),
+             "build": _build, "load": _load(tmp_path)}[ENTRY[knob]]
+    monkeypatch.setenv(knob, knobs.FIXED[knob])
+    entry(monkeypatch)
+    monkeypatch.setenv(knob, OTHER[knob])
+    with pytest.raises(NotImplementedError, match=knob):
+        entry(monkeypatch)
+
+
+def test_sort_key_is_read_on_the_pmega_path(scene, monkeypatch):
+    monkeypatch.setenv("RAYTPU_BOUNCE", "pmega")
+    monkeypatch.setenv("RAYTPU_SORT_KEY", "pd5")
+    with pytest.raises(NotImplementedError, match="RAYTPU_SORT_KEY"):
+        _frame(scene)(monkeypatch)
+
+
+@pytest.mark.parametrize("knob", ["RAYTPU_PALLAS_SUBLANES",
+                                  "RAYTPU_PALLAS_BSUBLANES",
+                                  "RAYTPU_PALLAS_UNROLL",
+                                  "RAYTPU_TRAVERSE_UNROLL"])
+def test_tile_shape_knobs_do_not_apply(knob, scene, monkeypatch):
+    """The TPU tile shapes change no result and the port does not read
+    them: the frame renders as with the knob unset."""
+    monkeypatch.setenv(knob, "7")
+    _frame(scene)(monkeypatch)
+    assert knob in knobs.__doc__

@@ -8,6 +8,7 @@ knobs, for ``RAYTPU_BOUNCE=pmega``, ``RAYTPU_WAVE=fused``,
 ``RAYTPU_TRAVERSE=binary``. The tolerance is the main path's frame test's:
 linear accumulator within 2e-5, u8 image equal except on pixels whose
 bounce-0 hit is an equal-t tie (at most 0.5%), ``rays_traced`` equal.
+The four JAX references come from one child process (``run_jobs``).
 
 ``test_engines_render_the_default_frame``: the port alone, at 128x64 with
 two bands of 4096 rays, where the cross-band tail merge is live (the JAX
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from test_torch_renderer import _bounce0_tie_pixels, _sub, _two_cubes
-from torch_jax_refs import run_job
+from torch_jax_refs import run_jobs
 
 from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.camera import Camera
@@ -48,13 +49,21 @@ CAM = dict(cam_origin=np.array([-10.0, 6.0, 30.0]),
            cam_look=np.array([0.0, -6.0, 0.0]), cam_vfov=40.0)
 
 
-@pytest.mark.parametrize("path", list(PATHS))
-def test_path_matches_jax(tmp_path, monkeypatch, path):
-    env, kernels = PATHS[path]
+@pytest.fixture(scope="module")
+def path_refs(tmp_path_factory):
+    """The JAX frame of every path, one child process for all."""
     verts, mats = _two_cubes()
     inp = dict(verts=verts, mats=mats, frames=1, **CAM,
                **{f"cfg_{k}": v for k, v in CFG.items()})
-    ref = run_job("frames", inp, tmp_path, env=env)
+    refs = run_jobs([("frames", inp, env) for env, _ in PATHS.values()],
+                    tmp_path_factory.mktemp("paths"))
+    return dict(zip(PATHS, refs))
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_path_matches_jax(path_refs, monkeypatch, path):
+    env, kernels = PATHS[path]
+    ref = path_refs[path]
     scene = fast_scene_from_numpy(_sub(ref, "scene_"), device="cpu")
     uni = camera_uniforms_from_numpy(_sub(ref, "cam0_"), device="cpu")
     cfg = RenderConfig(**CFG)

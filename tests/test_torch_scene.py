@@ -132,11 +132,19 @@ def test_cluster_counts_are_the_builders_leaf_sizes(make):
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys\n"
-            "import raytracer_tpu_torch\n"
-            "import raytracer_tpu_torch.engine.renderer\n"
-            "import raytracer_tpu_torch.apps.headless\n"
-            "import raytracer_tpu_torch.scene.presets\n"
+    """Every module of the port imports without JAX, the JAX package or
+    Triton (the new scene, utils and per-ray modules among them)."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import raytracer_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, 'raytracer_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "for name in ('scene.scene', 'scene.builder', 'scene.presets',\n"
+            "             'kernels.tracer', 'utils.config', 'utils.log',\n"
+            "             'utils.profiler', 'utils.assets',\n"
+            "             'apps.headless'):\n"
+            "    assert 'raytracer_tpu_torch.' + name in names, name\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'raytracer_tpu' not in sys.modules\n"
             "assert 'triton' not in sys.modules\n")

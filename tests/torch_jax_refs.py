@@ -4,7 +4,9 @@ Run as a script in a child process:
 
     python tests/torch_jax_refs.py JOB IN.npz OUT.npz
 
-It loads the job's inputs (made by the test from a numpy seed), runs the
+(``run_jobs`` runs several jobs in one child, each under its own knobs,
+so a test module starts at most one JAX process.) It loads the job's
+inputs (made by the test from a numpy seed), runs the
 JAX package on the CPU the way its own tests do (Pallas kernels in
 interpret mode, the production knobs ``RAYTPU_B0=pallas``,
 ``RAYTPU_BOUNCE=wave``, ``RAYTPU_TAIL_MERGE=1`` unless the job's ``env``
@@ -54,6 +56,26 @@ def run_job(job: str, inputs: dict, tmp_path, env: dict | None = None
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
     with np.load(dst) as f:
         return {k: f[k] for k in f.files}
+
+
+def run_jobs(jobs, tmp_path) -> list:
+    """Run several (job, inputs, env) in ONE child process -> their
+    results, in order. Each job runs with its ``env`` knobs set over the
+    production ones and then restored (the JAX package reads the path
+    knobs when it traces, and its jit cache keys on them)."""
+    import json
+
+    specs = []
+    for j, (job, inputs, env) in enumerate(jobs):
+        src = os.path.join(str(tmp_path), f"multi{j}_{job}_in.npz")
+        np.savez(src, **inputs)
+        specs.append({"job": job, "src": src, "env": dict(env or {})})
+    manifest = os.path.join(str(tmp_path), "multi_jobs.json")
+    with open(manifest, "w") as f:
+        json.dump(specs, f)
+    out = run_job("multi", {"manifest": np.array(manifest)}, tmp_path)
+    return [{k[len(f"j{j}_"):]: v for k, v in out.items()
+             if k.startswith(f"j{j}_")} for j in range(len(jobs))]
 
 
 def tie_lanes(scene, ray_o, ray_d, active, cfg):
@@ -360,10 +382,119 @@ def job_frames(inp):
     return out
 
 
+def job_chain(inp):
+    """``Renderer.render_chain`` of ``k`` frames from frame count ``fc``
+    over the per-ray path (a GpuScene: XLA loops, no Pallas kernel)."""
+    from raytracer_tpu.core.camera import Camera
+    from raytracer_tpu.engine.renderer import Renderer
+    from raytracer_tpu.scene.builder import build_gpu_scene_from_arrays
+
+    scene = build_gpu_scene_from_arrays(inp["verts"], inp["mats"])
+    cfg = _cfg(inp)
+    out = _gpu_leaves(scene, "scene_")
+    cam = Camera(origin=inp["cam_origin"], look_at=inp["cam_look"],
+                 vfov_deg=float(inp["cam_vfov"]),
+                 aspect_ratio=cfg.width / cfg.height)
+    cam.frame_count = int(inp["fc"])
+    uni = cam.uniforms()
+    out.update(_leaves(uni, "cam_"))
+    accum, image, stats = Renderer(cfg).render_chain(scene, uni, None,
+                                                     int(inp["k"]))
+    out["accum"] = np.asarray(accum)
+    out["image"] = np.asarray(image)
+    out["rays"] = np.float64(stats["rays_traced"])
+    out["samples"] = np.float64(stats["samples"])
+    return out
+
+
+def _gpu_leaves(scene, prefix):
+    out = _leaves(scene.bvh, prefix)
+    out.update({prefix + k: np.asarray(getattr(scene, k)) for k in (
+        "tri_verts", "materials", "num_triangles", "num_nodes")})
+    return out
+
+
+def job_per_ray(inp):
+    """The per-ray path over a GpuScene (build_gpu_scene_from_arrays):
+    ``tracer.traverse`` on the job's rays under each shading,
+    ``tracer.render_linear`` on the job's frame, and the scalar GLSL
+    oracle (``testing/cpu_reference.py``) at ``oracle_w`` x ``oracle_h``,
+    reference RNG, emissive absorbing, sky on and off."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from raytracer_tpu.core.camera import Camera
+    from raytracer_tpu.kernels import tracer
+    from raytracer_tpu.scene.builder import build_gpu_scene_from_arrays
+    from raytracer_tpu.testing import cpu_reference as oracle
+
+    scene = build_gpu_scene_from_arrays(inp["verts"], inp["mats"])
+    cfg = _cfg(inp)
+    out = _gpu_leaves(scene, "scene_")
+    rays = inp["rays"]
+    for shading in ("path", "fixed_light"):
+        res = tracer.traverse(
+            scene, tuple(jnp.asarray(r) for r in rays[0:3]),
+            tuple(jnp.asarray(r) for r in rays[3:6]),
+            jnp.asarray(inp["active"]),
+            dataclasses.replace(cfg, shading=shading))
+        out[f"{shading}_out"] = np.stack(
+            [np.asarray(res.closest_t), *map(np.asarray, res.normal),
+             *map(np.asarray, res.mat_albedo), np.asarray(res.mat_type)])
+        out[f"{shading}_hit"] = np.asarray(res.hit)
+    cam = Camera(origin=inp["cam_origin"], look_at=inp["cam_look"],
+                 vfov_deg=float(inp["cam_vfov"]),
+                 aspect_ratio=cfg.width / cfg.height)
+    cam.frame_count = int(inp["fc"])
+    uni = cam.uniforms()
+    out.update(_leaves(uni, "cam_"))
+    image, stats = tracer.render_linear(scene, uni, cfg, sample_index=1)
+    out["linear"] = np.asarray(image)
+    out["rays"] = np.float64(stats["rays_traced"])
+    ow, oh = int(inp["oracle_w"]), int(inp["oracle_h"])
+    ocam = Camera(origin=inp["cam_origin"], look_at=inp["cam_look"],
+                  vfov_deg=float(inp["cam_vfov"]), aspect_ratio=ow / oh)
+    cam_np = {k: getattr(ocam, k).astype(np.float32) for k in (
+        "origin", "lower_left_corner", "horizontal", "vertical")}
+    for sky in (True, False):
+        out[f"oracle_sky{int(sky)}"] = oracle.render_image(
+            oracle.scene_to_numpy(scene), cam_np, ow, oh, max_bounces=10,
+            sky_enabled=sky, emissive_emits=False)
+        out.update(_leaves(ocam.uniforms(sky_enabled=sky),
+                           f"ocam{int(sky)}_"))
+    return out
+
+
+def job_multi(inp):
+    """Each job of the manifest (``run_jobs``) under its own knobs; its
+    results under the prefix ``j<index>_``."""
+    import json
+
+    with open(str(inp["manifest"])) as f:
+        specs = json.load(f)
+    out = {}
+    for j, spec in enumerate(specs):
+        saved = {k: os.environ.get(k) for k in spec["env"]}
+        os.environ.update(spec["env"])
+        try:
+            with np.load(spec["src"]) as f:
+                res = JOBS[spec["job"]]({k: f[k] for k in f.files})
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        out.update({f"j{j}_{k}": v for k, v in res.items()})
+    return out
+
+
 JOBS = {"trace": job_trace, "bounce": job_bounce,
         "tonemap": job_tonemap, "rng": job_rng, "renderer": job_renderer,
         "trace_shadings": job_trace_shadings, "bounce15": job_bounce15,
-        "frames": job_frames}
+        "frames": job_frames, "chain": job_chain, "per_ray": job_per_ray,
+        "multi": job_multi}
 
 
 if __name__ == "__main__":
