@@ -63,6 +63,22 @@ Phases, one or more lines each (any failure raises and exits non-zero):
     u8 pixels differ), and its frame time on the card at 1280x720
     (``cube_plane``, 1 bounce) and at 640x480 (``sphere_light``, 10
     bounces);
+13. device builds of the two ``two_humans`` figures (98,596 triangles),
+    each ``RAYTPU_DEVICE_BUILD`` mode (``instanced``, ``refit``,
+    ``lbvh``): the builder's mode, the card build against the port's CPU
+    build (0 differing link / meta words, floats within 2 ulp), kernels
+    A, B, ``trace2`` and ``trace2_warp`` on the card-built tables against
+    their plain versions (0 differing lanes), the per-edit rebuild ms
+    (median of 16 synchronised drags) and the host reads per rebuild;
+14. ``bench.py``'s ``two_humans`` drag frame per mode at 1280x720, 10
+    bounces: rebuild after a 0.05 x move, then render, 16 frames after
+    a warm one: FPS, ms/frame, rebuild share, launches per frame;
+15. ``RenderEngine`` at 1280x720: an async rebuild, 16 frames under the
+    UI tick, a drag swapped in, a rebuild that raises (the old scene
+    keeps rendering), ``stop()`` within 5 s, then a ladder session;
+16. the viewer on 127.0.0.1 over HTTP: state, keypress -> frame
+    latency, add / update / remove an instance (each a device rebuild),
+    stop;
 
 then a JSON line of per-kernel results (with each CUDA kernel's
 registers, local and shared bytes and resident blocks per SM as the main
@@ -942,6 +958,427 @@ def check_per_ray() -> dict:
     return out
 
 
+MODES = ("instanced", "refit", "lbvh")
+
+
+def two_humans_figures():
+    """The two FinalBaseMesh figures of ``presets.config4_two_humans``
+    (the procedural terrain stands in for the mesh where it is absent):
+    98,596 triangles without the ground plane, as ``bench.py``'s
+    ``two_humans`` mode."""
+    from raytracer_tpu_torch.scene import presets
+
+    return presets.config4_two_humans().scene.get_instances()[1:]
+
+
+def drag(figures, step: int):
+    """``bench.py:156-175``'s edit: the last instance 0.05 * step right
+    of where it started."""
+    import dataclasses
+
+    moved = list(figures)
+    x, y, z = moved[-1].position
+    moved[-1] = dataclasses.replace(moved[-1],
+                                    position=(x + 0.05 * step, y, z))
+    return moved
+
+
+def table_diff(a, b) -> dict:
+    """Two FastScenes' tables: differing link and meta words (nodes8
+    skip / col7, nodes4 metas), the largest float difference in ulp in
+    the cluster records' unit normals (``normal_ulp``) and elsewhere
+    (``max_ulp``); counts compared."""
+    assert (a.num_nodes, a.num_nodes4, a.num_triangles) == (
+        b.num_nodes, b.num_nodes4, b.num_triangles)
+    bits = {n: (getattr(a, n).cpu().numpy().view(np.int32).astype(np.int64),
+                getattr(b, n).cpu().numpy().view(np.int32).astype(np.int64))
+            for n in ("nodes8", "nodes4", "clusters")}
+    (a8, b8), (a4, b4), (ac, bc) = bits.values()
+    a4, b4 = a4.reshape(-1, 8, 16), b4.reshape(-1, 8, 16)
+    links = int((a8[:, 6:8] != b8[:, 6:8]).sum()
+                + (a4[:, :, 6] != b4[:, :, 6]).sum())
+    ac, bc = ac.reshape(-1, 16), bc.reshape(-1, 16)
+    floats = [np.abs(a8[:, :6] - b8[:, :6]), np.abs(a4[:, :, :6]
+                                                     - b4[:, :, :6]),
+              np.abs(a4[:, :, 7:] - b4[:, :, 7:]),
+              np.abs(ac[:, :13] - bc[:, :13])]
+    return dict(links=links, max_ulp=int(max(f.max(initial=0)
+                                             for f in floats)),
+                normal_ulp=int(np.abs(ac[:, 13:] - bc[:, 13:]).max(
+                    initial=0)))
+
+
+def count_host_reads(fn, n: int) -> float:
+    """Synchronising CUDA calls per call of fn() over n calls, counted by
+    PyTorch's sync debug mode (device -> host reads, blocking host ->
+    device copies, stream waits)."""
+    import warnings
+
+    _sync()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(n):
+                fn(i)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync()
+    return sum("synchroniz" in str(w.message) for w in caught) / n
+
+
+def check_device_builds(cfg, uni, dev="cuda", drags: int = 16) -> dict:
+    """Phase 13: each ``RAYTPU_DEVICE_BUILD`` mode on the two figures:
+    the builder's mode, the card build against the port's CPU build of
+    the same instances (0 differing link / meta words, floats within 2
+    ulp), kernels A, B, ``trace2`` and ``trace2_warp`` on the card-built
+    tables against their plain versions (0 differing lanes), the per-edit
+    rebuild ms (median of ``drags`` synchronised drags) and the host
+    reads a rebuild makes."""
+    from raytracer_tpu_torch.kernels.bounce import (UNIFORM_BUDGET,
+                                                    pack_state)
+    from raytracer_tpu_torch.kernels import wavefront
+    from raytracer_tpu_torch.scene.device_builder import DeviceSceneBuilder
+
+    figures = two_humans_figures()
+    out = {}
+    for mode in MODES:
+        with knob_env({"RAYTPU_DEVICE_BUILD": mode}):
+            builder = DeviceSceneBuilder(dev)
+            t0 = time.perf_counter()
+            scene = builder.build(figures)
+            _sync()
+            first_s = time.perf_counter() - t0
+            assert builder.last_mode == mode, (mode, builder.last_mode)
+            cpu_builder = DeviceSceneBuilder("cpu")
+            diff = table_diff(scene, cpu_builder.build(figures))
+            assert cpu_builder.last_mode == mode
+            assert diff["links"] == 0 and diff["max_ulp"] <= 2 \
+                and diff["normal_ulp"] <= 2, diff
+
+            _, _, ray_o, ray_d, alive, _ = band_primaries(scene, cfg, uni)
+            rays = torch.stack([*ray_o, *ray_d]).contiguous()
+            lanes = {}
+            for name in ("trace4", "trace2", "trace2_warp"):
+                lanes[name] = int(compare_trace(scene, rays, alive, cfg,
+                                                name)[2].sum())
+            o, d, color, atten, seed, live, pix = band_bounce1(scene, cfg,
+                                                               uni)
+            atten = tuple(torch.where(live, a, c)
+                          for a, c in zip(atten, color))
+            state = pack_state(o, d, atten, seed, live, UNIFORM_BUDGET, pix)
+            state, _ = wavefront._sorted(state,
+                                         wavefront._state_key(state, scene))
+            lanes["bounce12"] = compare_bounce(scene, state, cfg,
+                                               f"{mode} tables")[0]
+            assert not any(lanes.values()), (mode, lanes)
+
+            ms = []
+            for i in range(1, drags + 1):
+                _sync()
+                t0 = time.perf_counter()
+                builder.build(drag(figures, i))
+                _sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            reads = (count_host_reads(
+                lambda i: builder.build(drag(figures, drags + 1 + i)), drags)
+                if dev == "cuda" else None)
+            assert builder.last_mode == mode
+            out[mode] = dict(mode=builder.last_mode, first_build_s=first_s,
+                             triangles=scene.num_triangles,
+                             nodes=scene.num_nodes,
+                             wide_nodes=scene.num_nodes4, **diff,
+                             differing_lanes=lanes,
+                             rebuild_ms=float(np.median(ms)),
+                             rebuild_ms_all=ms, host_reads=reads)
+        print(f"device build {mode}: mode {builder.last_mode}, "
+              f"{scene.num_triangles} triangles, {scene.num_nodes} nodes, "
+              f"{scene.num_nodes4} wide; first build {first_s:.3f} s; card "
+              f"vs CPU: differing link/meta words {diff['links']}, max "
+              f"float ulp {diff['max_ulp']} (normals "
+              f"{diff['normal_ulp']}); kernels vs plain on its "
+              f"tables, differing lanes {lanes}; rebuild "
+              f"{out[mode]['rebuild_ms']:.3f} ms (median of {drags}, "
+              f"min {min(ms):.3f}, max {max(ms):.3f}); host reads per "
+              f"rebuild {reads}")
+        if dev == "cuda":
+            assert reads <= (1 if mode == "lbvh" else 0) and (
+                mode != "lbvh" or reads == 1), (mode, reads)
+    return out
+
+
+def run_drag(cfg, dev="cuda", frames: int = 16) -> dict:
+    """Phase 14: ``bench.py:156-175``'s frame per mode: the last figure
+    moves 0.05 in x, the scene is rebuilt on the card and rendered
+    (frame count 0: a live edit restarts accumulation), one warm frame
+    then ``frames``, synchronised; launch counts reset just before."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.scene.device_builder import DeviceSceneBuilder
+
+    figures = two_humans_figures()
+    cam = default_camera(cfg.width, cfg.height)
+    out = {}
+    for mode in MODES:
+        with knob_env({"RAYTPU_DEVICE_BUILD": mode}):
+            builder = DeviceSceneBuilder(dev)
+            builder.build(figures)
+            r = Renderer(cfg)
+            accum, _, _ = r.render(builder.build(drag(figures, 1)),
+                                   cam.uniforms(device=dev))
+            _sync()
+            launches.reset()
+            build_ms, frame_ms = [], []
+            t_start = time.perf_counter()
+            for i in range(2, frames + 2):
+                t0 = time.perf_counter()
+                scene = builder.build(drag(figures, i))
+                _sync()
+                t1 = time.perf_counter()
+                accum, image, stats = r.render(scene,
+                                               cam.uniforms(device=dev),
+                                               accum)
+                _sync()
+                t2 = time.perf_counter()
+                build_ms.append((t1 - t0) * 1e3)
+                frame_ms.append((t2 - t0) * 1e3)
+            dt = time.perf_counter() - t_start
+            counts, plain = dict(launches.kernel), dict(launches.plain)
+        assert builder.last_mode == mode
+        for k in ("trace4", "bounce12", "tonemap"):
+            assert counts.get(k, 0) > 0, f"{k} never launched on drag {mode}"
+        assert not plain, f"plain versions ran on drag {mode}"
+        img = image.cpu().numpy()
+        assert bool(torch.isfinite(accum).all()) and img.min() != img.max()
+        out[mode] = dict(fps=frames / dt, ms=dt / frames * 1e3,
+                         median_ms=float(np.median(frame_ms)),
+                         rebuild_ms=float(np.median(build_ms)),
+                         rebuild_share=sum(build_ms) / sum(frame_ms),
+                         launches_per_frame={k: v / frames
+                                             for k, v in counts.items()},
+                         image_mean=float(img.mean()))
+        print(f"drag {mode} {cfg.width}x{cfg.height}, {cfg.max_bounces} "
+              f"bounces, {frames} frames: {out[mode]['fps']:.3f} FPS, "
+              f"{out[mode]['ms']:.2f} ms/frame (median "
+              f"{out[mode]['median_ms']:.2f}), rebuild median "
+              f"{out[mode]['rebuild_ms']:.3f} ms, rebuild share "
+              f"{out[mode]['rebuild_share']:.4f}; launches per frame "
+              f"{out[mode]['launches_per_frame']}")
+    return out
+
+
+def _wait_for(pred, timeout: float, what: str, poll: float = 0.005):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if pred():
+            return
+        time.sleep(poll)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+TICK_S = 0.016  # the viewer's UI tick (VulkanApp.java:171)
+
+
+def _stop_engine(engine) -> float:
+    t0 = time.perf_counter()
+    engine.stop()
+    dt = time.perf_counter() - t0
+    assert dt < 5.0 and not engine._thread.is_alive() \
+        and not engine._publisher.is_alive(), dt
+    return dt
+
+
+def check_engine(cfg, dev="cuda", frames: int = 16) -> dict:
+    """Phase 15: ``RenderEngine`` at ``cfg`` on the two figures: an async
+    rebuild, ``frames`` published frames under the UI tick rule (uniforms
+    every TICK_S, the counter growing once a published frame; the meter's
+    FPS), a drag rebuilt mid-run, a rebuild that raises (the old scene
+    keeps rendering), ``stop()`` within 5 s; then a ladder session
+    (previews, then a full-resolution frame)."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.engine.loop import RenderEngine
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.scene.scene import Scene
+
+    figures = two_humans_figures()
+    launches.reset()
+    engine = RenderEngine(cfg, device=dev)
+    engine.start()
+    cam = default_camera(cfg.width, cfg.height)
+    published = []
+
+    def tick():
+        f = engine.latest_frame()
+        if f is not None:
+            published.append(f)
+            cam.increment_frame_count()
+        engine.submit_camera_update(cam.uniforms(device=dev))
+
+    try:
+        t0 = time.perf_counter()
+        engine.rebuild_scene_async(Scene(figures)).result(timeout=120)
+        build_s = time.perf_counter() - t0
+        assert engine._device_builder.last_mode == "instanced"
+        _wait_for(lambda: tick() or len(published) >= 2, 120, "frames",
+                  TICK_S)
+        n0, t0 = len(published), time.perf_counter()
+        _wait_for(lambda: tick() or len(published) >= n0 + frames, 120,
+                  f"{frames} frames", TICK_S)
+        wall_fps = (len(published) - n0) / (time.perf_counter() - t0)
+        meter_fps = engine.meter.fps
+        # A drag rebuilt while frames render, then one that raises.
+        swapped = []
+        engine.on_scene_swapped = lambda: swapped.append(len(published))
+        engine.rebuild_scene_async(Scene(drag(figures, 1))).result(
+            timeout=60)
+        _wait_for(lambda: tick() or swapped, 60, "the drag's swap", TICK_S)
+        n1 = len(published)
+        with knob_env({"RAYTPU_DEVICE_BUILD": "bogus"}):
+            fut = engine.rebuild_scene_async(Scene(figures))
+            try:
+                fut.result(timeout=60)
+                raise AssertionError("the bad rebuild did not raise")
+            except NotImplementedError:
+                pass
+        _wait_for(lambda: tick() or len(published) >= n1 + 3, 60,
+                  "frames after the bad rebuild", TICK_S)
+        assert len(swapped) == 1, swapped
+    finally:
+        stop_s = _stop_engine(engine)
+    counts, plain = dict(launches.kernel), dict(launches.plain)
+    for k in ("trace4", "bounce12", "tonemap"):
+        assert counts.get(k, 0) > 0, f"{k} never launched in the engine"
+    assert not plain, "plain versions ran in the engine"
+    last = published[-1]
+    assert last.pixels.shape == (cfg.height, cfg.width, 3)
+    assert last.pixels.min() != last.pixels.max()
+
+    # Ladder session: previews after the reset, then full resolution.
+    ladder = RenderEngine(cfg, ladder_frames=8, device=dev)
+    ladder.start()
+    cam = default_camera(cfg.width, cfg.height)
+    kinds = []
+
+    def ladder_tick():
+        f = ladder.latest_frame()
+        if f is not None:
+            kinds.append(f.preview)
+            assert f.pixels.shape == (cfg.height, cfg.width, 3)
+            cam.increment_frame_count()
+        ladder.submit_camera_update(cam.uniforms(device=dev))
+
+    try:
+        ladder.rebuild_scene_async(Scene(figures)).result(timeout=120)
+        _wait_for(lambda: ladder_tick() or (True in kinds
+                                            and kinds[-1] is False), 120,
+                  "ladder previews then a full frame", TICK_S)
+    finally:
+        ladder_stop_s = _stop_engine(ladder)
+    first_full = kinds.index(False, kinds.index(True))
+    out = dict(build_s=build_s, frames=len(published), meter_fps=meter_fps,
+               wall_fps=wall_fps, stop_s=stop_s, ladder_kinds=kinds,
+               ladder_stop_s=ladder_stop_s, launches=counts,
+               stages=engine.profiler.summary())
+    print(f"engine {cfg.width}x{cfg.height}: first rebuild {build_s:.3f} s; "
+          f"{frames} frames at {wall_fps:.3f} FPS (meter {meter_fps:.3f}); "
+          f"drag swapped in after frame {swapped[0]}, bad rebuild raised "
+          f"and {len(published) - n1} frames followed; stop {stop_s:.3f} "
+          f"s; ladder: {kinds.count(True)} previews, first full frame at "
+          f"{first_full}, stop {ladder_stop_s:.3f} s; stages "
+          f"{out['stages']}")
+    return out
+
+
+def check_viewer(cfg, dev="cuda", keys: int = 5) -> dict:
+    """Phase 16: the viewer on 127.0.0.1 (a free port) over the two
+    figures: GET /api/state, POST keys (their keypress -> frame latency),
+    add / update / remove an instance (each a device rebuild), stop."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from raytracer_tpu_torch.apps.viewer import ViewerApp, make_handler
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.scene.scene import Scene
+    from raytracer_tpu_torch.utils import assets
+
+    cube = os.path.join(REPO, "out", "viewer_cube.obj")
+    assets.write_obj(cube, assets.make_cube() * 4.0)
+    launches.reset()
+    app = ViewerApp(cfg, Scene(two_humans_figures()), device=dev)
+    app.start()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(app))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    def post(path, data):
+        req = urllib.request.Request(base + path,
+                                     data=json.dumps(data).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+            return json.loads(r.read())
+
+    builds = lambda: app.engine.profiler.summary().get(
+        "build", {}).get("count", 0)
+    try:
+        _wait_for(lambda: get("/api/state")["stats"] is not None, 120,
+                  "the viewer's first frame")
+        latencies = []
+        for k in "WSADQ"[:keys]:
+            before = app.engine.last_event_frame
+            post("/api/key", {"key": k})
+            _wait_for(lambda: app.engine.last_event_frame is not before,
+                      60, f"key {k}'s frame")
+            latencies.append(app.engine.last_input_latency_ms)
+            time.sleep(0.2)
+        state_latency = get("/api/state")["stats"]["input_latency_ms"]
+        edits = {}
+        for label, path, data in (
+                ("add", "/api/instance/add",
+                 {"model_path": cube, "display_name": "cube",
+                  "position": [0, 5, 0], "scale": [2, 2, 2]}),
+                ("update", "/api/instance/2/update",
+                 {"position": [4, 5, 0], "material_type": 1.0}),
+                ("remove", "/api/instance/2/remove", {})):
+            n = builds()
+            t0 = time.perf_counter()
+            post(path, data)
+            _wait_for(lambda: builds() > n
+                      and not app.engine.build_in_progress, 60,
+                      f"the {label} rebuild")
+            edits[label] = dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                mode=app.engine._device_builder.last_mode,
+                instances=len(get("/api/state")["instances"]))
+            assert edits[label]["mode"] == "instanced", edits
+        assert [e["instances"] for e in edits.values()] == [3, 3, 2]
+        state = get("/api/state")
+    finally:
+        server.shutdown()
+        server.server_close()
+        t0 = time.perf_counter()
+        app.stop()
+        stop_s = time.perf_counter() - t0
+    assert not app.engine._thread.is_alive() and stop_s < 10.0
+    counts, plain = dict(launches.kernel), dict(launches.plain)
+    for k in ("trace4", "bounce12", "tonemap"):
+        assert counts.get(k, 0) > 0, f"{k} never launched in the viewer"
+    assert not plain, "plain versions ran in the viewer"
+    out = dict(key_latency_ms=latencies, state_latency_ms=state_latency,
+               edits=edits, fps=state["stats"]["fps"], stop_s=stop_s)
+    print(f"viewer {cfg.width}x{cfg.height} at {base}: keypress -> frame "
+          f"{', '.join(f'{x:.1f}' for x in latencies)} ms (median "
+          f"{np.median(latencies):.1f}); edits {edits}; meter FPS "
+          f"{state['stats']['fps']}; stop {stop_s:.3f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1071,6 +1508,12 @@ def main() -> None:
     headless_run = check_headless()
     per_ray = check_per_ray()
 
+    # Phases 13-16: live edits on the card, the engine and the viewer.
+    device_builds = check_device_builds(cfg, uni)
+    drag_runs = run_drag(cfg)
+    engine_run = check_engine(cfg)
+    viewer_run = check_viewer(cfg)
+
     launches_on_path = {
         "trace4": main_run["counts"]["trace4"],
         "bounce12": main_run["counts"]["bounce12"],
@@ -1109,7 +1552,9 @@ def main() -> None:
                    "ab": [(lb, {m: v for m, v in r.items() if m != "image"})
                           for lb, r in turns],
                    "presets": preset_runs, "chain": chain,
-                   "headless": headless_run, "per_ray": per_ray}, f,
+                   "headless": headless_run, "per_ray": per_ray,
+                   "device_builds": device_builds, "drag": drag_runs,
+                   "engine": engine_run, "viewer": viewer_run}, f,
                   indent=1)
     print(json.dumps({"kernels": [
         dict(name=k, route=route, source=src, replaces=rep,

@@ -46,12 +46,20 @@ def nodes4_stack_need(nodes4: np.ndarray) -> int:
 
 
 def collapse4(nodes8: np.ndarray, num_nodes: int,
-              cluster_counts: np.ndarray) -> tuple[np.ndarray, int]:
+              cluster_counts: np.ndarray, return_depth: bool = False,
+              return_slots: bool = False):
     """Collapse pre-order binary ``nodes8`` (bounds + bitcast-i32 skip /
-    col7 links) into the 8-wide table -> (f32[n_wide, 128], n_wide).
+    col7 links) into the 8-wide table -> (f32[n_wide, 128], n_wide
+    [, depth][, slot_rows]).
 
     ``cluster_counts``: i32[L] live-triangle count per cluster id, encoded
     into the leaf metas so the kernels skip padded half-clusters.
+    ``return_depth`` adds the wide tree's depth (max node depth + 1), so a
+    caller that grafts the table under more levels (the instanced TLAS,
+    ``scene/instanced.py``) can check the stack bound again;
+    ``return_slots`` adds i32[n_wide, 8], the binary row each slot's
+    bounds came from (-1 empty), the map the device refit gathers fresh
+    boxes through (``scene/refit.py``).
     """
     width = WIDE_WIDTH
     nodes = np.asarray(nodes8)[:num_nodes]
@@ -62,7 +70,7 @@ def collapse4(nodes8: np.ndarray, num_nodes: int,
         d = np.maximum(b[3:6] - b[0:3], 0.0)
         return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
 
-    out = []      # wide id -> list of ('leaf'|'int', id, bounds)
+    out = []      # wide id -> list of ('leaf'|'int', id, bounds, row)
     b2q = {}      # binary internal id -> wide id
     depth = {}    # binary internal id -> wide-tree depth
     max_depth = 0
@@ -88,15 +96,15 @@ def collapse4(nodes8: np.ndarray, num_nodes: int,
         ent = []
         for s in slots:
             if col7[s] >= 0:
-                ent.append(("leaf", int(col7[s]), nodes[s, :6]))
+                ent.append(("leaf", int(col7[s]), nodes[s, :6], int(s)))
             else:
-                ent.append(("int", int(s), nodes[s, :6]))
+                ent.append(("int", int(s), nodes[s, :6], int(s)))
                 depth[int(s)] = d_my + 1
                 pending.append(int(s))
         out.append(ent)
 
     if col7[0] >= 0:
-        out.append([("leaf", int(col7[0]), nodes[0, :6])])
+        out.append([("leaf", int(col7[0]), nodes[0, :6], 0)])
     else:
         create(0)
         while pending:
@@ -117,9 +125,18 @@ def collapse4(nodes8: np.ndarray, num_nodes: int,
     n4 = len(out)
     arr = np.zeros((n4, 16 * width), np.float32)
     for qid, ent in enumerate(out):
-        for c, (kind, ident, bounds) in enumerate(ent):
+        for c, (kind, ident, bounds, _) in enumerate(ent):
             base = 16 * c
             arr[qid, base:base + 6] = bounds
             arr[qid, base + 6] = (leaf_meta(ident) if kind == "leaf"
                                   else b2q[ident] + 1)
-    return arr, n4
+    ret = (arr, n4)
+    if return_depth:
+        ret += (max_depth + 1,)
+    if return_slots:
+        slot_rows = np.full((n4, width), -1, np.int32)
+        for qid, ent in enumerate(out):
+            for c, e in enumerate(ent):
+                slot_rows[qid, c] = e[3]
+        ret += (slot_rows,)
+    return ret

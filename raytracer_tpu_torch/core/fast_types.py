@@ -28,6 +28,7 @@ from raytracer_tpu_torch import knobs
 CLUSTER_SIZE = 8          # triangles per leaf cluster
 TRI_STRIDE = 16           # floats per packed triangle
 CLUSTER_ROW = CLUSTER_SIZE * TRI_STRIDE  # 128
+ROW_TRIS = CLUSTER_ROW // TRI_STRIDE     # triangles per cluster row
 WIDE_WIDTH = 8            # children per wide-BVH node (one 128-float row)
 LEAF_CID_BITS = 20        # wide leaf meta: cluster id bits, count above
 LEAF_CID_MASK = (1 << LEAF_CID_BITS) - 1

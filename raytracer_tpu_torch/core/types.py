@@ -13,7 +13,19 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host array as a new tensor on ``device``. A copy to the card goes
+    from pinned memory and does not wait: ``torch.tensor(..., device=
+    "cuda")`` synchronises the stream, so it would wait for every frame
+    and build already queued."""
+    t = torch.from_numpy(np.array(a))
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)  # raises for "cuda" without a card
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,19 +82,19 @@ class CameraUniforms:
     def create(origin, lower_left_corner, horizontal, vertical,
                frame_count: int = 0, sky_enabled: bool = True,
                exposure: float = 0.0, device="cuda") -> "CameraUniforms":
-        """Rounds each f64 host value to f32 once, as the JAX twin does."""
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        """Rounds each f64 host value to f32 once, as the JAX twin does.
+        Two copies to the device (``to_device``), neither waiting for
+        the card."""
+        f = to_device(np.concatenate([
+            np.asarray(v, np.float32).reshape(-1) for v in (
+                origin, lower_left_corner, horizontal, vertical,
+                exposure)]), device)
+        i = to_device(np.asarray([frame_count, 1 if sky_enabled else 0],
+                                 np.int32), device)
         return CameraUniforms(
-            origin=f32(origin),
-            lower_left_corner=f32(lower_left_corner),
-            horizontal=f32(horizontal),
-            vertical=f32(vertical),
-            frame_count=torch.tensor(int(frame_count), dtype=torch.int32,
-                                     device=device),
-            sky_enabled=torch.tensor(1 if sky_enabled else 0,
-                                     dtype=torch.int32, device=device),
-            exposure=f32(exposure),
-            fc_host=int(frame_count),
+            origin=f[0:3], lower_left_corner=f[3:6], horizontal=f[6:9],
+            vertical=f[9:12], frame_count=i[0], sky_enabled=i[1],
+            exposure=f[12], fc_host=int(frame_count),
             sky_host=bool(sky_enabled))
 
 

@@ -18,11 +18,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.fast_types import FastScene
-from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
+from raytracer_tpu_torch.core.types import (CameraUniforms, RenderConfig,
+                                            to_device)
 from raytracer_tpu_torch.kernels.packet import (render_linear_fast,
                                                 tail_merge_widths)
 from raytracer_tpu_torch.kernels.tonemap import tonemap_accumulate
@@ -144,8 +146,8 @@ class Renderer:
         fc = cam.fc_host
         for i in range(k):
             cam_i = dataclasses.replace(
-                cam, fc_host=fc + i, frame_count=torch.tensor(
-                    fc + i, dtype=torch.int32, device=accum.device))
+                cam, fc_host=fc + i,
+                frame_count=to_device(np.int32(fc + i), accum.device))
             accum, image, stats = _render_step(scene, cam_i, accum, self.cfg)
             rays = rays + stats["rays_traced"]
         return accum, image, {"rays_traced": rays / k,

@@ -16,7 +16,17 @@ the ``RAYTPU_B0`` variants) raises ``NotImplementedError`` naming the knob.
   reads it);
 * ``RAYTPU_NODE_SRC``: ``pack`` or ``extract``; ``extract`` also selects
   the binary walk;
-* ``RAYTPU_B0``: ``pallas`` only (bounce 0 through the traversal kernel).
+* ``RAYTPU_B0``: ``pallas`` only (bounce 0 through the traversal kernel);
+* ``RAYTPU_DEVICE_BUILD``: the live-edit scene build
+  (``scene/device_builder.py``), ``instanced`` (default), ``refit`` or
+  ``lbvh``; ``RAYTPU_DEVICE_TREE``: the LBVH build's tree, ``karras``
+  only (the device PLOC tree is not ported); ``RAYTPU_REFIT_TOPO``: the
+  refit capture's host tree, ``ploc`` (default) or ``sah``.
+
+Counts read at call time where the JAX package reads them (``count``):
+``RAYTPU_REFIT_REFRESH`` (edits between refit recaptures),
+``RAYTPU_PIPELINE`` (frames in flight in ``engine/loop.py``),
+``RAYTPU_LADDER`` and ``RAYTPU_LADDER_SCALE`` (the resolution ladder).
 
 The JAX package's other result-bearing knobs select A/B variants that the
 port has not ported (``FIXED``: tail merge, sort key, round schedule and
@@ -35,6 +45,7 @@ from __future__ import annotations
 import os
 
 BOUNCE_PATHS = ("wave", "pmega")
+DEVICE_BUILDS = ("instanced", "refit", "lbvh")
 WAVE_ENGINES = ("fused12", "fused", "fused_packed", "split")
 NODE_SOURCES = ("pack", "extract")
 
@@ -122,3 +133,27 @@ def tail_merge_active(cfg) -> bool:
     one bounce (the wide table is always built)."""
     return (cfg.max_bounces > 1 and cfg.shading != "fixed_light"
             and bounce_path() == "wave" and wave_engine() != "split")
+
+
+def device_build() -> str:
+    """``RAYTPU_DEVICE_BUILD``: "instanced" (default), "refit" or
+    "lbvh"."""
+    return _read("RAYTPU_DEVICE_BUILD", "instanced", DEVICE_BUILDS)
+
+
+def device_tree() -> str:
+    """``RAYTPU_DEVICE_TREE``: "karras" only (``bvh/ploc_device.py`` is
+    not ported)."""
+    return _read("RAYTPU_DEVICE_TREE", "karras", ("karras",))
+
+
+def refit_topo() -> str:
+    """``RAYTPU_REFIT_TOPO``: the refit capture's host tree, "ploc"
+    (default) or "sah"."""
+    return _read("RAYTPU_REFIT_TOPO", "ploc", ("ploc", "sah"))
+
+
+def count(name: str, default: int) -> int:
+    """An integer knob (``RAYTPU_PIPELINE``, ``RAYTPU_LADDER``, ...),
+    ``default`` when unset."""
+    return int(os.environ.get(name, str(default)))

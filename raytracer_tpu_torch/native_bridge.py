@@ -3,10 +3,10 @@
 Shares ``native/raytpu_native.so`` with the JAX package: the library is
 built with ``make -C native`` when it is missing or older than its source,
 as ``raytracer_tpu/native_bridge.py`` does. This bridge exposes only what
-the port's scene build needs — the binned-SAH BVH build, cluster packing
-and the .obj parser — and raises when the library cannot be built or
-loaded (there is no fallback tree: the port's tables must equal the JAX
-package's, which are built by this library).
+the port's scene build needs — the binned-SAH and PLOC BVH builds,
+cluster packing and the .obj parser — and raises when the library cannot
+be built or loaded (there is no fallback tree: the port's tables must
+equal the JAX package's, which are built by this library).
 """
 
 from __future__ import annotations
@@ -49,6 +49,10 @@ def _load():
         lib.rt_build_bvh_sah.argtypes = [
             f32p, ctypes.c_int64, ctypes.c_int32,
             f32p, f32p, i32p, i32p, i32p, i32p, i32p, i64p]
+        lib.rt_build_bvh_ploc.restype = ctypes.c_int64
+        lib.rt_build_bvh_ploc.argtypes = [
+            f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            f32p, f32p, i32p, i32p, i32p, i32p, i32p, i64p]
         lib.rt_pack_clusters.restype = None
         lib.rt_pack_clusters.argtypes = [
             f32p, f32p, ctypes.c_int64, i64p, i32p, i32p, ctypes.c_int64,
@@ -78,6 +82,21 @@ def build_bvh_sah(tris: np.ndarray, leaf_size: int) -> dict:
     """Binned-SAH BVH, pre-order flattened -> dict of NumPy arrays
     (node_min/max f32[M,3], node_tri/ntri/skip/data/count i32[M],
     order i64[T])."""
+    return _build(tris, leaf_size, None)
+
+
+# PLOC nearest-neighbour search window, as the JAX package passes it
+# (``raytracer_tpu/native_bridge.py:156-160``).
+PLOC_WINDOW = 8
+
+
+def build_bvh_ploc(tris: np.ndarray, leaf_size: int) -> dict:
+    """Capped-leaf PLOC BVH (window ``PLOC_WINDOW``), in the same
+    pre-order layout and dict as ``build_bvh_sah``."""
+    return _build(tris, leaf_size, PLOC_WINDOW)
+
+
+def _build(tris: np.ndarray, leaf_size: int, ploc_window) -> dict:
     lib = _load()
     tris = np.ascontiguousarray(tris, np.float32)
     n = tris.shape[0]
@@ -90,11 +109,14 @@ def build_bvh_sah(tris: np.ndarray, leaf_size: int) -> dict:
                node_data=np.empty(m_cap, np.int32),
                node_count=np.empty(m_cap, np.int32))
     order = np.empty(n, np.int64)
-    m = int(lib.rt_build_bvh_sah(
-        tris.reshape(-1), n, leaf_size,
-        out["node_min"].reshape(-1), out["node_max"].reshape(-1),
-        out["node_tri"], out["node_ntri"], out["node_skip"],
-        out["node_data"], out["node_count"], order))
+    outs = (out["node_min"].reshape(-1), out["node_max"].reshape(-1),
+            out["node_tri"], out["node_ntri"], out["node_skip"],
+            out["node_data"], out["node_count"], order)
+    if ploc_window is None:
+        m = int(lib.rt_build_bvh_sah(tris.reshape(-1), n, leaf_size, *outs))
+    else:
+        m = int(lib.rt_build_bvh_ploc(tris.reshape(-1), n, leaf_size,
+                                      ploc_window, *outs))
     if m <= 0:
         raise RuntimeError(f"native BVH build failed (m={m})")
     res = {k: v[:m].copy() for k, v in out.items()}

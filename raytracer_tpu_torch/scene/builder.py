@@ -40,7 +40,7 @@ _MIN_CAPACITY = 64
 _BIG = np.float32(1e30)
 
 
-def _bucket(n: int) -> int:
+def bucket(n: int) -> int:
     """Smallest power-of-two capacity >= n (minimum 64)."""
     c = _MIN_CAPACITY
     while c < n:
@@ -117,8 +117,8 @@ def build_gpu_scene_from_arrays(verts: np.ndarray, mats: np.ndarray,
     else:
         bvh = build_bvh(verts, leaf_size=leaf_size)
         n_refs = len(bvh.order)
-        tcap = _bucket(n_refs)
-        mcap = _bucket(bvh.num_nodes)
+        tcap = bucket(n_refs)
+        mcap = bucket(bvh.num_nodes)
         tri_verts = np.zeros((tcap, 3, 3), np.float32)
         tri_verts[:n_refs] = verts[bvh.order]
         materials = np.zeros((tcap, 4), np.float32)
@@ -194,10 +194,10 @@ def _host_tables(verts: np.ndarray, mats: np.ndarray):
     else:
         bvh = build_bvh(verts, leaf_size=CLUSTER_SIZE)
         m = bvh.num_nodes
-        mcap = _bucket(m)
+        mcap = bucket(m)
         leaf_mask = bvh.node_tri >= 0
         num_leaves = int(leaf_mask.sum())
-        lcap = _bucket(num_leaves)
+        lcap = bucket(num_leaves)
 
         # col7: leaves -> dense cluster id (>= 0); internal ->
         # -(left_child + 1) (pre-order: left = node + 1).
@@ -227,7 +227,7 @@ def _host_tables(verts: np.ndarray, mats: np.ndarray):
         counts = bvh.node_ntri[leaf_mask].astype(np.int32)
 
     nodes4, n4 = collapse4(nodes8, num_nodes, cluster_counts=counts)
-    r4cap = _bucket(nodes4.shape[0])
+    r4cap = bucket(nodes4.shape[0])
     if nodes4.shape[0] < r4cap:
         nodes4 = np.concatenate(
             [nodes4, np.zeros((r4cap - nodes4.shape[0], CLUSTER_ROW),

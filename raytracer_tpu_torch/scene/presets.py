@@ -180,6 +180,23 @@ def config5_car_showcase(width=1920, height=1080) -> Preset:
                   RenderConfig(width=width, height=height), exposure=0.5)
 
 
+def reference_default_scene() -> Scene:
+    """``scene.default_scene`` (a grey ground plane and a metal car) with
+    the presets' fallbacks: ``car.obj``, else ``white_mesh.obj``, else the
+    ``car_showcase`` icosphere."""
+    try:
+        car = assets.asset_path("car.obj")
+    except FileNotFoundError:
+        car = _asset_or("white_mesh.obj",
+                        lambda: assets.make_icosphere(4, 6.0))
+    return Scene([
+        _ground(),
+        ModelInstance(model_path=car, display_name="Car",
+                      position=(0.0, -8.0, 0.0), scale=(2.0, 2.0, 2.0),
+                      color=(0.6, 0.7, 0.1), material_type=1.0),
+    ])
+
+
 ALL_PRESETS = {
     "cube_plane": config1_cube_plane,
     "sphere_light": config2_sphere_light,

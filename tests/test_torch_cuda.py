@@ -376,3 +376,52 @@ def test_preset_built_on_the_card_equals_its_cpu_tables():
             getattr(cpu, name).numpy().tobytes(), name
     assert (gpu.num_nodes, gpu.num_triangles, gpu.num_nodes4) == \
         (cpu.num_nodes, cpu.num_triangles, cpu.num_nodes4)
+
+
+@pytest.mark.parametrize("mode", ["instanced", "refit", "lbvh"])
+def test_device_builder_on_the_card_equals_its_cpu_build(monkeypatch,
+                                                        tmp_path, mode):
+    """Each live-edit build on the card against the same build on the
+    CPU (0 differing link / meta words, floats within 2 ulp), then
+    kernels A and trace2 on the card-built tables against their plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc)")
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.trace import (trace2, trace2_plain,
+                                                   trace4, trace4_plain)
+    from raytracer_tpu_torch.scene.device_builder import DeviceSceneBuilder
+    from raytracer_tpu_torch.scene.scene import ModelInstance
+    from raytracer_tpu_torch.utils import assets
+
+    monkeypatch.setenv("RAYTPU_DEVICE_BUILD", mode)
+    path = str(tmp_path / "terrain.obj")
+    assets.write_obj(path, assets.make_terrain(n=48, extent=30.0))
+    insts = [ModelInstance(path, position=(-10, 0, 0), color=(0.7, 0.6, 0.5)),
+             ModelInstance(path, position=(12, 2, 3), scale=(-1, 1, 1),
+                           material_type=1.0)]
+    card = DeviceSceneBuilder()
+    got = card.build(insts)
+    cpu = DeviceSceneBuilder("cpu")
+    want = cpu.build(insts)
+    assert card.last_mode == cpu.last_mode == mode
+    assert (got.num_nodes, got.num_nodes4) == (want.num_nodes,
+                                              want.num_nodes4)
+    for name in ("nodes8", "nodes4", "clusters"):
+        a = getattr(got, name).cpu().view(torch.int32).long()
+        b = getattr(want, name).view(torch.int32).long()
+        links = {"nodes8": (slice(None), slice(6, 8)),
+                 "nodes4": (slice(None), slice(6, 128, 16))}.get(name)
+        if links is not None:
+            assert torch.equal(a[links], b[links]), name
+        assert (a - b).abs().max().item() <= 2, name
+
+    o, d = _rays(8192, 9)
+    rays = torch.cat([o, d]).contiguous()
+    active = torch.ones(8192, dtype=torch.bool, device="cuda")
+    cfg = RenderConfig()
+    assert torch.equal(trace4(got, rays, active, cfg),
+                       trace4_plain(got, rays, active, cfg))
+    for coherent in (False, True):
+        assert torch.equal(trace2(got, rays, active, cfg, coherent),
+                           trace2_plain(got, rays, active, cfg))

@@ -17,6 +17,7 @@ import torch
 from raytracer_tpu_torch.core.camera import Camera
 from raytracer_tpu_torch.core.types import CameraUniforms
 from raytracer_tpu_torch.scene import builder, presets
+from raytracer_tpu_torch.scene.device_builder import DeviceSceneBuilder
 from raytracer_tpu_torch.scene.scene import ModelInstance
 from raytracer_tpu_torch.utils import assets
 
@@ -83,6 +84,8 @@ ENTRY_POINTS = {
     .build_gpu_scene_from_arrays(*_tris()).bvh.node_min,
     "gpu_scene_from_numpy": lambda: builder.gpu_scene_from_numpy(
         _gpu_leaves()).materials,
+    "DeviceSceneBuilder.build": lambda: DeviceSceneBuilder().build(
+        [ModelInstance(_cube_obj())]).nodes4,
 }
 
 

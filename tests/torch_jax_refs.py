@@ -102,6 +102,29 @@ def tie_lanes(scene, ray_o, ray_d, active, cfg):
     return active & (best < cfg.t_max) & (n_at_best >= 2)
 
 
+def assert_scene_tables(got, want: dict, prefix: str = "") -> None:
+    """A port FastScene against JAX FastScene leaves (``_leaves``): 0
+    differing bytes in ``nodes8``, ``nodes4`` and every cluster column
+    but the unit normal's, which may differ by 2 ulp (XLA:CPU's rsqrt);
+    equal counts."""
+    for name in ("nodes8", "nodes4"):
+        a = getattr(got, name).cpu().numpy()
+        b = want[prefix + name]
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
+                                      err_msg=name)
+    a = got.clusters.cpu().numpy().reshape(-1, 16)
+    b = want[prefix + "clusters"].reshape(-1, 16)
+    assert a.shape == b.shape, ("clusters", a.shape, b.shape)
+    np.testing.assert_array_equal(a[:, :13].view(np.int32),
+                                  b[:, :13].view(np.int32))
+    ulp = np.abs(a[:, 13:].view(np.int32).astype(np.int64)
+                 - b[:, 13:].view(np.int32).astype(np.int64))
+    assert ulp.max(initial=0) <= 2, ulp.max()
+    for name in ("num_nodes", "num_triangles", "num_nodes4"):
+        assert getattr(got, name) == int(want[prefix + name]), name
+
+
 def _leaves(obj, prefix=""):
     import dataclasses
 
@@ -466,6 +489,94 @@ def job_per_ray(inp):
     return out
 
 
+def job_lbvh(inp):
+    """bvh/lbvh.py, eager XLA (no Pallas): clz, Morton codes, the Karras
+    tables of each ``codes_<name>``, ``_range_minmax`` and
+    ``emit_wide_device`` over the ``codes_random`` tree, and
+    ``build_fast_scene_device`` of the soup and of its first cluster."""
+    import jax
+    import jax.numpy as jnp
+
+    from raytracer_tpu.bvh import lbvh
+
+    out = {"clz": np.asarray(lbvh._clz32(jnp.asarray(inp["clz_in"]))),
+           "morton": np.asarray(lbvh.morton30(
+               *(jnp.asarray(a) for a in inp["unit"])))}
+    for name in inp["code_sets"]:
+        tables = lbvh.build_lbvh_tables(jnp.asarray(inp[f"codes_{name}"]))
+        for key, t in zip(("left", "right", "first", "last", "parent"),
+                          tables):
+            out[f"{name}_{key}"] = np.asarray(t)
+    left, right, first, last, parent = (
+        jnp.asarray(out[f"random_{k}"])
+        for k in ("left", "right", "first", "last", "parent"))
+    mn, mx = lbvh._range_minmax(jnp.asarray(inp["leaf_lo"]),
+                                jnp.asarray(inp["leaf_hi"]), first, last)
+    out["range_min"], out["range_max"] = np.asarray(mn), np.asarray(mx)
+    table, n_wide = lbvh.emit_wide_device(
+        left, right, parent, jnp.asarray(inp["all_lo"]),
+        jnp.asarray(inp["all_hi"]), int(inp["codes_random"].shape[0]))
+    out["wide_table"], out["wide_n"] = np.asarray(table), np.asarray(n_wide)
+    build = jax.jit(lbvh.build_fast_scene_device)
+    for tag, n in (("soup", None), ("one", 8)):
+        fs = build(jnp.asarray(inp["verts"][:n]), jnp.asarray(
+            inp["mats"][:n]))
+        out.update(_leaves(fs, f"{tag}_"))
+    return out
+
+
+def job_instanced(inp):
+    """scene/instanced.py: ``prep_mesh_blas`` of each ``mesh_<i>`` and
+    ``combine_instanced`` for each ``k_<k>`` (mesh index per instance)
+    with params ``params_<k>`` f32[k, 10] (XLA, no Pallas)."""
+    import jax.numpy as jnp
+
+    from raytracer_tpu.scene import instanced
+
+    out = {}
+    blases = []
+    for i in range(int(inp["n_meshes"])):
+        b = instanced.prep_mesh_blas(inp[f"mesh_{i}"])
+        blases.append(b)
+        out.update(_leaves(b, f"blas{i}_"))
+    for k in inp["ks"]:
+        p = inp[f"params_{k}"]
+        params = [(jnp.asarray(r[0:3]), jnp.asarray(r[3:6]),
+                   jnp.asarray(r[6:9]), jnp.asarray(r[9])) for r in p]
+        fs = instanced.combine_instanced(
+            [blases[i] for i in inp[f"k_{k}"]], params)
+        out.update(_leaves(fs, f"k{k}_"))
+    return out
+
+
+def job_refit(inp):
+    """scene/refit.py: ``capture_refit`` of ``mesh_<i>`` under
+    ``params`` f32[I, 10] with each method of ``methods``, its tables,
+    and ``refit`` at the capture params and at ``moved`` (XLA, no
+    Pallas)."""
+    from raytracer_tpu.scene import refit
+
+    names = ("v_base", "inst_slot", "slot_valid", "skip_col", "col7_col",
+             "first", "last", "row_valid", "wide_rows", "wide_meta",
+             "num_nodes", "n_wide", "num_tris")
+    meshes = [inp[f"mesh_{i}"] for i in range(int(inp["n_meshes"]))]
+
+    def tuples(p):
+        return [(r[0:3], r[3:6], r[6:9], r[9]) for r in p]
+
+    out = {}
+    for method in inp["methods"]:
+        method = str(method)
+        cap = refit.capture_refit(meshes, tuples(inp["params"]),
+                                  method=method)
+        for name, t in zip(names, cap.tables):
+            out[f"{method}_cap_{name}"] = np.asarray(t)
+        for tag in ("params", "moved"):
+            out.update(_leaves(cap.refit(tuples(inp[tag])),
+                               f"{method}_{tag}_"))
+    return out
+
+
 def job_multi(inp):
     """Each job of the manifest (``run_jobs``) under its own knobs; its
     results under the prefix ``j<index>_``."""
@@ -494,6 +605,7 @@ JOBS = {"trace": job_trace, "bounce": job_bounce,
         "tonemap": job_tonemap, "rng": job_rng, "renderer": job_renderer,
         "trace_shadings": job_trace_shadings, "bounce15": job_bounce15,
         "frames": job_frames, "chain": job_chain, "per_ray": job_per_ray,
+        "lbvh": job_lbvh, "instanced": job_instanced, "refit": job_refit,
         "multi": job_multi}
 
 
