@@ -64,12 +64,14 @@ Phases, one or more lines each (any failure raises and exits non-zero):
     (``cube_plane``, 1 bounce) and at 640x480 (``sphere_light``, 10
     bounces);
 13. device builds of the two ``two_humans`` figures (98,596 triangles),
-    each ``RAYTPU_DEVICE_BUILD`` mode (``instanced``, ``refit``,
-    ``lbvh``): the builder's mode, the card build against the port's CPU
-    build (0 differing link / meta words, floats within 2 ulp), kernels
-    A, B, ``trace2`` and ``trace2_warp`` on the card-built tables against
-    their plain versions (0 differing lanes), the per-edit rebuild ms
-    (median of 16 synchronised drags) and the host reads per rebuild;
+    each mode (``RAYTPU_DEVICE_BUILD`` ``instanced``, ``refit``,
+    ``lbvh``, and ``lbvh_ploc``: ``lbvh`` with
+    ``RAYTPU_DEVICE_TREE=ploc``): the builder's mode, the card build
+    against the port's CPU build (0 differing link / meta words, floats
+    within 2 ulp), kernels A, B, ``trace2`` and ``trace2_warp`` on the
+    card-built tables against their plain versions (0 differing lanes),
+    the per-edit rebuild ms (median of 16 synchronised drags), the device
+    launches of one rebuild (profiler) and the host reads per rebuild;
 14. ``bench.py``'s ``two_humans`` drag frame per mode at 1280x720, 10
     bounces: rebuild after a 0.05 x move, then render, 16 frames after
     a warm one: FPS, ms/frame, rebuild share, launches per frame;
@@ -79,10 +81,22 @@ Phases, one or more lines each (any failure raises and exits non-zero):
 16. the viewer on 127.0.0.1 over HTTP: state, keypress -> frame
     latency, add / update / remove an instance (each a device rebuild),
     stop;
+17. multi-GPU (``parallel/sharding.py``): the flagship at 1280x720, 10
+    bounces, spp = sp, on meshes (dp, sp) = (2, 1), (1, 2), (2, 2) as
+    four rank processes on cuda:0 over gloo (``launch``), each frame
+    byte-equal to the single-device frame with equal ``rays_traced``,
+    each rank's kernels launched and no plain version; three
+    accumulated frames on (2, 1), accumulator equal; each mesh's
+    ms/frame; the same checks one rank a card over NCCL, (2, 1) and
+    (1, 2) where there are two cards, with (2, 2) where there are four
+    (else said not run); the headless app's ``--devices 2`` PNG
+    against its single-device PNG (two cards, else ``--device cpu`` at
+    64x32);
 
 then a JSON line of per-kernel results (with each CUDA kernel's
 registers, local and shared bytes and resident blocks per SM as the main
-path launches it) and, last, the JSON result line.
+path launches it, and its launches per frame on the PLOC drag and on
+each mesh) and, last, the JSON result line.
 Each path run resets the launch counts just before it, reads them just
 after and fails unless each of its kernels launched and no plain version
 ran. Imports nothing of JAX.
@@ -958,7 +972,13 @@ def check_per_ray() -> dict:
     return out
 
 
-MODES = ("instanced", "refit", "lbvh")
+# Device build modes: each one's path knobs. ``lbvh_ploc`` is the LBVH
+# route with the device PLOC tree; its builder reports mode "lbvh".
+MODES = {"instanced": {"RAYTPU_DEVICE_BUILD": "instanced"},
+         "refit": {"RAYTPU_DEVICE_BUILD": "refit"},
+         "lbvh": {"RAYTPU_DEVICE_BUILD": "lbvh"},
+         "lbvh_ploc": {"RAYTPU_DEVICE_BUILD": "lbvh",
+                       "RAYTPU_DEVICE_TREE": "ploc"}}
 
 
 def two_humans_figures():
@@ -1027,14 +1047,28 @@ def count_host_reads(fn, n: int) -> float:
     return sum("synchroniz" in str(w.message) for w in caught) / n
 
 
+def device_launches(fn) -> int:
+    """Device activities (kernels, copies, memsets) of one fn() call, from
+    the profiler (which may drop a few)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
 def check_device_builds(cfg, uni, dev="cuda", drags: int = 16) -> dict:
-    """Phase 13: each ``RAYTPU_DEVICE_BUILD`` mode on the two figures:
+    """Phase 13: each device build mode (``MODES``) on the two figures:
     the builder's mode, the card build against the port's CPU build of
     the same instances (0 differing link / meta words, floats within 2
     ulp), kernels A, B, ``trace2`` and ``trace2_warp`` on the card-built
     tables against their plain versions (0 differing lanes), the per-edit
-    rebuild ms (median of ``drags`` synchronised drags) and the host
-    reads a rebuild makes."""
+    rebuild ms (median of ``drags`` synchronised drags), the device
+    launches of one rebuild and the host reads a rebuild makes."""
     from raytracer_tpu_torch.kernels.bounce import (UNIFORM_BUDGET,
                                                     pack_state)
     from raytracer_tpu_torch.kernels import wavefront
@@ -1042,17 +1076,18 @@ def check_device_builds(cfg, uni, dev="cuda", drags: int = 16) -> dict:
 
     figures = two_humans_figures()
     out = {}
-    for mode in MODES:
-        with knob_env({"RAYTPU_DEVICE_BUILD": mode}):
+    for mode, env in MODES.items():
+        built_by = env["RAYTPU_DEVICE_BUILD"]
+        with knob_env(env):
             builder = DeviceSceneBuilder(dev)
             t0 = time.perf_counter()
             scene = builder.build(figures)
             _sync()
             first_s = time.perf_counter() - t0
-            assert builder.last_mode == mode, (mode, builder.last_mode)
+            assert builder.last_mode == built_by, (mode, builder.last_mode)
             cpu_builder = DeviceSceneBuilder("cpu")
             diff = table_diff(scene, cpu_builder.build(figures))
-            assert cpu_builder.last_mode == mode
+            assert cpu_builder.last_mode == built_by
             assert diff["links"] == 0 and diff["max_ulp"] <= 2 \
                 and diff["normal_ulp"] <= 2, diff
 
@@ -1083,14 +1118,18 @@ def check_device_builds(cfg, uni, dev="cuda", drags: int = 16) -> dict:
             reads = (count_host_reads(
                 lambda i: builder.build(drag(figures, drags + 1 + i)), drags)
                 if dev == "cuda" else None)
-            assert builder.last_mode == mode
+            n_launch = (device_launches(
+                lambda: builder.build(drag(figures, 2 * drags + 1)))
+                if dev == "cuda" else None)
+            assert builder.last_mode == built_by
             out[mode] = dict(mode=builder.last_mode, first_build_s=first_s,
                              triangles=scene.num_triangles,
                              nodes=scene.num_nodes,
                              wide_nodes=scene.num_nodes4, **diff,
                              differing_lanes=lanes,
                              rebuild_ms=float(np.median(ms)),
-                             rebuild_ms_all=ms, host_reads=reads)
+                             rebuild_ms_all=ms, host_reads=reads,
+                             launches_per_rebuild=n_launch)
         print(f"device build {mode}: mode {builder.last_mode}, "
               f"{scene.num_triangles} triangles, {scene.num_nodes} nodes, "
               f"{scene.num_nodes4} wide; first build {first_s:.3f} s; card "
@@ -1099,11 +1138,10 @@ def check_device_builds(cfg, uni, dev="cuda", drags: int = 16) -> dict:
               f"{diff['normal_ulp']}); kernels vs plain on its "
               f"tables, differing lanes {lanes}; rebuild "
               f"{out[mode]['rebuild_ms']:.3f} ms (median of {drags}, "
-              f"min {min(ms):.3f}, max {max(ms):.3f}); host reads per "
-              f"rebuild {reads}")
+              f"min {min(ms):.3f}, max {max(ms):.3f}); device launches "
+              f"per rebuild {n_launch}; host reads per rebuild {reads}")
         if dev == "cuda":
-            assert reads <= (1 if mode == "lbvh" else 0) and (
-                mode != "lbvh" or reads == 1), (mode, reads)
+            assert reads == (1 if built_by == "lbvh" else 0), (mode, reads)
     return out
 
 
@@ -1120,8 +1158,8 @@ def run_drag(cfg, dev="cuda", frames: int = 16) -> dict:
     figures = two_humans_figures()
     cam = default_camera(cfg.width, cfg.height)
     out = {}
-    for mode in MODES:
-        with knob_env({"RAYTPU_DEVICE_BUILD": mode}):
+    for mode, env in MODES.items():
+        with knob_env(env):
             builder = DeviceSceneBuilder(dev)
             builder.build(figures)
             r = Renderer(cfg)
@@ -1145,7 +1183,7 @@ def run_drag(cfg, dev="cuda", frames: int = 16) -> dict:
                 frame_ms.append((t2 - t0) * 1e3)
             dt = time.perf_counter() - t_start
             counts, plain = dict(launches.kernel), dict(launches.plain)
-        assert builder.last_mode == mode
+        assert builder.last_mode == env["RAYTPU_DEVICE_BUILD"]
         for k in ("trace4", "bounce12", "tonemap"):
             assert counts.get(k, 0) > 0, f"{k} never launched on drag {mode}"
         assert not plain, f"plain versions ran on drag {mode}"
@@ -1379,6 +1417,211 @@ def check_viewer(cfg, dev="cuda", keys: int = 5) -> dict:
     return out
 
 
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+
+
+def mesh_rank(shapes, frames: int, devices, mesh) -> dict:
+    """Phase 17, one rank (``parallel.sharding.launch``): the flagship on
+    this rank's device; per (dp, sp) of ``shapes`` (the sub-mesh of the
+    first dp * sp ranks) frame 0 at spp = sp, then ``frames`` timed frames
+    with the launch counts reset just before and read just after; then
+    three accumulated frames on (2, 1) with the whole accumulator. ->
+    numpy results (frames and accumulators on a mesh's rank 0 only)."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.parallel.sharding import MeshRenderer, make_mesh
+    from raytracer_tpu_torch.scene.presets import flagship_scene
+
+    scene = flagship_scene(mesh.device)
+    out = {}
+    for dp, sp in shapes:
+        m = make_mesh(dp * sp, sp, devices)
+        if m is None:
+            continue
+        cfg = RenderConfig(samples_per_pixel=sp)
+        cam = default_camera(cfg.width, cfg.height)
+        r = MeshRenderer(cfg, m)
+        accum, image, stats = r.render(scene, cam.uniforms(device=m.device))
+        run = dict(rays=int(stats["rays_traced"]))
+        if m.rank == 0:
+            run["image"] = image.cpu().numpy()
+        torch.cuda.synchronize(m.device)
+        launches.reset()
+        ms = []
+        for fc in range(1, frames + 1):
+            t0 = time.perf_counter()
+            cam.frame_count = fc
+            accum, image, _ = r.render(scene, cam.uniforms(device=m.device),
+                                       accum)
+            torch.cuda.synchronize(m.device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        run.update(frame_ms=ms, counts=dict(launches.kernel),
+                   plain=dict(launches.plain))
+        out[(dp, sp)] = run
+
+    m = make_mesh(2, 1, devices)
+    if m is not None:
+        cfg = RenderConfig()
+        cam = default_camera(cfg.width, cfg.height)
+        r = MeshRenderer(cfg, m)
+        accum = None
+        for fc in range(3):
+            cam.frame_count = fc
+            accum, image, stats = r.render(
+                scene, cam.uniforms(device=m.device), accum)
+        full = r.full_accumulator(accum).cpu().numpy()
+        if m.rank == 0:
+            out["accumulated"] = dict(image=image.cpu().numpy(), accum=full,
+                                      rays=int(stats["rays_traced"]),
+                                      samples=stats["samples"])
+    return out
+
+
+def mesh_results(run, shapes, want, frames: int, where: str) -> dict:
+    """Phase 17's checks of one launch: each mesh's frame 0 byte-equal to
+    the single-device frame at its spp with equal rays, each rank's
+    kernels launched and no plain version run; the (2, 1) accumulation
+    equal to three single-device frames. -> per mesh: ms/frame and
+    launches per frame over all ranks."""
+    res, out = run.results[0], {}
+    for dp, sp in shapes:
+        got = res[(dp, sp)]
+        ranks = [r[(dp, sp)] for r in run.results[:dp * sp]]
+        image, rays = want[sp]
+        n_px = int((got["image"] != image).any(-1).sum())
+        for r in ranks:
+            for k in ("trace4", "bounce12", "tonemap"):
+                assert r["counts"].get(k, 0) > 0, (dp, sp, k, r["counts"])
+            assert not r["plain"], (dp, sp, r["plain"])
+        row = dict(differing_pixels=n_px, rays=got["rays"], single_rays=rays,
+                   frame_ms=got["frame_ms"],
+                   median_ms=float(np.median(got["frame_ms"])),
+                   launches_per_frame={k: sum(r["counts"].get(k, 0)
+                                              for r in ranks) / frames
+                                       for k in ("trace4", "bounce12",
+                                                 "tonemap")})
+        out[f"{dp}x{sp}"] = row
+        ms = ", ".join(f"{x:.1f}" for x in got["frame_ms"])
+        print(f"mesh dp {dp} x sp {sp} on {where} ({run.backend}), "
+              f"1280x720, 10 bounces, spp {sp}: frame 0 differing pixels "
+              f"against one device {n_px}, rays {got['rays']} vs {rays}; "
+              f"{frames} frames {ms} ms (median {row['median_ms']:.1f}); "
+              f"launches per frame, all ranks: {row['launches_per_frame']}")
+        assert n_px == 0 and got["rays"] == rays, (dp, sp)
+    acc = res["accumulated"]
+    image, accum, rays = want["accumulated"]
+    n_acc = int((acc["accum"].view(np.int32) != accum.view(np.int32)).sum())
+    print(f"mesh dp 2 x sp 1 on {where}, 3 accumulated frames: differing "
+          f"accumulator words {n_acc}, image bytes equal "
+          f"{acc['image'].tobytes() == image.tobytes()}, rays "
+          f"{acc['rays']} vs {rays}, samples {acc['samples']}")
+    assert n_acc == 0 and acc["image"].tobytes() == image.tobytes()
+    assert acc["rays"] == rays and acc["samples"] == 3
+    out["accumulated"] = dict(differing_accum_words=n_acc)
+    return out
+
+
+def check_mesh(frames: int = 8) -> dict:
+    """Phase 17: the flagship at ``RenderConfig()`` (1280x720, 10 bounces)
+    with spp = sp, through ``parallel.sharding.launch`` + ``MeshRenderer``
+    (``mesh_rank``, checked by ``mesh_results``): meshes (2, 1), (1, 2),
+    (2, 2) as four ranks on cuda:0 over gloo (NCCL refuses two ranks on
+    one card). Where there are two cards or more,
+    every mesh that fits them, one rank a card over NCCL; ``--devices 2``
+    of the headless app (on two cards, else ``--device cpu`` at 64x32)
+    against its single-device PNG. One-device frame times at spp 1 and 2
+    beside the meshes'."""
+    import functools
+
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.parallel.sharding import launch
+    from raytracer_tpu_torch.scene import presets
+
+    scene = presets.flagship_scene()
+    want, one_ms = {}, {}
+    for spp in (1, 2):
+        cfg = RenderConfig(samples_per_pixel=spp)
+        cam = default_camera(cfg.width, cfg.height)
+        r = Renderer(cfg)
+        accum, image, stats = r.render(scene, cam.uniforms())
+        want[spp] = (image.cpu().numpy(), int(stats["rays_traced"]))
+        one_ms[spp] = []
+        for fc in range(1, frames + 1):
+            _sync()
+            t0 = time.perf_counter()
+            cam.frame_count = fc
+            accum, _, _ = r.render(scene, cam.uniforms(), accum)
+            _sync()
+            one_ms[spp].append((time.perf_counter() - t0) * 1e3)
+        print(f"one device, 1280x720, 10 bounces, spp {spp}: {frames} "
+              f"frames {', '.join(f'{x:.1f}' for x in one_ms[spp])} ms "
+              f"(median {np.median(one_ms[spp]):.1f})")
+    cfg = RenderConfig()
+    cam = default_camera(cfg.width, cfg.height)
+    accum = None
+    for fc in range(3):
+        cam.frame_count = fc
+        accum, image, stats = Renderer(cfg).render(scene, cam.uniforms(),
+                                                   accum)
+    want["accumulated"] = (image.cpu().numpy(), accum.cpu().numpy(),
+                           int(stats["rays_traced"]))
+    del scene
+    torch.cuda.empty_cache()
+
+    out = {"one_device_ms": one_ms}
+    devices = ["cuda:0"] * 4
+    t0 = time.perf_counter()
+    run = launch(functools.partial(mesh_rank, MESH_SHAPES, frames, devices),
+                 4, devices=devices, timeout=900)
+    out["launch_s"] = time.perf_counter() - t0
+    assert run.backend == "gloo", run.backend
+    out["gloo"] = mesh_results(run, MESH_SHAPES, want, frames, "cuda:0")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        n = 4 if n_cards >= 4 else 2
+        # (4, 1) cannot split 720 rows into 8-row tiles: 720 % 32 != 0.
+        shapes = tuple((dp, sp) for dp, sp in MESH_SHAPES if dp * sp <= n)
+        devices = [f"cuda:{i}" for i in range(n)]
+        run = launch(functools.partial(mesh_rank, shapes, frames, devices),
+                     n, devices=devices, timeout=900)
+        assert run.backend == "nccl", run.backend
+        out["nccl"] = mesh_results(run, shapes, want, frames,
+                                   f"{n} cards")
+    else:
+        print(f"mesh over NCCL not run: {n_cards} CUDA device (NCCL needs "
+              f"a card per rank)")
+        out["nccl"] = f"not run: {n_cards} CUDA device"
+
+    d = os.path.join(REPO, "out", "headless")
+    os.makedirs(d, exist_ok=True)
+    scene_json = os.path.join(d, "mesh_sphere_light.json")
+    presets.config2_sphere_light().scene.save_json(scene_json)
+    size = ([] if n_cards >= 2 else
+            ["--device", "cpu", "--width", "64", "--height", "32",
+             "--max-bounces", "3"])
+    pngs = []
+    for tag, extra in (("one", []), ("mesh", ["--devices", "2"])):
+        png = os.path.join(d, f"mesh_{tag}.png")
+        cmd = [sys.executable, "-m", "raytracer_tpu_torch.apps.headless",
+               "--scene", scene_json, "--frames", "2", "--stats-json", "-o",
+               png, *size, *extra]
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"headless failed:\n{proc.stderr[-4000:]}")
+        print(f"headless {' '.join(size + extra)}: "
+              f"{proc.stdout.strip().splitlines()[-1]}")
+        with open(png, "rb") as f:
+            pngs.append(f.read())
+    assert pngs[0] == pngs[1], "headless --devices 2 PNG differs"
+    out["headless"] = dict(args=size + ["--devices", "2"], png_equal=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1406,7 +1649,6 @@ def main() -> None:
     t_nvcc = time.perf_counter() - t0
     print(f"build: kernels {', '.join(cuda_build.SOURCES)} (nvcc, one "
           f"process each) {t_nvcc:.1f} s")
-
     cfg = RenderConfig()
     scene = presets.flagship_scene()
     cam = default_camera(cfg.width, cfg.height)
@@ -1514,6 +1756,10 @@ def main() -> None:
     engine_run = check_engine(cfg)
     viewer_run = check_viewer(cfg)
 
+    # Phase 17: multi-GPU rendering, meshes against one device.
+    mesh_run = check_mesh()
+    mesh_launches = mesh_run["gloo"]
+
     launches_on_path = {
         "trace4": main_run["counts"]["trace4"],
         "bounce12": main_run["counts"]["bounce12"],
@@ -1554,11 +1800,21 @@ def main() -> None:
                    "presets": preset_runs, "chain": chain,
                    "headless": headless_run, "per_ray": per_ray,
                    "device_builds": device_builds, "drag": drag_runs,
-                   "engine": engine_run, "viewer": viewer_run}, f,
-                  indent=1)
+                   "engine": engine_run, "viewer": viewer_run,
+                   "ploc": {"device_build": device_builds["lbvh_ploc"],
+                            "drag": drag_runs["lbvh_ploc"]},
+                   "mesh": mesh_run}, f, indent=1)
+    # Launches per frame on this slice's paths: the PLOC drag and each
+    # mesh (all ranks).
+    new_paths = {"drag_lbvh_ploc": drag_runs["lbvh_ploc"][
+        "launches_per_frame"]}
+    new_paths.update({f"mesh_{shape}": mesh_launches[shape][
+        "launches_per_frame"] for shape in ("2x1", "1x2", "2x2")})
     print(json.dumps({"kernels": [
         dict(name=k, route=route, source=src, replaces=rep,
-             launches=launches_on_path[k], **results[k])
+             launches=launches_on_path[k], **results[k],
+             path_launches_per_frame={
+                 p: c[k] for p, c in new_paths.items() if k in c})
         for k, (route, src, rep) in srcs.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,11 +11,20 @@ rendered on ``cuda`` (the default; it raises when there is no card) or on
 the CPU with ``--device cpu``. ``--checkpoint`` saves the accumulator and
 frame count and resumes from them; ``--chain`` renders that many frames a
 ``Renderer.render_chain`` call.
+
+``--devices N`` (with ``--sp S``) renders on an (N/S, S) mesh, one process
+a rank (``parallel/sharding.launch`` + ``MeshRenderer``, a frame a step):
+every rank builds the same scene from the same source (the host build is
+deterministic), rank 0 writes the PNG and the checkpoint, whose
+accumulator is the whole frame's, so a single-device run resumes it and
+the other way round. On ``cuda`` the mesh needs N cards (NCCL); with
+``--device cpu`` the ranks run on the CPU over gloo.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -75,11 +84,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="render device (cuda raises without a card)")
     p.add_argument("--devices", type=int, default=0,
-                   help="multi-device mesh: not ported (ROADMAP.md queue 1, "
-                        "Multi-GPU); 0 = one device")
+                   help="render on an N-device (dp x sp) mesh, one process "
+                        "a device over torch.distributed (0 = single "
+                        "device); with --device cpu, N CPU ranks over gloo")
     p.add_argument("--sp", type=int, default=1,
-                   help="sample-parallel mesh axis: not ported (see "
-                        "--devices)")
+                   help="sample-parallel mesh axis (devices = dp * sp; "
+                        "--spp must be divisible by sp)")
     p.add_argument("--checkpoint", metavar="FILE.npz",
                    help="save the accumulation state here at the end; if "
                         "the file exists, resume from it (render N more "
@@ -95,28 +105,18 @@ def _parse_vec(s: str):
     return tuple(float(x) for x in s.split(","))
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.frames < 1:
-        build_parser().error("--frames must be >= 1")
-    if args.devices or args.sp != 1:
-        raise NotImplementedError(
-            "--devices / --sp: multi-device rendering is not ported "
-            "(ROADMAP.md queue 1, Multi-GPU)")
-    dev = args.device
-    if dev == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda needs a CUDA device")
-    if args.assets:
-        os.environ["RAYTPU_ASSETS"] = args.assets
+def _config(args) -> RenderConfig:
+    return RenderConfig(width=args.width, height=args.height,
+                        max_bounces=args.max_bounces,
+                        samples_per_pixel=args.spp,
+                        kernel=args.kernel, rng_mode=args.rng)
 
-    cfg = RenderConfig(width=args.width, height=args.height,
-                       max_bounces=args.max_bounces,
-                       samples_per_pixel=args.spp,
-                       kernel=args.kernel, rng_mode=args.rng)
+
+def _build_scene(args, cfg: RenderConfig, dev):
+    """The scene of --scene / --default-scene / --flagship on ``dev`` ->
+    (scene, build ms)."""
     t0 = time.perf_counter()
     if args.flagship:
-        if cfg.kernel != "packet":
-            build_parser().error("--flagship renders --kernel packet")
         device_scene = flagship_scene(
             dev, search=[args.assets] if args.assets else [])
     else:
@@ -128,32 +128,100 @@ def main(argv=None) -> int:
         build = build_fast_scene if cfg.kernel == "packet" else \
             build_gpu_scene
         device_scene = build(scene_graph.create_snapshot(), device=dev)
-    build_ms = (time.perf_counter() - t0) * 1e3
+    return device_scene, (time.perf_counter() - t0) * 1e3
 
+
+def _camera(args) -> Camera:
     if args.camera:
-        cam = Camera(origin=_parse_vec(args.camera),
-                     look_at=_parse_vec(args.look_at),
-                     vfov_deg=args.vfov,
-                     aspect_ratio=args.width / args.height)
-    else:
-        cam = default_camera(args.width, args.height)
+        return Camera(origin=_parse_vec(args.camera),
+                      look_at=_parse_vec(args.look_at),
+                      vfov_deg=args.vfov,
+                      aspect_ratio=args.width / args.height)
+    return default_camera(args.width, args.height)
+
+
+def _resume(args):
+    """(whole-frame accumulator f32[H, W, 3] or None, start frame) from
+    the checkpoint file, if there is one of this resolution."""
+    if not (args.checkpoint and os.path.exists(args.checkpoint)):
+        return None, 0
+    with np.load(args.checkpoint) as ckpt:
+        if tuple(ckpt["accum"].shape) != (args.height, args.width, 3):
+            _log.warning("checkpoint resolution mismatch; starting fresh")
+            return None, 0
+        _log.info("resumed %s at frame %d", args.checkpoint,
+                  int(ckpt["frame_count"]))
+        return (np.array(ckpt["accum"], np.float32),
+                int(ckpt["frame_count"]))
+
+
+def _finish(args, pixels, accum, end: int, stats: dict, render_s: float,
+            **info) -> dict:
+    """Write the PNG and the checkpoint -> the stats JSON fields."""
+    write_png(args.output, pixels)
+    _log.info("wrote %s", args.output)
+    if args.checkpoint:
+        np.savez(args.checkpoint, accum=accum, frame_count=end)
+    return {
+        "output": args.output, **info,
+        "resolution": f"{args.width}x{args.height}",
+        "frames": args.frames,
+        "samples": float(stats["samples"]),
+        "render_s": round(render_s, 3),
+        "fps": round(args.frames / render_s, 3),
+        "mrays_per_s": round(
+            float(stats["rays_traced"]) * args.frames / render_s / 1e6, 3),
+    }
+
+
+def _mesh_rank(args, mesh):
+    """One rank of ``--devices``: the same scene on every rank, a frame a
+    ``MeshRenderer.render`` step; rank 0 writes the PNG and the whole
+    accumulator -> rank 0's stats JSON fields (None elsewhere)."""
+    from raytracer_tpu_torch.parallel.sharding import MeshRenderer
+
+    dev = mesh.device
+    cfg = _config(args)
+    device_scene, build_ms = _build_scene(args, cfg, dev)
+    cam = _camera(args)
+    renderer = MeshRenderer(cfg, mesh)
+    full, start_frame = _resume(args)
+    accum = None
+    if full is not None:
+        rows = slice(mesh.dp_idx * renderer.shard_h,
+                     (mesh.dp_idx + 1) * renderer.shard_h)
+        accum = torch.from_numpy(np.ascontiguousarray(full[rows])).to(dev)
+
+    t0 = time.perf_counter()
+    end = start_frame + args.frames
+    for f in range(start_frame, end):
+        cam.frame_count = f
+        uniforms = cam.uniforms(sky_enabled=not args.no_sky,
+                                exposure=args.exposure, device=dev)
+        accum, image, stats = renderer.render(device_scene, uniforms, accum)
+    full = renderer.full_accumulator(accum).cpu().numpy()
+    render_s = time.perf_counter() - t0
+    if mesh.rank:
+        return None
+    return _finish(args, image.cpu().numpy(), full, end, stats, render_s,
+                   device=(torch.cuda.get_device_name(dev)
+                           if dev.type == "cuda" else "cpu"),
+                   triangles=int(device_scene.num_triangles),
+                   build_ms=round(build_ms, 1))
+
+
+def _single_device(args, dev) -> dict:
+    """The run on one device (``Renderer``, ``--chain`` frames a call) ->
+    the stats JSON fields."""
+    cfg = _config(args)
+    device_scene, build_ms = _build_scene(args, cfg, dev)
+    cam = _camera(args)
     renderer = Renderer(cfg)
 
     # Checkpoint / resume: the accumulator and the frame count persist
     # across runs.
-    accum = None
-    start_frame = 0
-    if args.checkpoint and os.path.exists(args.checkpoint):
-        with np.load(args.checkpoint) as ckpt:
-            if tuple(ckpt["accum"].shape) == (args.height, args.width, 3):
-                accum = torch.from_numpy(
-                    np.array(ckpt["accum"], np.float32)).to(dev)
-                start_frame = int(ckpt["frame_count"])
-                _log.info("resumed %s at frame %d", args.checkpoint,
-                          start_frame)
-            else:
-                _log.warning("checkpoint resolution mismatch; starting "
-                             "fresh")
+    full, start_frame = _resume(args)
+    accum = None if full is None else torch.from_numpy(full).to(dev)
 
     chain = args.chain
     if chain <= 0:  # auto: chain when it divides the frame budget
@@ -177,29 +245,40 @@ def main(argv=None) -> int:
         f += k
     pixels = image.cpu().numpy()
     render_s = time.perf_counter() - t0
+    return _finish(args, pixels, accum.cpu().numpy(), end, stats, render_s,
+                   device=(torch.cuda.get_device_name(accum.device)
+                           if dev == "cuda" else "cpu"),
+                   triangles=int(device_scene.num_triangles),
+                   build_ms=round(build_ms, 1))
 
-    write_png(args.output, pixels)
-    _log.info("wrote %s", args.output)
-    if args.checkpoint:
-        np.savez(args.checkpoint, accum=accum.cpu().numpy(),
-                 frame_count=end)
 
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.frames < 1:
+        parser.error("--frames must be >= 1")
+    if args.devices and args.spp % args.sp:
+        parser.error("--spp must be divisible by --sp")
+    if args.flagship and args.kernel != "packet":
+        parser.error("--flagship renders --kernel packet")
+    dev = args.device
+    if dev == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs a CUDA device")
+    if args.assets:   # read by the asset search (the ranks inherit it)
+        os.environ["RAYTPU_ASSETS"] = args.assets
+    if args.devices:
+        from raytracer_tpu_torch.parallel.sharding import launch
+
+        run = launch(functools.partial(_mesh_rank, args), args.devices,
+                     args.sp, devices=[dev] * args.devices
+                     if dev == "cpu" else None)
+        out = run.results[0]
+        out["mesh"] = {"dp": args.devices // args.sp, "sp": args.sp,
+                       "backend": run.backend}
+    else:
+        out = _single_device(args, dev)
     if args.stats_json:
-        print(json.dumps({
-            "output": args.output,
-            "device": (torch.cuda.get_device_name(accum.device)
-                       if dev == "cuda" else "cpu"),
-            "resolution": f"{args.width}x{args.height}",
-            "triangles": int(device_scene.num_triangles),
-            "frames": args.frames,
-            "samples": float(stats["samples"]),
-            "build_ms": round(build_ms, 1),
-            "render_s": round(render_s, 3),
-            "fps": round(args.frames / render_s, 3),
-            "mrays_per_s": round(
-                float(stats["rays_traced"]) * args.frames / render_s / 1e6,
-                3),
-        }))
+        print(json.dumps(out))
     return 0
 
 

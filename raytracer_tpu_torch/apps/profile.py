@@ -2,6 +2,7 @@
 
     python -m raytracer_tpu_torch.apps.profile --paths default,pmega \\
         --frames 3 --rounds 2
+    python -m raytracer_tpu_torch.apps.profile --mesh 2x1,1x2 --spp 2
 
 For each path (a set of knobs, see ``raytracer_tpu_torch/knobs.py``) on
 the flagship scene at ``RenderConfig()``: a few warm frames, then
@@ -13,11 +14,21 @@ the most device time, and the device time of each of the port's own
 kernels (the CUDA kernels of ``csrc/``, the tonemap included). Paths
 run in turns, ``--rounds`` times, so two paths are compared on one card
 within one call. Needs a CUDA device.
+
+With ``--mesh``, each (dp, sp) mesh renders the default path at
+``--spp`` (each mesh's sp by default) through ``parallel/sharding.launch``,
+one rank a card (NCCL: needs dp * sp cards), after the one-device frame
+at the same spp on cuda:0. Every rank profiles its frames and reports, on
+top of the fields above, its collectives' device time (the NCCL kernels)
+and host time (the ``c10d::`` calls) per frame and its peak device
+memory, so a mesh frame's time splits into the rank's own launches and
+its collectives.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -28,6 +39,7 @@ import torch
 from raytracer_tpu_torch.core.camera import default_camera
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.engine.renderer import Renderer
+from raytracer_tpu_torch.parallel.sharding import MeshRenderer, launch
 from raytracer_tpu_torch.scene.presets import flagship_scene
 
 PATHS = {
@@ -76,6 +88,12 @@ def profile_path(scene, cfg, env: dict, frames: int, warm: int) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return _frame_stats(prof, wall, frames)
+
+
+def _frame_stats(prof, wall: float, frames: int) -> dict:
+    """Per-frame figures of a profiled run of ``frames`` frames that took
+    ``wall`` seconds."""
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     intervals = [(e.time_range.start, e.time_range.end) for e in dev]
@@ -102,6 +120,65 @@ def profile_path(scene, cfg, env: dict, frames: int, warm: int) -> dict:
                 n: t / frames / 1e3 for n, t in port.items()}}
 
 
+def _mesh_rank(spp: int, frames: int, warm: int, mesh) -> dict:
+    """One rank of a profiled mesh: the flagship's default path on this
+    rank's rows and samples -> its per-frame figures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = RenderConfig(samples_per_pixel=spp)
+    r = MeshRenderer(cfg, mesh)
+    scene = r.prepare_scene(flagship_scene())
+    cam = default_camera(cfg.width, cfg.height)
+    accum = None
+    for f in range(warm):
+        cam.frame_count = f
+        accum, _, _ = r.render(scene, cam.uniforms(device=mesh.device),
+                               accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(warm, warm + frames):
+            cam.frame_count = f
+            accum, _, _ = r.render(scene, cam.uniforms(device=mesh.device),
+                                   accum)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = _frame_stats(prof, wall, frames)
+    # The NCCL kernels alone: each also shows as an "nccl:<op>" range.
+    coll_dev = sum(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name.startswith("ncclDevKernel"))
+    coll_host = sum(e.time_range.end - e.time_range.start
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name.startswith("c10d::"))
+    res.update(rank=mesh.rank,
+               collective_device_ms_per_frame=coll_dev / frames / 1e3,
+               collective_host_ms_per_frame=coll_host / frames / 1e3,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return res
+
+
+def profile_mesh(spec: str, spp: int, frames: int, warm: int) -> list:
+    """The one-device frame at the mesh's spp on cuda:0, then every rank
+    of the ``DPxSP`` mesh -> JSON-ready rows."""
+    dp, sp = (int(x) for x in spec.split("x"))
+    spp = spp or sp
+    cfg = RenderConfig(samples_per_pixel=spp)
+    torch.cuda.reset_peak_memory_stats()
+    one = profile_path(flagship_scene(), cfg, {}, frames, warm)
+    one["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    run = launch(functools.partial(_mesh_rank, spp, frames, warm),
+                 dp * sp, sp, timeout=900)
+    rows = [{"mesh": "one device", "spp": spp, **one}]
+    rows += [{"mesh": spec, "spp": spp, "backend": run.backend, **res}
+             for res in run.results]
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="raytracer_tpu_torch.apps.profile",
                                 description=__doc__.split("\n\n")[0])
@@ -110,9 +187,20 @@ def main(argv=None) -> int:
     p.add_argument("--frames", type=int, default=3)
     p.add_argument("--warm", type=int, default=2)
     p.add_argument("--rounds", type=int, default=1)
+    p.add_argument("--mesh", default="",
+                   help="comma-separated DPxSP meshes (e.g. 2x1,1x2), one "
+                        "card a rank, in place of --paths")
+    p.add_argument("--spp", type=int, default=0,
+                   help="samples per pixel of --mesh (default: its sp)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
+    device = torch.cuda.get_device_name(0)
+    if args.mesh:
+        for spec in args.mesh.split(","):
+            for row in profile_mesh(spec, args.spp, args.frames, args.warm):
+                print(json.dumps({**row, "device": device}), flush=True)
+        return 0
     names = args.paths.split(",")
     for n in names:
         if n not in PATHS:
@@ -122,8 +210,7 @@ def main(argv=None) -> int:
     for rnd in range(args.rounds):
         for n in names:
             res = profile_path(scene, cfg, PATHS[n], args.frames, args.warm)
-            print(json.dumps({"path": n, "round": rnd,
-                              "device": torch.cuda.get_device_name(0),
+            print(json.dumps({"path": n, "round": rnd, "device": device,
                               **res}))
     return 0
 

@@ -139,6 +139,13 @@ class GpuScene:
     def device(self) -> torch.device:
         return self.tri_verts.device
 
+    def to(self, device) -> "GpuScene":
+        bvh = FlatBVH(**{f.name: getattr(self.bvh, f.name).to(device)
+                         for f in dataclasses.fields(FlatBVH)})
+        return dataclasses.replace(self, bvh=bvh,
+                                   tri_verts=self.tri_verts.to(device),
+                                   materials=self.materials.to(device))
+
 
 # Material type codes (reference VulkanApp.java:483-488).
 MAT_LAMBERTIAN = 0.0

@@ -25,6 +25,7 @@ from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.fast_types import FastScene
 from raytracer_tpu_torch.core.types import (CameraUniforms, RenderConfig,
                                             to_device)
+from raytracer_tpu_torch.kernels.bounce import ROW_PIX
 from raytracer_tpu_torch.kernels.packet import (render_linear_fast,
                                                 tail_merge_widths)
 from raytracer_tpu_torch.kernels.tonemap import tonemap_accumulate
@@ -55,47 +56,79 @@ def _num_bands(cfg: RenderConfig) -> int:
     return row_tiles
 
 
-def _render_total(scene, cam: CameraUniforms, cfg: RenderConfig):
-    """Radiance of one frame summed over its samples -> (f32[3, H*W],
-    rays traced (int64 tensor)). Bands, the spp loop and, where it
-    applies, the cross-band tail merge; the tonemap kernel divides by spp
-    and reads the planar layout as it stands. A ``FastScene`` with
-    ``kernel="packet"`` renders through the packet kernels, anything else
-    through the per-ray path (no tail merge there)."""
+def _sample_terms(scene, cam: CameraUniforms, cfg: RenderConfig, *,
+                  y_base: int = 0, global_height: Optional[int] = None,
+                  sample_offset: int = 0, n_samples: Optional[int] = None):
+    """Per sample of the frame, in sample order: (terms, rays traced
+    (int64 tensor)), where the terms are the f32[3, H*W] colours whose
+    sum in list order is that sample's radiance: the bands' colours and,
+    where the cross-band tail merge applies, the merged tail's deposits.
+    A ``FastScene`` with ``kernel="packet"`` renders through the packet
+    kernels, anything else through the per-ray path (no tail merge
+    there).
+
+    ``y_base`` / ``global_height`` render this cfg-sized frame as the
+    rows from ``y_base`` of a taller frame (the dp mesh axis);
+    ``sample_offset`` / ``n_samples`` render a slice of the samples (the
+    sp axis). ``cfg`` keeps the GLOBAL samples_per_pixel either way: the
+    RNG folds it into the seeds (``tracer.initial_seed``)."""
     packet = cfg.kernel == "packet" and isinstance(scene, FastScene)
-    spp = cfg.samples_per_pixel
+    spp = cfg.samples_per_pixel if n_samples is None else n_samples
+    gh = global_height or cfg.height
     nb = _num_bands(cfg)
     band_h = cfg.height // nb
     band_cfg = dataclasses.replace(cfg, height=band_h)
     hw = cfg.height * cfg.width
-    dev = scene.device
     tm = (tail_merge_widths(cfg, band_h, nb)
           if packet and knobs.tail_merge_active(cfg) else None)
 
-    total = torch.zeros((3, hw), dtype=torch.float32, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(spp):
+    for i in range(sample_offset, sample_offset + spp):
         bands, survivors = [], []
+        rays = torch.zeros((), dtype=torch.int64, device=scene.device)
         for b in range(nb):
+            y0 = y_base + b * band_h
             if packet:
                 color, brays, surv = render_linear_fast(
-                    scene, cam, band_cfg, sample_index=i,
-                    y_offset=b * band_h, global_height=cfg.height,
-                    tail_handoff=tm[0] if tm else None)
+                    scene, cam, band_cfg, sample_index=i, y_offset=y0,
+                    global_height=gh, tail_handoff=tm[0] if tm else None)
                 survivors.append(surv)
             else:
                 color, brays = render_linear(
-                    scene, cam, band_cfg, sample_index=i,
-                    y_offset=b * band_h, global_height=cfg.height)
+                    scene, cam, band_cfg, sample_index=i, y_offset=y0,
+                    global_height=gh)
             bands.append(color)
             rays = rays + brays
-        total = total + torch.cat(bands, dim=1)
+        terms = [torch.cat(bands, dim=1)]
         if tm is not None:
-            tail, trays = wavefront_tail(
-                scene, torch.cat(survivors, dim=1), cam.sky_host, cfg,
-                out_size=hw)
-            total = total + tail
+            # Survivor pixel ids are global; deposits target this
+            # frame's rows, so shift them by its base row (the pad
+            # sentinel gh * w stays >= hw and still drops).
+            merged = torch.cat(survivors, dim=1)
+            if y_base:
+                merged[ROW_PIX] -= y_base * cfg.width
+            tail, trays = wavefront_tail(scene, merged, cam.sky_host, cfg,
+                                         out_size=hw)
+            terms.append(tail)
             rays = rays + trays
+        yield terms, rays
+
+
+def _render_total(scene, cam: CameraUniforms, cfg: RenderConfig, *,
+                  y_base: int = 0, global_height: Optional[int] = None,
+                  sample_offset: int = 0, n_samples: Optional[int] = None):
+    """Radiance of one frame summed over its samples -> (f32[3, H*W],
+    rays traced (int64 tensor)): the ``_sample_terms`` of the row band
+    and sample slice (as there) added in order. The tonemap kernel
+    divides by spp and reads the planar layout as it stands."""
+    hw = cfg.height * cfg.width
+    total = torch.zeros((3, hw), dtype=torch.float32, device=scene.device)
+    rays = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for terms, sample_rays in _sample_terms(
+            scene, cam, cfg, y_base=y_base, global_height=global_height,
+            sample_offset=sample_offset, n_samples=n_samples):
+        for term in terms:
+            total = total + term
+        rays = rays + sample_rays
     return total, rays
 
 

@@ -20,8 +20,9 @@ the ``RAYTPU_B0`` variants) raises ``NotImplementedError`` naming the knob.
 * ``RAYTPU_DEVICE_BUILD``: the live-edit scene build
   (``scene/device_builder.py``), ``instanced`` (default), ``refit`` or
   ``lbvh``; ``RAYTPU_DEVICE_TREE``: the LBVH build's tree, ``karras``
-  only (the device PLOC tree is not ported); ``RAYTPU_REFIT_TOPO``: the
-  refit capture's host tree, ``ploc`` (default) or ``sah``.
+  (default, ``bvh/lbvh.py``) or ``ploc`` (``bvh/ploc_device.py``);
+  ``RAYTPU_REFIT_TOPO``: the refit capture's host tree, ``ploc``
+  (default) or ``sah``.
 
 Counts read at call time where the JAX package reads them (``count``):
 ``RAYTPU_REFIT_REFRESH`` (edits between refit recaptures),
@@ -46,6 +47,7 @@ import os
 
 BOUNCE_PATHS = ("wave", "pmega")
 DEVICE_BUILDS = ("instanced", "refit", "lbvh")
+DEVICE_TREES = ("karras", "ploc")
 WAVE_ENGINES = ("fused12", "fused", "fused_packed", "split")
 NODE_SOURCES = ("pack", "extract")
 
@@ -142,9 +144,9 @@ def device_build() -> str:
 
 
 def device_tree() -> str:
-    """``RAYTPU_DEVICE_TREE``: "karras" only (``bvh/ploc_device.py`` is
-    not ported)."""
-    return _read("RAYTPU_DEVICE_TREE", "karras", ("karras",))
+    """``RAYTPU_DEVICE_TREE``: "karras" (default, the Morton / Karras
+    tree) or "ploc" (the device PLOC tree)."""
+    return _read("RAYTPU_DEVICE_TREE", "karras", DEVICE_TREES)
 
 
 def refit_topo() -> str:

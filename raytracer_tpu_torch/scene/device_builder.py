@@ -11,8 +11,10 @@ one of three strategies (``RAYTPU_DEVICE_BUILD``, read per build):
 * ``refit``: one captured host tree per instance set, refit per edit
   (``scene/refit.py``); also the instanced mode's fallback past
   ``MAX_INSTANCES``, with a periodic recapture;
-* ``lbvh``: the full Morton / Karras rebuild (``bvh/lbvh.py``), for
-  edits that change geometry, and the last fallback.
+* ``lbvh``: the full rebuild, for edits that change geometry, and the
+  last fallback: the Morton / Karras tree (``bvh/lbvh.py``) or, with
+  ``RAYTPU_DEVICE_TREE=ploc``, the agglomerative PLOC tree
+  (``bvh/ploc_device.py``); ``last_mode`` is ``"lbvh"`` for either.
 
 As in the JAX package, a strategy that fails falls back to the next one
 (instanced -> refit -> lbvh), except that a refused knob
@@ -30,6 +32,7 @@ import torch
 
 from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.bvh.lbvh import build_fast_scene_device
+from raytracer_tpu_torch.bvh.ploc_device import build_fast_scene_device_ploc
 from raytracer_tpu_torch.core.fast_types import ROW_TRIS, FastScene
 from raytracer_tpu_torch.core.types import to_device
 from raytracer_tpu_torch.scene.builder import bucket, build_fast_scene
@@ -70,12 +73,14 @@ def _assemble(meshes, params: torch.Tensor, capacity: int):
     return torch.cat(parts_v), torch.cat(parts_m)
 
 
-def _assemble_and_build(meshes, params: torch.Tensor,
-                        capacity: int) -> FastScene:
-    """Transform on the device, then the LBVH build; the padding
-    triangles never hit, and the scene keeps the true count."""
-    knobs.device_tree()
-    scene = build_fast_scene_device(*_assemble(meshes, params, capacity))
+def _assemble_and_build(meshes, params: torch.Tensor, capacity: int,
+                        tree: str = "karras") -> FastScene:
+    """Transform on the device, then the LBVH build of ``tree``
+    ("karras" or "ploc"); the padding triangles never hit, and the scene
+    keeps the true count."""
+    build = (build_fast_scene_device_ploc if tree == "ploc"
+             else build_fast_scene_device)
+    scene = build(*_assemble(meshes, params, capacity))
     scene.num_triangles = sum(m.shape[0] for m in meshes)
     return scene
 
@@ -176,7 +181,8 @@ class DeviceSceneBuilder:
         meshes = [self._mesh(inst.model_path) for inst in live]
         total = sum(m.shape[0] for m in meshes)
         capacity = bucket(-(-total // ROW_TRIS) * ROW_TRIS)
-        scene = _assemble_and_build(meshes, params, capacity)
+        scene = _assemble_and_build(meshes, params, capacity,
+                                    knobs.device_tree())
         self.last_mode = "lbvh"
         return scene
 

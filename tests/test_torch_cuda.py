@@ -378,13 +378,14 @@ def test_preset_built_on_the_card_equals_its_cpu_tables():
         (cpu.num_nodes, cpu.num_triangles, cpu.num_nodes4)
 
 
-@pytest.mark.parametrize("mode", ["instanced", "refit", "lbvh"])
+@pytest.mark.parametrize("mode", ["instanced", "refit", "lbvh",
+                                  "lbvh_ploc"])
 def test_device_builder_on_the_card_equals_its_cpu_build(monkeypatch,
                                                         tmp_path, mode):
-    """Each live-edit build on the card against the same build on the
-    CPU (0 differing link / meta words, floats within 2 ulp), then
-    kernels A and trace2 on the card-built tables against their plain
-    versions."""
+    """Each live-edit build on the card (``lbvh_ploc``: the LBVH route
+    with the device PLOC tree) against the same build on the CPU (0
+    differing link / meta words, floats within 2 ulp), then kernels A and
+    trace2 on the card-built tables against their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc)")
     from raytracer_tpu_torch.core.types import RenderConfig
@@ -394,7 +395,10 @@ def test_device_builder_on_the_card_equals_its_cpu_build(monkeypatch,
     from raytracer_tpu_torch.scene.scene import ModelInstance
     from raytracer_tpu_torch.utils import assets
 
-    monkeypatch.setenv("RAYTPU_DEVICE_BUILD", mode)
+    build = mode.split("_")[0]
+    monkeypatch.setenv("RAYTPU_DEVICE_BUILD", build)
+    if mode == "lbvh_ploc":
+        monkeypatch.setenv("RAYTPU_DEVICE_TREE", "ploc")
     path = str(tmp_path / "terrain.obj")
     assets.write_obj(path, assets.make_terrain(n=48, extent=30.0))
     insts = [ModelInstance(path, position=(-10, 0, 0), color=(0.7, 0.6, 0.5)),
@@ -404,7 +408,7 @@ def test_device_builder_on_the_card_equals_its_cpu_build(monkeypatch,
     got = card.build(insts)
     cpu = DeviceSceneBuilder("cpu")
     want = cpu.build(insts)
-    assert card.last_mode == cpu.last_mode == mode
+    assert card.last_mode == cpu.last_mode == build
     assert (got.num_nodes, got.num_nodes4) == (want.num_nodes,
                                               want.num_nodes4)
     for name in ("nodes8", "nodes4", "clusters"):
@@ -425,3 +429,57 @@ def test_device_builder_on_the_card_equals_its_cpu_build(monkeypatch,
     for coherent in (False, True):
         assert torch.equal(trace2(got, rays, active, cfg, coherent),
                            trace2_plain(got, rays, active, cfg))
+
+
+MESH_CFG = dict(width=128, height=64, max_bounces=4, band_rays=4096)
+
+
+def _mesh_frame(mesh):
+    """A rank of the two-rank mesh: the terrain scene at MESH_CFG, frame
+    0 -> (u8 frame, rays) as numpy on rank 0."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.parallel.sharding import MeshRenderer
+    from raytracer_tpu_torch.scene.builder import \
+        build_fast_scene_from_arrays
+    from raytracer_tpu_torch.utils import assets
+
+    verts = assets.make_terrain(n=48, extent=30.0)
+    mats = np.full((verts.shape[0], 4), 0.6, np.float32)
+    mats[:, 3] = 0.0
+    scene = build_fast_scene_from_arrays(verts, mats, device=mesh.device)
+    cfg = RenderConfig(**MESH_CFG)
+    launches.reset()
+    _, image, stats = MeshRenderer(cfg, mesh).render(
+        scene, default_camera(cfg.width, cfg.height).uniforms(
+            device=mesh.device))
+    assert launches.kernel["bounce12"] > 0 and not launches.plain
+    return image.cpu().numpy(), int(stats["rays_traced"])
+
+
+def test_two_rank_gloo_mesh_on_one_card_equals_one_device():
+    """Two ranks on cuda:0 over gloo against one device: u8 frame and
+    rays equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc)")
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.parallel.sharding import launch
+    from raytracer_tpu_torch.scene.builder import \
+        build_fast_scene_from_arrays
+    from raytracer_tpu_torch.utils import assets
+
+    run = launch(_mesh_frame, 2, devices=["cuda:0"] * 2, timeout=300)
+    assert run.backend == "gloo"
+    verts = assets.make_terrain(n=48, extent=30.0)
+    mats = np.full((verts.shape[0], 4), 0.6, np.float32)
+    mats[:, 3] = 0.0
+    scene = build_fast_scene_from_arrays(verts, mats, device="cuda")
+    cfg = RenderConfig(**MESH_CFG)
+    _, image, stats = Renderer(cfg).render(
+        scene, default_camera(cfg.width, cfg.height).uniforms())
+    got, rays = run.results[0]
+    assert got.tobytes() == image.cpu().numpy().tobytes()
+    assert rays == int(stats["rays_traced"])

@@ -177,17 +177,53 @@ def test_refusals_and_card_errors_pass_through(objs, monkeypatch, error):
 
 @pytest.mark.parametrize("env", [
     {"RAYTPU_DEVICE_BUILD": "bvh"},
-    {"RAYTPU_DEVICE_BUILD": "lbvh", "RAYTPU_DEVICE_TREE": "ploc"},
-    {"RAYTPU_DEVICE_BUILD": "refit", "RAYTPU_DEVICE_TREE": "ploc"}],
-    ids=["unknown_build", "ploc_tree", "ploc_tree_through_fallback"])
+    {"RAYTPU_DEVICE_BUILD": "refit", "RAYTPU_DEVICE_TREE": "sah"}],
+    ids=["unknown_build", "unknown_tree_through_fallback"])
 def test_refused_knobs_raise(objs, monkeypatch, env):
-    """The last case reaches the LBVH only through the refit fallback
-    (a one-leaf plane cannot be captured)."""
+    """An unknown build or tree raises; the tree knob is read where the
+    LBVH builds, which the last case reaches only through the refit
+    fallback (a one-leaf plane cannot be captured)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     b = DeviceSceneBuilder(device="cpu")
     with pytest.raises(NotImplementedError):
         b.build([ModelInstance(objs["plane"], scale=(30, 1, 30))])
+
+
+@pytest.mark.parametrize("build,plane_only", [("lbvh", False),
+                                              ("refit", True)],
+                         ids=["lbvh", "refit_fallback"])
+def test_ploc_tree_through_each_route(objs, monkeypatch, build, plane_only):
+    """``RAYTPU_DEVICE_TREE=ploc`` builds the device PLOC tree on the
+    LBVH route and on the refit mode's fallback (a one-leaf plane cannot
+    be captured): ``last_mode`` "lbvh", the tables those of
+    ``build_fast_scene_device_ploc`` on the assembled soup."""
+    from raytracer_tpu_torch.bvh.ploc_device import \
+        build_fast_scene_device_ploc
+    from raytracer_tpu_torch.core.fast_types import ROW_TRIS
+    from raytracer_tpu_torch.scene.builder import bucket
+
+    monkeypatch.setenv("RAYTPU_DEVICE_BUILD", build)
+    monkeypatch.setenv("RAYTPU_DEVICE_TREE", "ploc")
+    insts = ([ModelInstance(objs["plane"], scale=(30, 1, 30))]
+             if plane_only else _instances(objs))
+    b = DeviceSceneBuilder(device="cpu")
+    scene = b.build(insts)
+    assert b.last_mode == "lbvh" and not b._refit_cache
+    meshes = [b._mesh(inst.model_path) for inst in insts]
+    total = sum(m.shape[0] for m in meshes)
+    want = build_fast_scene_device_ploc(*device_builder._assemble(
+        meshes, b._params(insts), bucket(-(-total // ROW_TRIS) * ROW_TRIS)))
+    for name in ("nodes8", "nodes4", "clusters"):
+        assert torch.equal(getattr(scene, name).view(torch.int32),
+                           getattr(want, name).view(torch.int32)), name
+    assert (scene.num_nodes, scene.num_nodes4, scene.num_triangles) == (
+        want.num_nodes, want.num_nodes4, total)
+    assert _walk_terminates(scene)
+    if not plane_only:
+        np.testing.assert_allclose(
+            _linear(scene), _linear(build_fast_scene(insts, device="cpu")),
+            atol=3e-5)
 
 
 def test_missing_meshes_skip_and_empty_builds_on_the_host(objs):

@@ -1,7 +1,7 @@
 """The port's headless CLI: argument handling against the JAX parser, its
 refusal to render on ``cuda`` without a card, a scene JSON rendered on
-the CPU, checkpoint resume against a straight run, and the multi-device
-flags it does not port."""
+the CPU, checkpoint resume against a straight run, and ``--devices`` /
+``--sp`` on CPU ranks against a single-device run."""
 
 import numpy as np
 import pytest
@@ -99,7 +99,28 @@ def test_checkpoint_resume_equals_a_straight_run(tmp_path, monkeypatch):
         (tmp_path / "b.png").read_bytes()
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--sp", "2"]])
-def test_multi_device_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        headless.main(["--default-scene", "--device", "cpu", *flag])
+@pytest.mark.parametrize("flags,spp", [(["--devices", "2"], 1),
+                                       (["--devices", "2", "--sp", "2"], 2)],
+                         ids=["dp2", "sp2"])
+def test_multi_device_png_equals_single_device(tmp_path, monkeypatch, flags,
+                                               spp):
+    """``--devices`` on CPU ranks over gloo: the PNG and the checkpoint's
+    whole-frame accumulator are byte-equal to a single-device run's."""
+    scene = _scene_json(tmp_path, monkeypatch)
+    common = ["--scene", scene, "--frames", "2", "--spp", str(spp), *SMALL]
+    one, mesh = tmp_path / "one", tmp_path / "mesh"
+    headless.main([*common, "-o", f"{one}.png", "--checkpoint",
+                   f"{one}.npz"])
+    headless.main([*common, "-o", f"{mesh}.png", "--checkpoint",
+                   f"{mesh}.npz", *flags])
+    assert (tmp_path / "mesh.png").read_bytes() == \
+        (tmp_path / "one.png").read_bytes()
+    with np.load(f"{one}.npz") as a, np.load(f"{mesh}.npz") as b:
+        assert a["accum"].tobytes() == b["accum"].tobytes()
+        assert int(a["frame_count"]) == int(b["frame_count"]) == 2
+
+
+def test_multi_device_spp_must_divide_by_sp():
+    with pytest.raises(SystemExit):
+        headless.main(["--default-scene", "--device", "cpu", "--devices",
+                       "2", "--sp", "2", "--spp", "3"])

@@ -405,6 +405,34 @@ def job_frames(inp):
     return out
 
 
+def job_mesh(inp):
+    """The JAX ``MeshRenderer`` on a (``dp``, ``sp``) mesh of virtual CPU
+    devices (the child's ``XLA_FLAGS`` must force that many), production
+    knobs, ``frames`` progressive frames of the job's scene, config and
+    camera; the scene's tables and each frame's uniforms with them."""
+    from raytracer_tpu.core.camera import Camera
+    from raytracer_tpu.parallel.sharding import MeshRenderer, make_mesh
+
+    scene, cfg = _scene(inp), _cfg(inp)
+    out = _leaves(scene, "scene_")
+    cam = Camera(origin=inp["cam_origin"], look_at=inp["cam_look"],
+                 vfov_deg=float(inp["cam_vfov"]),
+                 aspect_ratio=cfg.width / cfg.height)
+    dp, sp = int(inp["dp"]), int(inp["sp"])
+    r = MeshRenderer(cfg, mesh=make_mesh(n_devices=dp * sp, sp=sp))
+    rscene = r.prepare_scene(scene)
+    accum = None
+    for fc in range(int(inp["frames"])):
+        cam.frame_count = fc
+        uni = cam.uniforms()
+        out.update(_leaves(uni, f"cam{fc}_"))
+        accum, image, stats = r.render(rscene, uni, accum)
+        out[f"accum_{fc}"] = np.asarray(accum)
+        out[f"image_{fc}"] = np.asarray(image)
+        out[f"rays_{fc}"] = np.float64(stats["rays_traced"])
+    return out
+
+
 def job_chain(inp):
     """``Renderer.render_chain`` of ``k`` frames from frame count ``fc``
     over the per-ray path (a GpuScene: XLA loops, no Pallas kernel)."""
@@ -525,6 +553,24 @@ def job_lbvh(inp):
     return out
 
 
+def job_ploc_device(inp):
+    """bvh/ploc_device.py, eager XLA (no Pallas): ``jax.jit`` of
+    ``build_fast_scene_device_ploc`` on each soup ``verts_<name>`` /
+    ``mats_<name>`` of ``soups``."""
+    import jax
+    import jax.numpy as jnp
+
+    from raytracer_tpu.bvh.ploc_device import build_fast_scene_device_ploc
+
+    build = jax.jit(build_fast_scene_device_ploc)
+    out = {}
+    for name in inp["soups"]:
+        fs = build(jnp.asarray(inp[f"verts_{name}"]),
+                   jnp.asarray(inp[f"mats_{name}"]))
+        out.update(_leaves(fs, f"{name}_"))
+    return out
+
+
 def job_instanced(inp):
     """scene/instanced.py: ``prep_mesh_blas`` of each ``mesh_<i>`` and
     ``combine_instanced`` for each ``k_<k>`` (mesh index per instance)
@@ -604,8 +650,10 @@ def job_multi(inp):
 JOBS = {"trace": job_trace, "bounce": job_bounce,
         "tonemap": job_tonemap, "rng": job_rng, "renderer": job_renderer,
         "trace_shadings": job_trace_shadings, "bounce15": job_bounce15,
-        "frames": job_frames, "chain": job_chain, "per_ray": job_per_ray,
-        "lbvh": job_lbvh, "instanced": job_instanced, "refit": job_refit,
+        "frames": job_frames, "mesh": job_mesh, "chain": job_chain,
+        "per_ray": job_per_ray,
+        "lbvh": job_lbvh, "ploc_device": job_ploc_device,
+        "instanced": job_instanced, "refit": job_refit,
         "multi": job_multi}
 
 
