@@ -93,10 +93,31 @@ Phases, one or more lines each (any failure raises and exits non-zero):
     against its single-device PNG (two cards, else ``--device cpu`` at
     64x32);
 
+18. the XLA render path: the ``mega`` kernel against the plain
+    megakernel (width levels and all) on the middle 720p band from bounce
+    0 (``RAYTPU_B0=mega``'s raster primaries) and from bounce 1
+    (``RAYTPU_BOUNCE=mega``'s state after kernel A), 0 differing colour
+    bytes, with its device time, plain time, bound and lane occupancy;
+    ``RAYTPU_BOUNCE=mega``, ``RAYTPU_B0=mega``, ``RAYTPU_B0=packet`` and
+    ``RAYTPU_B0=pwave`` at 1280x720, 10 bounces, in turns with the
+    default (default, each path, each again in reverse, default; 4
+    frames each): FPS, ms a frame, Mrays/s, kernel launches and device
+    activities a frame; C12 with ``RAYTPU_B0=mega`` (640x480, 16 frames),
+    its image equal to phase 7's; a 256x128 frame per path through the
+    kernels and the plain versions (0 differing pixels, ``b0_pwave``
+    kernel B's tie lanes);
+19. the host builds (``RAYTPU_BVH=median|sbvh|ploc`` and
+    ``RAYTPU_LEAF_COUNTS=0`` of the flagship soup, ``RAYTPU_NATIVE=0`` of
+    the ``sphere_light`` preset): build seconds, node, wide and
+    leaf-reference counts, kernels A, B, ``trace2`` and ``trace2_warp``
+    on each table against their plain versions (0 differing lanes), one
+    frame each (a table whose walk needs more than the kernels' 256 stack
+    slots is refused, and the refusal is printed);
+
 then a JSON line of per-kernel results (with each CUDA kernel's
 registers, local and shared bytes and resident blocks per SM as the main
-path launches it, and its launches per frame on the PLOC drag and on
-each mesh) and, last, the JSON result line.
+path launches it, and its launches per frame on the PLOC drag, on each
+mesh and on each XLA path) and, last, the JSON result line.
 Each path run resets the launch counts just before it, reads them just
 after and fails unless each of its kernels launched and no plain version
 ran. Imports nothing of JAX.
@@ -694,8 +715,8 @@ def packed_round_profile(scene, sf, si, cfg, want) -> dict:
 def plain_versions():
     """Route the render modules to the plain versions."""
     from raytracer_tpu_torch.engine import renderer
-    from raytracer_tpu_torch.kernels import (bounce, packet, tonemap, trace,
-                                             wavefront)
+    from raytracer_tpu_torch.kernels import (bounce, mega, packet, tonemap,
+                                             trace, wavefront)
 
     slots = [(trace, "trace4", trace.trace4_plain),
              (trace, "trace2", trace.trace2_plain),
@@ -703,6 +724,9 @@ def plain_versions():
              (wavefront, "bounce15", bounce.bounce15_plain),
              (wavefront, "bounce_packed", bounce.bounce_packed_plain),
              (packet, "bounce15", bounce.bounce15_plain),
+             (packet, "_traverse_fast", packet.ray_traverse_fast),
+             (packet, "_traverse_groups", packet.packet_traverse),
+             (mega, "mega", mega.mega_plain),
              (renderer, "tonemap_accumulate", tonemap.tonemap_plain)]
     saved = [getattr(m, n) for m, n, _ in slots]
     for m, n, f in slots:
@@ -1622,6 +1646,221 @@ def check_mesh(frames: int = 8) -> dict:
     return out
 
 
+# Phase 18: the XLA render path's knobs -> (their knobs, the kernels a
+# frame launches, the plain versions a frame books).
+XLA_PATHS = {
+    "bounce_mega": ({"RAYTPU_BOUNCE": "mega"}, ("trace4", "mega", "tonemap"),
+                    ("trace4", "mega")),
+    "b0_mega": ({"RAYTPU_B0": "mega"}, ("mega", "tonemap"), ("mega",)),
+    "b0_packet": ({"RAYTPU_B0": "packet"},
+                  ("trace2_warp", "mega", "tonemap"), ("trace2_warp",
+                                                       "mega")),
+    "b0_pwave": ({"RAYTPU_B0": "pwave"}, ("bounce12", "tonemap"),
+                 ("bounce12",)),
+}
+
+
+def band_raster(scene, cfg, cam):
+    """The middle band's primaries as ``RAYTPU_B0=mega`` makes them (raster
+    order, no pad): (ray_o, ray_d, color, atten, seed, alive, pix)."""
+    import dataclasses
+
+    from raytracer_tpu_torch.engine.renderer import _num_bands
+    from raytracer_tpu_torch.kernels.tracer import (initial_seed,
+                                                    make_primary_rays)
+
+    nb = _num_bands(cfg)
+    band_h = cfg.height // nb
+    bcfg = dataclasses.replace(cfg, height=band_h)
+    p = band_h * cfg.width
+    i = torch.arange(p, device="cuda")
+    xx, yy = i % cfg.width, i // cfg.width + nb // 2 * band_h
+    seed = initial_seed(cam, bcfg, yy * cfg.width + xx, 0)
+    seed, ray_o, ray_d = make_primary_rays(cam, bcfg, seed, xx, yy,
+                                           cfg.height)
+    zero = torch.zeros(p, device="cuda")
+    one = torch.ones(p, device="cuda")
+    return (ray_o, ray_d, (zero,) * 3, (one,) * 3, seed,
+            torch.ones(p, dtype=torch.bool, device="cuda"), i)
+
+
+def walk_occupancy(walks: torch.Tensor, warp: int = 32) -> dict:
+    """Walks (bounces run) per ray of a mega call and the lane occupancy of
+    one ray per thread: the walks run over 32 x the longest path of each
+    warp of 32 consecutive rays."""
+    it = torch.nn.functional.pad(walks, (0, -walks.numel() % warp))
+    longest = int(it.view(-1, warp).amax(1).sum())
+    return dict(occupancy=int(walks.sum()) / max(warp * longest, 1),
+                mean_walks=float(walks.float().mean()),
+                max_walks=int(walks.max()))
+
+
+def check_mega(scene, cfg, cam, results):
+    """The mega kernel against the plain megakernel (its width levels and
+    all) on the middle 720p band, from bounce 0 (the ``RAYTPU_B0=mega``
+    state: raster primaries) and from bounce 1 (the ``RAYTPU_BOUNCE=mega``
+    state: tile-major, after kernel A and the shade, pads dropped): 0
+    differing colour bytes, rays traced equal; the kernel's device time,
+    a call's time, the plain version's, the bound and the lane
+    occupancy."""
+    from raytracer_tpu_torch.engine.renderer import _num_bands
+    from raytracer_tpu_torch.kernels.mega import mega
+    from raytracer_tpu_torch.kernels.packet import megakernel_bounces
+
+    n_out = cfg.height // _num_bands(cfg) * cfg.width
+    tables = nbytes(scene.nodes8, scene.clusters, scene.cluster_counts)
+    rows = {}
+    for start, state in ((0, band_raster(scene, cfg, cam)),
+                         (1, band_bounce1(scene, cfg, cam))):
+        o, d, c, a, seed, alive, pix = state
+        args = (scene, o, d, c, a, seed, alive, True, cfg, start, pix,
+                n_out)
+        got, rays = mega(*args)
+        (want, want_rays, walks), work = plain_work(
+            lambda: megakernel_bounces(*args, walks=True))
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32))
+                     .any(0).sum())
+        err = (got - want).abs().max().item()
+        ms = device_ms(lambda: mega(*args), 10, "mega_kernel")
+        call_ms = time_ms(lambda: mega(*args), 10)
+        plain_ms = time_ms(lambda: megakernel_bounces(*args), 1, warm=False)
+        lanes = walk_occupancy(walks)
+        p = alive.shape[0]
+        # The ray state in (12 floats, seed, alive, pixel id), the colours
+        # out, the tables once.
+        b = bound(p * (12 * 4 + 4 + 1 + 4) + 3 * 4 * n_out + tables, work)
+        print(f"check mega from bounce {start}, {p} rays: differing pixels "
+              f"{n_diff}, rays traced {int(rays)} vs {int(want_rays)}; "
+              f"kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a call, "
+              f"plain {plain_ms:.2f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); walks a ray {lanes['mean_walks']:.4f} "
+              f"(max {lanes['max_walks']}), lane occupancy of one ray per "
+              f"thread {lanes['occupancy']:.4f}; work {work}")
+        assert n_diff == 0 and err == 0.0 and int(rays) == int(want_rays)
+        rows[start] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                           plain_ms=plain_ms, rays=int(rays), **lanes, **b)
+    # The bounce-0 call (RAYTPU_B0=mega: the whole band in one launch) is
+    # the kernel's row; the bounce-1 call rides beside it.
+    results["mega"] = dict(rows[0], from_bounce1=rows[1])
+
+
+def frame_launches(scene, cfg, cam, env) -> int:
+    """Device activities (kernels, copies, memsets) of one frame under the
+    knobs ``env``, from the profiler."""
+    from raytracer_tpu_torch.engine.renderer import Renderer
+
+    with knob_env(env):
+        r = Renderer(cfg)
+        r.render(scene, cam.uniforms())
+        return device_launches(lambda: r.render(scene, cam.uniforms()))
+
+
+def run_xla_paths(scene, cfg, cam, frames: int = 4) -> dict:
+    """Phase 18's frames: the default path and each XLA-path knob at full
+    width, in turns (default, each path, each path again in reverse,
+    default): FPS per turn, ms a frame, Mrays/s, kernel launches a frame
+    and device activities a frame."""
+    order = (["default"] + list(XLA_PATHS) + list(reversed(XLA_PATHS))
+             + ["default"])
+    turns = {}
+    for label in order:
+        env, kernels = (({}, ("trace4", "bounce12", "tonemap"))
+                        if label == "default" else XLA_PATHS[label][:2])
+        turns.setdefault(label, []).append(run_path(
+            f"XLA A/B {label}", scene, cfg, cam, frames, env, kernels))
+    out = {}
+    for label, runs in turns.items():
+        env = {} if label == "default" else XLA_PATHS[label][0]
+        fps = [r["fps"] for r in runs]
+        out[label] = dict(
+            fps=fps, ms=[r["ms"] for r in runs],
+            mrays=[r["mrays"] for r in runs],
+            launches_per_frame={k: v / frames
+                                for k, v in runs[-1]["counts"].items()},
+            device_launches_per_frame=frame_launches(scene, cfg, cam, env),
+            image=runs[-1]["image"], counts=runs[-1]["counts"])
+        print(f"XLA A/B {label}: FPS {', '.join(f'{x:.3f}' for x in fps)}, "
+              f"ms a frame {', '.join(f'{x:.2f}' for x in out[label]['ms'])}"
+              f", Mrays/s {', '.join(f'{x:.2f}' for x in out[label]['mrays'])}"
+              f"; kernel launches a frame {out[label]['launches_per_frame']}"
+              f"; device activities a frame "
+              f"{out[label]['device_launches_per_frame']}")
+    return out
+
+
+# Phase 19: the host builds -> their knobs.
+HOST_BUILDS = {"median": {"RAYTPU_BVH": "median"},
+               "sbvh": {"RAYTPU_BVH": "sbvh"},
+               "ploc": {"RAYTPU_BVH": "ploc"},
+               "leaf_counts_off": {"RAYTPU_LEAF_COUNTS": "0"},
+               "numpy": {"RAYTPU_NATIVE": "0"}}
+
+
+def check_host_builds(cfg, cam) -> dict:
+    """Phase 19: each host build (``HOST_BUILDS``) of the flagship soup
+    (``RAYTPU_NATIVE=0``: of the ``sphere_light`` preset, its meshes
+    parsed by the Python ``.obj`` parser): build seconds, node, wide and
+    leaf-reference counts; kernels A, B, ``trace2`` and ``trace2_warp`` on
+    its tables against their plain versions (0 differing lanes); one frame
+    at full width. A table whose walk would need more stack slots than
+    the kernels have is refused, and the refusal is recorded."""
+    from raytracer_tpu_torch.kernels import wavefront
+    from raytracer_tpu_torch.kernels.bounce import (UNIFORM_BUDGET,
+                                                    pack_state)
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scene.builder import (
+        build_fast_scene, build_fast_scene_from_arrays)
+
+    verts, mats, _ = presets.flagship_arrays()
+    out = {}
+    for name, env in HOST_BUILDS.items():
+        bcfg, bcam = cfg, cam
+        with knob_env(env):
+            t0 = time.perf_counter()
+            try:
+                if name == "numpy":
+                    pre = presets.config2_sphere_light()
+                    bcfg, bcam = pre.config, pre.camera
+                    scene = build_fast_scene(pre.scene.create_snapshot())
+                else:
+                    scene = build_fast_scene_from_arrays(verts, mats)
+            except ValueError as e:
+                if "STACK_CAP" not in str(e):
+                    raise
+                print(f"host build {name}: refused ({e})")
+                out[name] = dict(refused=str(e))
+                continue
+            _sync()
+            build_s = time.perf_counter() - t0
+        uni = bcam.uniforms()
+        _, _, ray_o, ray_d, alive, _ = band_primaries(scene, bcfg, uni)
+        rays = torch.stack([*ray_o, *ray_d]).contiguous()
+        lanes = {n: int(compare_trace(scene, rays, alive, bcfg, n)[2].sum())
+                 for n in ("trace4", "trace2", "trace2_warp")}
+        o, d, color, atten, seed, live, pix = band_bounce1(scene, bcfg, uni)
+        atten = tuple(torch.where(live, a, c) for a, c in zip(atten, color))
+        state = pack_state(o, d, atten, seed, live, UNIFORM_BUDGET, pix)
+        state, _ = wavefront._sorted(state,
+                                     wavefront._state_key(state, scene))
+        lanes["bounce12"] = compare_bounce(scene, state, bcfg,
+                                           f"{name} tables")[0]
+        run = run_path(f"host build {name}", scene, bcfg, bcam, 1, {},
+                       ("trace4", "bounce12", "tonemap"))
+        out[name] = dict(build_s=build_s, triangles=scene.num_triangles,
+                         nodes=scene.num_nodes, wide_nodes=scene.num_nodes4,
+                         references=int(scene.cluster_counts.sum()),
+                         differing_lanes=lanes, frame_ms=run["ms"],
+                         width=bcfg.width, height=bcfg.height)
+        print(f"host build {name}: {scene.num_triangles} triangles, "
+              f"{out[name]['references']} leaf references, "
+              f"{scene.num_nodes} nodes, {scene.num_nodes4} wide, built in "
+              f"{build_s:.3f} s; kernels vs plain on its tables, differing "
+              f"lanes {lanes}; one {bcfg.width}x{bcfg.height} frame "
+              f"{run['ms']:.2f} ms")
+        assert not any(lanes.values()), (name, lanes)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1760,6 +1999,24 @@ def main() -> None:
     mesh_run = check_mesh()
     mesh_launches = mesh_run["gloo"]
 
+    # Phase 18: the XLA render path: the mega kernel against its plain
+    # version, the paths at full width in turns with the default, C12 with
+    # RAYTPU_B0=mega against phase 7's image, 256x128 frames kernels
+    # against plain versions.
+    check_mega(scene, cfg, uni, results)
+    xla_runs = run_xla_paths(scene, cfg, cam)
+    c12_mega = run_path("C12 B0=mega", scene12, cfg12, cam12, 16,
+                        {"RAYTPU_B0": "mega"}, ("trace2", "tonemap"))
+    assert np.array_equal(c12_mega["image"], c12_runs["trace4"]["image"])
+    for label, (env, _, plain) in XLA_PATHS.items():
+        small_frame(label, scene, cfg5, cam5, env, plain,
+                    ties if label == "b0_pwave" else 0)
+    small_frame("C12 B0=mega", scene12, cfg8, cam8, {"RAYTPU_B0": "mega"},
+                ("trace2",), 0)
+
+    # Phase 19: the host builds, kernels on each table, one frame each.
+    host_builds = check_host_builds(cfg, cam)
+
     launches_on_path = {
         "trace4": main_run["counts"]["trace4"],
         "bounce12": main_run["counts"]["bounce12"],
@@ -1767,7 +2024,8 @@ def main() -> None:
         "trace2": split_run["counts"]["trace2"],
         "trace2_warp": split_run["counts"]["trace2_warp"],
         "bounce15": pmega_run["counts"]["bounce15"],
-        "bounce_packed": packed_run["counts"]["bounce_packed"]}
+        "bounce_packed": packed_run["counts"]["bounce_packed"],
+        "mega": xla_runs["b0_mega"]["counts"]["mega"]}
     srcs = {"tonemap": ("cuda", "raytracer_tpu_torch/csrc/tonemap.cu",
                         "raytracer_tpu/kernels/pallas_ops.py:25"),
             "trace4": ("cuda", "raytracer_tpu_torch/csrc/trace4.cu",
@@ -1781,7 +2039,9 @@ def main() -> None:
             "bounce15": ("cuda", "raytracer_tpu_torch/csrc/bounce12.cu",
                          "raytracer_tpu/kernels/pallas_mega.py:800"),
             "bounce_packed": ("cuda", "raytracer_tpu_torch/csrc/bounce12.cu",
-                              "raytracer_tpu/kernels/pallas_mega.py:645")}
+                              "raytracer_tpu/kernels/pallas_mega.py:645"),
+            "mega": ("cuda", "raytracer_tpu_torch/csrc/mega.cu",
+                     "raytracer_tpu/kernels/packet.py:281")}
     for k in srcs:
         # The bounce15 row is the pmega call: its persistent-warp kernel.
         attrs = cuda_build.kernel_attrs(
@@ -1803,13 +2063,22 @@ def main() -> None:
                    "engine": engine_run, "viewer": viewer_run,
                    "ploc": {"device_build": device_builds["lbvh_ploc"],
                             "drag": drag_runs["lbvh_ploc"]},
-                   "mesh": mesh_run}, f, indent=1)
+                   "mesh": mesh_run,
+                   "mega": results["mega"],
+                   "xla_paths": {k: {m: v for m, v in r.items()
+                                     if m != "image"}
+                                 for k, r in xla_runs.items()},
+                   "c12_b0_mega": {m: v for m, v in c12_mega.items()
+                                   if m != "image"},
+                   "host_builds": host_builds}, f, indent=1)
     # Launches per frame on this slice's paths: the PLOC drag and each
     # mesh (all ranks).
     new_paths = {"drag_lbvh_ploc": drag_runs["lbvh_ploc"][
         "launches_per_frame"]}
     new_paths.update({f"mesh_{shape}": mesh_launches[shape][
         "launches_per_frame"] for shape in ("2x1", "1x2", "2x2")})
+    new_paths.update({f"xla_{label}": run["launches_per_frame"]
+                      for label, run in xla_runs.items()})
     print(json.dumps({"kernels": [
         dict(name=k, route=route, source=src, replaces=rep,
              launches=launches_on_path[k], **results[k],

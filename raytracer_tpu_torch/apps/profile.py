@@ -48,6 +48,10 @@ PATHS = {
     "fused": {"RAYTPU_WAVE": "fused"},
     "fused_packed": {"RAYTPU_WAVE": "fused_packed"},
     "split_binary": {"RAYTPU_WAVE": "split", "RAYTPU_TRAVERSE": "binary"},
+    "bounce_mega": {"RAYTPU_BOUNCE": "mega"},
+    "b0_mega": {"RAYTPU_B0": "mega"},
+    "b0_packet": {"RAYTPU_B0": "packet"},
+    "b0_pwave": {"RAYTPU_B0": "pwave"},
 }
 
 

@@ -46,14 +46,16 @@ def nodes4_stack_need(nodes4: np.ndarray) -> int:
 
 
 def collapse4(nodes8: np.ndarray, num_nodes: int,
-              cluster_counts: np.ndarray, return_depth: bool = False,
+              cluster_counts: np.ndarray | None,
+              return_depth: bool = False,
               return_slots: bool = False):
     """Collapse pre-order binary ``nodes8`` (bounds + bitcast-i32 skip /
     col7 links) into the 8-wide table -> (f32[n_wide, 128], n_wide
     [, depth][, slot_rows]).
 
     ``cluster_counts``: i32[L] live-triangle count per cluster id, encoded
-    into the leaf metas so the kernels skip padded half-clusters.
+    into the leaf metas so the kernels skip padded half-clusters; None
+    encodes full counts (``RAYTPU_LEAF_COUNTS=0``).
     ``return_depth`` adds the wide tree's depth (max node depth + 1), so a
     caller that grafts the table under more levels (the instanced TLAS,
     ``scene/instanced.py``) can check the stack bound again;
@@ -117,7 +119,8 @@ def collapse4(nodes8: np.ndarray, num_nodes: int,
             f"slots > STACK_CAP {STACK_CAP}")
 
     def leaf_meta(cid):
-        cnt = int(cluster_counts[cid])
+        cnt = (CLUSTER_SIZE if cluster_counts is None
+               else int(cluster_counts[cid]))
         if not (1 <= cnt <= CLUSTER_SIZE and cid < (1 << LEAF_CID_BITS)):
             raise ValueError(f"bad cluster {cid} (count {cnt})")
         return -((cid | ((cnt - 1) << LEAF_CID_BITS)) + 1)

@@ -64,6 +64,7 @@
 // i32[k, w] = seed, then k - 1 rows passed through; the budget is the
 // constant 1 << 30. Every build writes key i32[w] = (dead << 30) |
 // (cid << 3) | octant and adds (rays, live) into counts u64[2].
+#include "pcg.cuh"
 #include "walk.cuh"
 
 namespace {
@@ -71,12 +72,7 @@ namespace {
 constexpr int kRejectionRounds = 24;  // kernels/rng.py REJECTION_ROUNDS
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ uint32_t pcg(uint32_t v) {
-  const uint32_t state = v * 747796405u + 2891336453u;
-  const uint32_t word =
-      ((state >> ((state >> 28u) + 4u)) ^ state) * 277803737u;
-  return (word >> 22u) ^ word;
-}
+using rt::pcg;
 
 // pallas_mega._unit: u32 bits -> i32 -> f32, + 2^32 if negative, / 2^32.
 __device__ __forceinline__ float unit_two_step(uint32_t seed) {

@@ -14,14 +14,12 @@
 // designs, and the TPU kernel's tile walk, bit-equal to the per-ray walk,
 // equal-t tie winners included.
 //
-// - trace2_ray_kernel (rt_trace2; the split rounds): one thread walks one
-//   ray, with postponed leaves (the "while-while" loop of Aila and Laine,
-//   Understanding the Efficiency of Ray Traversal on GPUs, HPG 2009). A
-//   lane that hits a leaf parks it and stops; the others keep walking
-//   until each has parked one or finished, then the warp tests its parked
-//   leaves together, each lane only its leaf's live triangles.
+// - trace2_ray_kernel (rt_trace2; the split rounds and the JAX XLA walk
+//   ray_traverse_fast): one thread walks one ray, with postponed leaves
+//   (walk2.cuh rt::walk2, shared with the mega kernel).
 // - trace2_warp_kernel (rt_trace2_warp; bounce 0 and the fixed-light tier,
-//   whose warps hold neighbouring primaries): one node id per warp, the
+//   whose warps hold neighbouring primaries, and the JAX XLA group walk
+//   packet_traverse of RAYTPU_B0=packet): one node id per warp, the
 //   union walk of the TPU tile. A node is descended when any lane's ray
 //   hits it, its row read once as a broadcast; at a leaf the warp stages
 //   the 512-byte cluster row in shared memory with one coalesced load and
@@ -39,20 +37,13 @@
 // Prefetching a parked leaf into L1 or L2, and a register cap for 12
 // blocks per SM, measured slower.
 //
-// Table (core/fast_types.py): nodes8 f32[M, 8], one node per row: box min
-// xyz, max xyz, then two i32 columns stored as bits (read with
-// __float_as_int, never as values): skip link, and col7 = cluster id >= 0
-// for a leaf or -(left + 1) for an internal node. Rows >= num_nodes are
-// padding; the walk ends when the node id reaches num_nodes (the empty
-// scene has one all-miss node). counts i32[L]: each cluster's live
-// triangles (FastScene.cluster_counts); the records past them are all
-// zero and never hit.
+// Tables: walk2.cuh (the empty scene has one all-miss node).
 //
 // Layout: rays f32[6, P] (origin xyz, direction xyz rows), active u8[P];
 // out f32[8, P] = t, normal xyz, albedo rgb, material type (t = t_max and
 // zeros on a miss or an inactive ray). flip != 0 turns the winner's normal
 // to face the ray.
-#include "walk.cuh"
+#include "walk2.cuh"
 
 namespace {
 
@@ -69,24 +60,6 @@ struct Args {
   int p, num_nodes, flip;
   float t_min, t_max, det_eps;
 };
-
-// Slab test of one nodes8 row, read as (min xyz, max x), (max yz, skip,
-// col7), against the ray's closest t.
-__device__ __forceinline__ bool slab_hit(const float4& a, const float4& b,
-                                         const rt::Ray& r, float ivx,
-                                         float ivy, float ivz, float t_min,
-                                         float closest) {
-  const float lo0 = (a.x - r.ox) * ivx, hi0 = (a.w - r.ox) * ivx;
-  const float lo1 = (a.y - r.oy) * ivy, hi1 = (b.x - r.oy) * ivy;
-  const float lo2 = (a.z - r.oz) * ivz, hi2 = (b.y - r.oz) * ivz;
-  const float t_en =
-      rt::max_nan(rt::min_nan(lo0, hi0),
-                  rt::max_nan(rt::min_nan(lo1, hi1), rt::min_nan(lo2, hi2)));
-  const float t_ex =
-      rt::min_nan(rt::max_nan(lo0, hi0),
-                  rt::min_nan(rt::max_nan(lo1, hi1), rt::max_nan(lo2, hi2)));
-  return (t_ex > t_en) && (t_ex > t_min) && (t_en < closest);
-}
 
 __device__ __forceinline__ rt::Ray load_ray(const Args& a, int i) {
   const float* r = a.rays;
@@ -115,24 +88,8 @@ __global__ void __launch_bounds__(kThreads) trace2_ray_kernel(Args a) {
   rt::Hit h = {a.t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
   if (a.active[i]) {
     const rt::Ray r = load_ray(a, i);
-    const float ivx = 1.0f / r.dx, ivy = 1.0f / r.dy, ivz = 1.0f / r.dz;
-    int node = 0;
-    int leaf = -1;  // the parked leaf's cluster id
-    while (true) {
-      while (leaf < 0 && node < a.num_nodes) {
-        const float4 lo = __ldg(a.nodes + 2 * node);
-        const float4 hi = __ldg(a.nodes + 2 * node + 1);
-        const bool hit =
-            slab_hit(lo, hi, r, ivx, ivy, ivz, a.t_min, h.t);
-        const int col7 = __float_as_int(hi.w);
-        if (hit && col7 >= 0) leaf = col7;
-        node = (hit && col7 < 0) ? -col7 - 1 : __float_as_int(hi.z);
-      }
-      if (leaf < 0) break;
-      rt::mt_tris(a.clusters + (size_t)leaf * 128, 0, __ldg(a.counts + leaf),
-                  r, a.t_min, a.det_eps, leaf, h);
-      leaf = -1;
-    }
+    h = rt::walk2(a.nodes, a.clusters, a.counts, a.num_nodes, r, a.t_min,
+                  a.t_max, a.det_eps);
     if (a.flip) rt::face_ray(r, h);
   }
   store_hit(a, i, h);
@@ -154,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) trace2_warp_kernel(Args a) {
     const float4 lo = __ldg(a.nodes + 2 * node);
     const float4 hi = __ldg(a.nodes + 2 * node + 1);
     const bool hit =
-        act && slab_hit(lo, hi, r, ivx, ivy, ivz, a.t_min, h.t);
+        act && rt::slab_hit(lo, hi, r, ivx, ivy, ivz, a.t_min, h.t);
     const int col7 = __float_as_int(hi.w);
     const bool any = __any_sync(kFull, hit);
     if (col7 < 0) {

@@ -20,10 +20,10 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu", "tonemap.cu")
-HEADERS = ("walk.cuh",)
+SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu", "tonemap.cu", "mega.cu")
+HEADERS = ("walk.cuh", "walk2.cuh", "pcg.cuh")
 KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce12_pl",
-           "bounce15", "bounce15_pmega", "bounce_packed", "tonemap")
+           "bounce15", "bounce15_pmega", "bounce_packed", "tonemap", "mega")
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,6 +72,8 @@ def _declare(lib) -> None:
         i32, i32, i32, i32, f32, i32, f32, f32, f32, vp]
     lib.rt_tonemap.restype = i32
     lib.rt_tonemap.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp]
+    lib.rt_mega.restype = i32
+    lib.rt_mega.argtypes = [vp] * 9 + [i32] * 7 + [f32] * 4 + [vp]
     for name in KERNELS:
         fn = getattr(lib, f"rt_{name}_attrs")
         fn.restype = i32

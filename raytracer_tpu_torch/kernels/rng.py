@@ -39,10 +39,13 @@ def random_vec3(seed, active):
     return seed, (x, y, z)
 
 
-def random_vec3_in_unit_sphere(seed, active):
+def random_vec3_in_unit_sphere(seed, active, draws: list | None = None):
     """Masked, bounded rejection sampling of a point in the unit ball:
     3 discarded draws, then 3 draws per round for REJECTION_ROUNDS rounds
-    (an exhausted lane returns (0, 0, 0))."""
+    (an exhausted lane returns (0, 0, 0)). ``draws``: a list that gets
+    the count of each call's draws (0-d tensors, no host read)."""
+    if draws is not None:
+        draws.append(3 * active.sum())
     seed, _ = random_vec3(seed, active)
     zero = torch.zeros(active.shape, dtype=torch.float32,
                        device=active.device)
@@ -50,6 +53,8 @@ def random_vec3_in_unit_sphere(seed, active):
     accepted = ~active
     for _ in range(REJECTION_ROUNDS):
         need = active & ~accepted
+        if draws is not None:
+            draws.append(3 * need.sum())
         seed, (vx, vy, vz) = random_vec3(seed, need)
         cx = vx * 2.0 - 1.0
         cy = vy * 2.0 - 1.0

@@ -89,14 +89,15 @@ class ScatterResult(NamedTuple):
 
 
 def scatter(seed, ray_d, normal, albedo, mtype, hit,
-            cfg: RenderConfig) -> ScatterResult:
-    """Material response: Lambertian, metal / fuzzy metal, emissive."""
+            cfg: RenderConfig, draws: list | None = None) -> ScatterResult:
+    """Material response: Lambertian, metal / fuzzy metal, emissive.
+    ``draws``: see ``rng.random_vec3_in_unit_sphere``."""
     is_lam = mtype == 0.0
     is_metal = (mtype == 1.0) | (mtype == 2.0)
     is_emis = mtype == 3.0
 
     needs_draw = hit & (is_lam | is_metal)
-    seed, sph = rng.random_vec3_in_unit_sphere(seed, needs_draw)
+    seed, sph = rng.random_vec3_in_unit_sphere(seed, needs_draw, draws)
 
     sph_len = _length(sph)
     inv_sph = 1.0 / torch.where(needs_draw & (sph_len > 0.0), sph_len, 1.0)
@@ -128,9 +129,10 @@ def scatter(seed, ray_d, normal, albedo, mtype, hit,
 
 
 def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
-          sky_on: bool, cfg: RenderConfig):
+          sky_on: bool, cfg: RenderConfig, draws: list | None = None):
     """One bounce of shading: sky on miss, scatter / emit / absorb on hit.
-    Returns advanced (ray_o, ray_d, color, atten, seed, alive)."""
+    Returns advanced (ray_o, ray_d, color, atten, seed, alive).
+    ``draws``: see ``rng.random_vec3_in_unit_sphere``."""
     hit = alive & res.hit
     miss = alive & ~hit
 
@@ -140,7 +142,7 @@ def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
     color = _where(miss, tuple(a * s for a, s in zip(atten, sky)), color)
 
     sc = scatter(seed, ray_d, res.normal, res.mat_albedo, res.mat_type,
-                 hit, cfg)
+                 hit, cfg, draws)
     color = tuple(c + e * a for c, e, a in zip(color, sc.emitted, atten))
     hit_pos = tuple(o + d * res.closest_t for o, d in zip(ray_o, ray_d))
     atten = _where(sc.scattered,

@@ -208,10 +208,14 @@ class _Ladder:
 
 def wavefront_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
                       alive, sky_on: bool, cfg: RenderConfig, pix,
-                      handoff_width: int | None = None):
-    """Sorted bounce rounds 1.. over flat [P] SoA state after bounce 0
-    (P a multiple of BBLOCK), on the engine ``knobs.wave_engine()``.
-    ``pix``: each ray's deposit cell, pads >= P.
+                      handoff_width: int | None = None,
+                      start_bounce: int = 1):
+    """Sorted bounce rounds ``start_bounce``.. over flat [P] SoA state (P a
+    multiple of BBLOCK), on the engine ``knobs.wave_engine()``: from
+    bounce 1 after the bounce-0 shade, or from bounce 0 on unshaded
+    primaries (``RAYTPU_B0=pwave``: the first round's key is computed from
+    them, and the rounds' rays include bounce 0's). ``pix``: each ray's
+    deposit cell, pads >= P.
 
     Returns (color f32[3, P], rays traced (int64 tensor), survivors):
     ``survivors`` is None, or with ``handoff_width`` the round state
@@ -243,7 +247,7 @@ def wavefront_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
     key = _state_key(state, scene, engine)
     out = torch.zeros((3, p + 1), dtype=torch.float32, device=alive.device)
     lad = _Ladder(scene, sky_on, cfg, out, engine)
-    bounce = 1
+    bounce = start_bounce
     widths = round_widths(p)
     for li, width in enumerate(widths):
         if handoff_width is not None and width <= handoff_width:

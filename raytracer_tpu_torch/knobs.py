@@ -3,12 +3,16 @@ time.
 
 Each function reads its variable when it is called, so a process may
 switch paths between frames (there is no trace cache to key on them). The
-defaults are the JAX package's TPU defaults. A value that names a path
-with no Pallas kernel behind it (the XLA megakernel ``RAYTPU_BOUNCE=mega``,
-the ``RAYTPU_B0`` variants) raises ``NotImplementedError`` naming the knob.
+defaults are the JAX package's TPU defaults (``RAYTPU_B0=pallas``,
+``RAYTPU_BOUNCE=wave``); the JAX package's default on other backends, the
+XLA render path (``mega``), is reached only through the knobs, as on the
+TPU. A value the port does not have raises ``NotImplementedError`` naming
+the knob.
 
-* ``RAYTPU_BOUNCE``: ``wave`` (sorted rounds) or ``pmega`` (one sort, then
-  the whole bounce chain in one kernel call);
+* ``RAYTPU_BOUNCE``: ``wave`` (sorted rounds), ``pmega`` (one sort, then
+  the whole bounce chain in one kernel call) or ``mega`` (the fused
+  per-ray loop of ``kernels/packet.megakernel_bounces``, the ``mega``
+  kernel, from bounce 1);
 * ``RAYTPU_WAVE``: the round engine, ``fused12``, ``fused``,
   ``fused_packed`` or ``split``;
 * ``RAYTPU_TRAVERSE``: ``bvh4`` walks the 8-wide table; any other value
@@ -16,7 +20,22 @@ the ``RAYTPU_B0`` variants) raises ``NotImplementedError`` naming the knob.
   reads it);
 * ``RAYTPU_NODE_SRC``: ``pack`` or ``extract``; ``extract`` also selects
   the binary walk;
-* ``RAYTPU_B0``: ``pallas`` only (bounce 0 through the traversal kernel);
+* ``RAYTPU_B0``: ``pallas`` (bounce 0 through the traversal kernel, then
+  ``RAYTPU_BOUNCE``), ``pwave`` (bounce 0 inside the sorted rounds, kernel
+  B from bounce 0), ``mega`` (every bounce in the ``mega`` kernel, raster
+  order) or ``packet`` (8x8-tile groups through the union walk, then the
+  ``mega`` kernel from bounce 1); ``mega`` and ``packet`` ignore
+  ``RAYTPU_BOUNCE``, as in the JAX package; under any value but
+  ``pallas`` the fixed-light tier walks the binary table per ray
+  (``trace2``) on raster primaries;
+* ``RAYTPU_BVH``: the host tree of every scene pack, ``sah`` (default),
+  ``median``, ``sbvh`` (spatial splits: ``order`` repeats triangles) or
+  ``ploc``; ``RAYTPU_NATIVE=0`` builds it in NumPy (``median`` for
+  ``sah`` / ``median`` / ``sbvh``, as the JAX package falls back, and the
+  NumPy PLOC for ``ploc``), packs clusters in NumPy and parses ``.obj``
+  in Python; ``RAYTPU_LEAF_COUNTS=0`` encodes full counts in the wide
+  leaf metas. With the native library on, a native failure raises (the
+  JAX package logs it and builds a median tree instead);
 * ``RAYTPU_DEVICE_BUILD``: the live-edit scene build
   (``scene/device_builder.py``), ``instanced`` (default), ``refit`` or
   ``lbvh``; ``RAYTPU_DEVICE_TREE``: the LBVH build's tree, ``karras``
@@ -31,21 +50,27 @@ Counts read at call time where the JAX package reads them (``count``):
 
 The JAX package's other result-bearing knobs select A/B variants that the
 port has not ported (``FIXED``: tail merge, sort key, round schedule and
-glue, table layout, BVH builder, native library). Each is read where the
-JAX package reads it, and any value but its JAX default raises
-``NotImplementedError``.
+glue, table layout). Each is read where the JAX package reads it, and any
+value but its JAX default raises ``NotImplementedError``.
 
 The JAX package's TPU tile-shape knobs change no result and do not apply
 to the port, which does not read them: ``RAYTPU_PALLAS_SUBLANES``,
 ``RAYTPU_PALLAS_BSUBLANES``, ``RAYTPU_PALLAS_UNROLL`` and
-``RAYTPU_TRAVERSE_UNROLL``.
+``RAYTPU_TRAVERSE_UNROLL``. The megakernel's compaction levels,
+``RAYTPU_COMPACT_FLOOR`` and ``RAYTPU_COMPACT_RATIO``, change no result
+either (a TPU schedule: each ray's path is its own): the plain
+``megakernel_bounces`` reads them where the JAX package does and runs
+the levels; the ``mega`` kernel on the card runs every ray to its end in
+one launch and does not read them.
 """
 
 from __future__ import annotations
 
 import os
 
-BOUNCE_PATHS = ("wave", "pmega")
+BOUNCE0 = ("pallas", "pwave", "mega", "packet")
+BOUNCE_PATHS = ("wave", "pmega", "mega")
+BVH_METHODS = ("sah", "median", "sbvh", "ploc")
 DEVICE_BUILDS = ("instanced", "refit", "lbvh")
 DEVICE_TREES = ("karras", "ploc")
 WAVE_ENGINES = ("fused12", "fused", "fused_packed", "split")
@@ -60,12 +85,7 @@ NODE_SOURCES = ("pack", "extract")
 # * ``wavefront.round_widths``, the level schedule: WAVE_MINW, WAVE_BCAP,
 #   TAIL_BCAP, ORDER_MINW, DEEP_SUB, DEEP_MAXW (wavefront.py:57-94, read
 #   at import there);
-# * ``packet.render_linear_fast`` with the bounce path: COMPACT_FLOOR and
-#   COMPACT_RATIO (packet.py:320-322, the ``mega`` bounce path's);
-# * ``FastScene``: CLUSTER and WIDE (fast_types.py:40, :67);
-# * ``bvh/build.build_bvh``: BVH and NATIVE (build.py:103-104);
-#   ``scene/builder.py``: NATIVE, LEAF_COUNTS (builder.py:252, :294);
-#   ``scene/objloader.load_obj``: NATIVE (objloader.py:24).
+# * ``FastScene``: CLUSTER and WIDE (fast_types.py:40, :67).
 FIXED = {
     "RAYTPU_TAIL_MERGE": "1",
     "RAYTPU_SORT_KEY": "cid",
@@ -78,13 +98,8 @@ FIXED = {
     "RAYTPU_ORDER_MINW": "0",
     "RAYTPU_DEEP_SUB": "0",
     "RAYTPU_DEEP_MAXW": "200000",
-    "RAYTPU_COMPACT_FLOOR": "1024",
-    "RAYTPU_COMPACT_RATIO": "2",
     "RAYTPU_CLUSTER": "8",
     "RAYTPU_WIDE": "8",
-    "RAYTPU_BVH": "sah",
-    "RAYTPU_NATIVE": "1",
-    "RAYTPU_LEAF_COUNTS": "1",
 }
 
 
@@ -105,13 +120,12 @@ def fixed(*names: str) -> None:
 
 
 def bounce0() -> str:
-    """``RAYTPU_B0``: "pallas" only (bounce 0 through the traversal
-    kernel)."""
-    return _read("RAYTPU_B0", "pallas", ("pallas",))
+    """``RAYTPU_B0``: "pallas" (default), "pwave", "mega" or "packet"."""
+    return _read("RAYTPU_B0", "pallas", BOUNCE0)
 
 
 def bounce_path() -> str:
-    """``RAYTPU_BOUNCE``: "wave" (default) or "pmega"."""
+    """``RAYTPU_BOUNCE``: "wave" (default), "pmega" or "mega"."""
     return _read("RAYTPU_BOUNCE", "wave", BOUNCE_PATHS)
 
 
@@ -131,10 +145,38 @@ def binary_traverse() -> bool:
 
 def tail_merge_active(cfg) -> bool:
     """The JAX ``packet.tail_merge_active`` rule: band tails merge only on
-    the sorted-round path with a fused engine, path shading and more than
-    one bounce (the wide table is always built)."""
+    the sorted-round path after the traversal kernel's bounce 0, with a
+    fused engine, path shading and more than one bounce (the wide table
+    is always built)."""
     return (cfg.max_bounces > 1 and cfg.shading != "fixed_light"
-            and bounce_path() == "wave" and wave_engine() != "split")
+            and bounce0() == "pallas" and bounce_path() == "wave"
+            and wave_engine() != "split")
+
+
+def bvh_method() -> str:
+    """``RAYTPU_BVH``: the host tree, "sah" (default), "median", "sbvh" or
+    "ploc"."""
+    return _read("RAYTPU_BVH", "sah", BVH_METHODS)
+
+
+def native() -> bool:
+    """``RAYTPU_NATIVE``: False only for "0" (NumPy builds, NumPy cluster
+    packing, the Python ``.obj`` parser), as the JAX package reads it."""
+    return os.environ.get("RAYTPU_NATIVE", "1") != "0"
+
+
+def leaf_counts() -> bool:
+    """``RAYTPU_LEAF_COUNTS``: False only for "0" (the wide leaf metas
+    carry full counts), as the JAX package reads it."""
+    return os.environ.get("RAYTPU_LEAF_COUNTS", "1") != "0"
+
+
+def compact_levels() -> tuple[int, int]:
+    """(floor, ratio) of the plain megakernel's width levels:
+    ``RAYTPU_COMPACT_FLOOR`` (1024) and ``RAYTPU_COMPACT_RATIO`` (2),
+    the ratio at least 2 (a smaller one would never shrink)."""
+    return (count("RAYTPU_COMPACT_FLOOR", 1024),
+            max(2, count("RAYTPU_COMPACT_RATIO", 2)))
 
 
 def device_build() -> str:

@@ -3,10 +3,11 @@
 Shares ``native/raytpu_native.so`` with the JAX package: the library is
 built with ``make -C native`` when it is missing or older than its source,
 as ``raytracer_tpu/native_bridge.py`` does. This bridge exposes only what
-the port's scene build needs — the binned-SAH and PLOC BVH builds,
-cluster packing and the .obj parser — and raises when the library cannot
-be built or loaded (there is no fallback tree: the port's tables must
-equal the JAX package's, which are built by this library).
+the port's scene build needs — the median, binned-SAH, SBVH and PLOC BVH
+builds, cluster packing and the .obj parser — and raises when the library
+cannot be built or loaded, or a build fails (the JAX package logs such a
+failure and builds a median tree in NumPy instead; the port does not:
+``RAYTPU_NATIVE=0`` selects the NumPy builds).
 """
 
 from __future__ import annotations
@@ -45,9 +46,16 @@ def _load():
         lib.rt_load_obj.restype = ctypes.c_int64
         lib.rt_load_obj.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(ctypes.POINTER(ctypes.c_float))]
-        lib.rt_build_bvh_sah.restype = ctypes.c_int64
-        lib.rt_build_bvh_sah.argtypes = [
-            f32p, ctypes.c_int64, ctypes.c_int32,
+        lib.rt_bvh_node_count.restype = ctypes.c_int64
+        lib.rt_bvh_node_count.argtypes = [ctypes.c_int64, ctypes.c_int32]
+        for name in ("rt_build_bvh", "rt_build_bvh_sah"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [f32p, ctypes.c_int64, ctypes.c_int32,
+                           f32p, f32p, i32p, i32p, i32p, i32p, i32p, i64p]
+        lib.rt_build_bvh_sbvh.restype = ctypes.c_int64
+        lib.rt_build_bvh_sbvh.argtypes = [
+            f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
             f32p, f32p, i32p, i32p, i32p, i32p, i32p, i64p]
         lib.rt_build_bvh_ploc.restype = ctypes.c_int64
         lib.rt_build_bvh_ploc.argtypes = [
@@ -82,7 +90,20 @@ def build_bvh_sah(tris: np.ndarray, leaf_size: int) -> dict:
     """Binned-SAH BVH, pre-order flattened -> dict of NumPy arrays
     (node_min/max f32[M,3], node_tri/ntri/skip/data/count i32[M],
     order i64[T])."""
-    return _build(tris, leaf_size, None)
+    return _build(tris, leaf_size, "sah")
+
+
+def build_bvh_median(tris: np.ndarray, leaf_size: int) -> dict:
+    """Median split on the longest axis (the NumPy reference builder's
+    tree, ``bvh/build.build_bvh_numpy``), in the same layout and dict."""
+    return _build(tris, leaf_size, "median")
+
+
+def build_bvh_sbvh(tris: np.ndarray, leaf_size: int) -> dict:
+    """Spatial-split BVH (SBVH): a straddling triangle may be referenced
+    by several leaves with clipped bounds, so ``order`` repeats triangle
+    ids and is longer than T (up to the budget ``sbvh_refs``)."""
+    return _build(tris, leaf_size, "sbvh")
 
 
 # PLOC nearest-neighbour search window, as the JAX package passes it
@@ -93,14 +114,24 @@ PLOC_WINDOW = 8
 def build_bvh_ploc(tris: np.ndarray, leaf_size: int) -> dict:
     """Capped-leaf PLOC BVH (window ``PLOC_WINDOW``), in the same
     pre-order layout and dict as ``build_bvh_sah``."""
-    return _build(tris, leaf_size, PLOC_WINDOW)
+    return _build(tris, leaf_size, "ploc")
 
 
-def _build(tris: np.ndarray, leaf_size: int, ploc_window) -> dict:
+def sbvh_refs(n: int) -> int:
+    """The SBVH reference budget for n triangles: n + max(3n/4, 64), the
+    JAX package's (``raytracer_tpu/native_bridge.py:126``)."""
+    return n + max(n * 3 // 4, 64)
+
+
+def _build(tris: np.ndarray, leaf_size: int, method: str) -> dict:
     lib = _load()
     tris = np.ascontiguousarray(tris, np.float32)
     n = tris.shape[0]
-    m_cap = 2 * n - 1
+    refs = sbvh_refs(n) if method == "sbvh" else n
+    if method == "median":
+        m_cap = int(lib.rt_bvh_node_count(n, leaf_size))
+    else:
+        m_cap = 2 * refs - 1  # worst case; the build returns its count
     out = dict(node_min=np.empty((m_cap, 3), np.float32),
                node_max=np.empty((m_cap, 3), np.float32),
                node_tri=np.empty(m_cap, np.int32),
@@ -108,19 +139,27 @@ def _build(tris: np.ndarray, leaf_size: int, ploc_window) -> dict:
                node_skip=np.empty(m_cap, np.int32),
                node_data=np.empty(m_cap, np.int32),
                node_count=np.empty(m_cap, np.int32))
-    order = np.empty(n, np.int64)
+    order = np.empty(refs, np.int64)
     outs = (out["node_min"].reshape(-1), out["node_max"].reshape(-1),
             out["node_tri"], out["node_ntri"], out["node_skip"],
             out["node_data"], out["node_count"], order)
-    if ploc_window is None:
-        m = int(lib.rt_build_bvh_sah(tris.reshape(-1), n, leaf_size, *outs))
+    flat = tris.reshape(-1)
+    if method == "median":
+        m = int(lib.rt_build_bvh(flat, n, leaf_size, *outs))
+    elif method == "sah":
+        m = int(lib.rt_build_bvh_sah(flat, n, leaf_size, *outs))
+    elif method == "sbvh":
+        m = int(lib.rt_build_bvh_sbvh(flat, n, leaf_size, refs, *outs))
     else:
-        m = int(lib.rt_build_bvh_ploc(tris.reshape(-1), n, leaf_size,
-                                      ploc_window, *outs))
-    if m <= 0:
-        raise RuntimeError(f"native BVH build failed (m={m})")
+        m = int(lib.rt_build_bvh_ploc(flat, n, leaf_size, PLOC_WINDOW,
+                                      *outs))
+    if m <= 0 or (method == "median" and m != m_cap):
+        raise RuntimeError(f"native {method} BVH build failed (m={m})")
     res = {k: v[:m].copy() for k, v in out.items()}
-    res["order"] = order
+    # SBVH: the leaves' references, in leaf order (sum of leaf counts).
+    n_refs = (int(res["node_ntri"][res["node_tri"] >= 0].sum())
+              if method == "sbvh" else n)
+    res["order"] = order[:n_refs].copy()
     return res
 
 

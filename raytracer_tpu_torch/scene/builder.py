@@ -4,10 +4,12 @@ path) or ``GpuScene`` (per-ray path) tensors on a device.
 ``gather_triangles`` loads and transforms each instance (a mesh that
 fails to load is skipped with a warning). The packers build the same
 tables, with the same capacity buckets and padding, as
-``raytracer_tpu.scene.builder`` at its default knobs (binned-SAH tree,
-native cluster packing, count-encoded 8-wide collapse; leaf size 1 for
-the per-ray scene). Everything is NumPy or the native library until the
-final ``torch.from_numpy(...).to(device)``.
+``raytracer_tpu.scene.builder`` under the same knobs: the host tree of
+``RAYTPU_BVH`` (``bvh/build.py``), cluster packing in the native library
+or, with ``RAYTPU_NATIVE=0``, in NumPy, and the 8-wide collapse with
+each leaf's live count or, with ``RAYTPU_LEAF_COUNTS=0``, full counts;
+leaf size 1 for the per-ray scene. Everything is NumPy or the native
+library until the final ``torch.from_numpy(...).to(device)``.
 
 Also carries state across from the JAX package: ``fast_scene_from_numpy``,
 ``gpu_scene_from_numpy`` and ``camera_uniforms_from_numpy`` rebuild the
@@ -179,7 +181,6 @@ def pack_tri_records(v9: np.ndarray, m4: np.ndarray) -> np.ndarray:
 
 def _host_tables(verts: np.ndarray, mats: np.ndarray):
     """NumPy tables (nodes8, clusters, nodes4, num_nodes, num_nodes4)."""
-    knobs.fixed("RAYTPU_NATIVE", "RAYTPU_LEAF_COUNTS")
     n = verts.shape[0]
     if n == 0:
         mcap = _MIN_CAPACITY
@@ -220,13 +221,23 @@ def _host_tables(verts: np.ndarray, mats: np.ndarray):
 
         # Padding triangles stay all-zero (det == 0, never hit).
         clusters = np.zeros((lcap, CLUSTER_SIZE * TRI_STRIDE), np.float32)
-        native_bridge.pack_clusters(verts, mats, bvh.order, bvh.node_tri,
-                                    bvh.node_ntri, clusters, CLUSTER_SIZE,
-                                    TRI_STRIDE)
+        if knobs.native():
+            native_bridge.pack_clusters(verts, mats, bvh.order,
+                                        bvh.node_tri, bvh.node_ntri,
+                                        clusters, CLUSTER_SIZE, TRI_STRIDE)
+        else:
+            records = pack_tri_records(verts[bvh.order].reshape(-1, 9),
+                                       mats[bvh.order])
+            for li, node in enumerate(np.nonzero(leaf_mask)[0]):
+                start = int(bvh.node_tri[node])
+                count = int(bvh.node_ntri[node])
+                row = clusters[li].reshape(CLUSTER_SIZE, TRI_STRIDE)
+                row[:count] = records[start:start + count]
         num_nodes = m
         counts = bvh.node_ntri[leaf_mask].astype(np.int32)
 
-    nodes4, n4 = collapse4(nodes8, num_nodes, cluster_counts=counts)
+    nodes4, n4 = collapse4(nodes8, num_nodes, cluster_counts=(
+        counts if knobs.leaf_counts() else None))
     r4cap = bucket(nodes4.shape[0])
     if nodes4.shape[0] < r4cap:
         nodes4 = np.concatenate(

@@ -170,7 +170,6 @@ def capture_tables(meshes: Sequence[np.ndarray], params,
     best). Raises ValueError for an empty scene or one under 2 leaves."""
     if method is None:
         method = knobs.refit_topo()
-    knobs.fixed("RAYTPU_LEAF_COUNTS")
     counts = [int(m.shape[0]) for m in meshes]
     n = int(sum(counts))
     if n == 0:
@@ -234,7 +233,8 @@ def capture_tables(meshes: Sequence[np.ndarray], params,
     nodes8[:, 6] = skip_col.view(np.float32)
     nodes8[:, 7] = col7_col.view(np.float32)
     nodes4, n4, slot_rows = collapse4(
-        nodes8, m, cluster_counts=bvh.node_ntri[leaf_mask].astype(np.int32),
+        nodes8, m, cluster_counts=(bvh.node_ntri[leaf_mask].astype(np.int32)
+                                   if knobs.leaf_counts() else None),
         return_slots=True)
     r4cap = bucket(nodes4.shape[0])
     wide_rows = np.full((r4cap, WIDE_WIDTH), -1, np.int32)

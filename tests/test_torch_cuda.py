@@ -483,3 +483,107 @@ def test_two_rank_gloo_mesh_on_one_card_equals_one_device():
     got, rays = run.results[0]
     assert got.tobytes() == image.cpu().numpy().tobytes()
     assert rays == int(stats["rays_traced"])
+
+
+def _mega_state(n, seed, dead=False):
+    """A random megakernel state of n rays: (ray_o, ray_d, color, atten,
+    seed, alive, pix), a permutation of pixel ids."""
+    o, d = _rays(n, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    color = torch.rand((3, n), generator=g, device="cuda") * 0.5
+    atten = torch.rand((3, n), generator=g, device="cuda")
+    seeds = torch.randint(0, 2 ** 32, (n,), generator=g, device="cuda")
+    alive = torch.rand(n, generator=g, device="cuda") < 0.85
+    if dead:
+        alive[:] = False
+    pix = torch.randperm(n, generator=g, device="cuda")
+    return (tuple(o), tuple(d), tuple(color), tuple(atten), seeds, alive,
+            pix)
+
+
+@pytest.mark.parametrize("start", [0, 1])
+@pytest.mark.parametrize("width", [1, 31, 33, 129, 307200, "dead"])
+def test_mega_kernel_matches_plain(scene, width, start):
+    """The mega kernel against the plain megakernel (width levels and
+    all): 0 differing colour bytes, equal rays traced; ``dead`` is a
+    129-ray state with no live ray (every colour deposited as it came)."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.kernels.mega import mega, mega_plain
+
+    n = 129 if width == "dead" else width
+    o, d, c, a, s, alive, pix = _mega_state(n, 7 + n, width == "dead")
+    cfg = RenderConfig()
+    launches.reset()
+    got, rays = mega(scene, o, d, c, a, s, alive, True, cfg, start, pix)
+    assert launches.kernel["mega"] == 1 and not launches.plain
+    want, want_rays = mega_plain(scene, o, d, c, a, s, alive, True, cfg,
+                                 start, pix)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int(rays) == int(want_rays) >= int(alive.sum())
+    if width == "dead":
+        assert int(rays) == 0
+        assert torch.equal(got[:, pix], torch.stack(c))
+
+
+def _plain_versions(monkeypatch):
+    """Route the frame to the plain versions of every kernel."""
+    from raytracer_tpu_torch.engine import renderer
+    from raytracer_tpu_torch.kernels import (bounce, mega, packet, tonemap,
+                                             trace, wavefront)
+
+    for m, name, f in ((trace, "trace4", trace.trace4_plain),
+                       (trace, "trace2", trace.trace2_plain),
+                       (wavefront, "bounce12", bounce.bounce12_plain),
+                       (wavefront, "bounce15", bounce.bounce15_plain),
+                       (packet, "_traverse_fast", packet.ray_traverse_fast),
+                       (packet, "_traverse_groups", packet.packet_traverse),
+                       (mega, "mega", mega.mega_plain),
+                       (renderer, "tonemap_accumulate",
+                        tonemap.tonemap_plain)):
+        monkeypatch.setattr(m, name, f)
+
+
+# Path -> (knobs, kernels it launches, fixed-light tier, ties allowed).
+XLA_PATHS = {
+    "bounce_mega": ({"RAYTPU_BOUNCE": "mega"}, {"trace4", "mega"}, False,
+                    False),
+    "b0_mega": ({"RAYTPU_B0": "mega"}, {"mega"}, False, False),
+    "b0_packet": ({"RAYTPU_B0": "packet"}, {"trace2_warp", "mega"}, False,
+                  False),
+    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"bounce12"}, False, True),
+    "c12_b0_mega": ({"RAYTPU_B0": "mega"}, {"trace2"}, True, False),
+}
+
+
+@pytest.mark.parametrize("path", list(XLA_PATHS))
+def test_xla_path_frame_matches_plain(scene, monkeypatch, path):
+    """A 256x128 frame of each XLA-path knob through the kernels and
+    through the plain versions: 0 differing pixels (``b0_pwave``: kernel
+    B's equal-t tie lanes, at most 0.5% of the pixels)."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+
+    env, kernels, c12, ties = XLA_PATHS[path]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = RenderConfig(width=256, height=128, band_rays=16384,
+                       **(dict(max_bounces=1, shading="fixed_light")
+                          if c12 else {}))
+    uni = default_camera(cfg.width, cfg.height).uniforms()
+    launches.reset()
+    acc_k, img_k, st_k = Renderer(cfg).render(scene, uni)
+    assert set(launches.kernel) == kernels | {"tonemap"}
+    assert not launches.plain
+    with monkeypatch.context() as mp:
+        _plain_versions(mp)
+        acc_p, img_p, st_p = Renderer(cfg).render(scene, uni)
+    differ = int((img_k != img_p).any(-1).sum())
+    if ties:
+        assert differ <= 0.005 * cfg.width * cfg.height
+    else:
+        assert differ == 0
+        assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
+        assert int(st_k["rays_traced"]) == int(st_p["rays_traced"])

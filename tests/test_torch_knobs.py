@@ -1,7 +1,8 @@
 """Every result-bearing knob of the JAX package that selects a variant
 the port has not ported (``knobs.FIXED``) is read where the JAX package
 reads it: a non-default value raises ``NotImplementedError`` naming the
-knob, and the knob set to its JAX default runs as before.
+knob, and the knob set to its JAX default runs as before. The knobs the
+port has ported since (``PORTED``) run their JAX A/B value instead.
 
 Each knob is exercised through the entry point that reads it: a tiny
 frame (16x8, three bounces, one band: bounce 0, the sorted rounds, the
@@ -69,10 +70,8 @@ ENTRY = {
     "RAYTPU_PACK_GATHER": "packed", "RAYTPU_WAVE_MINW": "frame",
     "RAYTPU_WAVE_BCAP": "frame", "RAYTPU_TAIL_BCAP": "frame",
     "RAYTPU_ORDER_MINW": "frame", "RAYTPU_DEEP_SUB": "frame",
-    "RAYTPU_DEEP_MAXW": "frame", "RAYTPU_COMPACT_FLOOR": "frame",
-    "RAYTPU_COMPACT_RATIO": "frame", "RAYTPU_CLUSTER": "build",
-    "RAYTPU_WIDE": "build", "RAYTPU_BVH": "build", "RAYTPU_NATIVE": "load",
-    "RAYTPU_LEAF_COUNTS": "build",
+    "RAYTPU_DEEP_MAXW": "frame", "RAYTPU_CLUSTER": "build",
+    "RAYTPU_WIDE": "build",
 }
 # Values the JAX package accepts for each knob (each selects another path
 # there).
@@ -81,14 +80,18 @@ OTHER = {"RAYTPU_TAIL_MERGE": "0", "RAYTPU_SORT_KEY": "om9",
          "RAYTPU_PACK_GATHER": "row", "RAYTPU_WAVE_MINW": "2048",
          "RAYTPU_WAVE_BCAP": "2", "RAYTPU_TAIL_BCAP": "3",
          "RAYTPU_ORDER_MINW": "65536", "RAYTPU_DEEP_SUB": "32",
-         "RAYTPU_DEEP_MAXW": "100000", "RAYTPU_COMPACT_FLOOR": "512",
-         "RAYTPU_COMPACT_RATIO": "4", "RAYTPU_CLUSTER": "4",
-         "RAYTPU_WIDE": "16", "RAYTPU_BVH": "median", "RAYTPU_NATIVE": "0",
-         "RAYTPU_LEAF_COUNTS": "0"}
+         "RAYTPU_DEEP_MAXW": "100000", "RAYTPU_CLUSTER": "4",
+         "RAYTPU_WIDE": "16"}
+# The knobs the port has taken out of FIXED, each with the value the JAX
+# package's A/B path takes (``test_ported_knob_runs_its_jax_value``).
+PORTED = {"RAYTPU_COMPACT_FLOOR": "512", "RAYTPU_COMPACT_RATIO": "4",
+          "RAYTPU_BVH": "median", "RAYTPU_NATIVE": "0",
+          "RAYTPU_LEAF_COUNTS": "0"}
 
 
 def test_every_fixed_knob_has_a_case():
     assert set(ENTRY) == set(knobs.FIXED) == set(OTHER)
+    assert not set(PORTED) & set(knobs.FIXED)
 
 
 @pytest.mark.parametrize("knob", list(knobs.FIXED))
@@ -102,6 +105,57 @@ def test_fixed_knob_raises_off_its_default(knob, scene, tmp_path,
     monkeypatch.setenv(knob, OTHER[knob])
     with pytest.raises(NotImplementedError, match=knob):
         entry(monkeypatch)
+
+
+def _accum(scene, env):
+    """The 16x8 frame's accumulator under the knobs ``env``."""
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        cfg = RenderConfig(width=16, height=8, max_bounces=3)
+        uni = Camera((-10.0, 6.0, 30.0), (0.0, -6.0, 0.0), vfov_deg=40.0,
+                     aspect_ratio=2.0).uniforms(device="cpu")
+        accum, _, _ = Renderer(cfg).render(scene, uni)
+    return accum.numpy(), cfg, uni
+
+
+@pytest.mark.parametrize("knob", list(PORTED))
+def test_ported_knob_runs_its_jax_value(knob, scene, tmp_path,
+                                        monkeypatch):
+    """Each ported knob at its JAX A/B value runs and keeps the result:
+    the compaction knobs on the ``RAYTPU_BOUNCE=mega`` frame (another
+    level schedule, the same bytes), the host-build knobs on a scene built
+    under them (another tree renders the default frame except on bounce-0
+    tie pixels; full leaf counts the same bytes). ``RAYTPU_NATIVE=0`` also
+    parses an .obj in Python, as the native parser does."""
+    from test_torch_renderer import _bounce0_tie_pixels
+
+    value = PORTED[knob]
+    if knob.startswith("RAYTPU_COMPACT_"):
+        want = _accum(scene, {"RAYTPU_BOUNCE": "mega"})[0]
+        got = _accum(scene, {"RAYTPU_BOUNCE": "mega", knob: value})[0]
+        assert got.tobytes() == want.tobytes()
+        return
+    monkeypatch.setenv(knob, value)
+    built = build_fast_scene_from_arrays(*_arrays(), device="cpu")
+    monkeypatch.delenv(knob)
+    got, cfg, uni = _accum(built, {})
+    want = _accum(scene, {})[0]
+    if knob == "RAYTPU_LEAF_COUNTS":
+        assert not torch.equal(built.nodes4, scene.nodes4)
+        assert got.tobytes() == want.tobytes()
+    else:
+        assert not torch.equal(built.nodes8, scene.nodes8)
+        ties = _bounce0_tie_pixels(scene, cfg, uni)
+        differ = (got != want).any(-1)
+        assert not (differ & ~ties).any()
+    if knob == "RAYTPU_NATIVE":
+        run = _load(tmp_path)
+        native = load_obj(str(tmp_path / "cube.obj"))
+        monkeypatch.setenv(knob, value)
+        run(monkeypatch)
+        np.testing.assert_array_equal(
+            load_obj(str(tmp_path / "cube.obj")), native)
 
 
 def test_sort_key_is_read_on_the_pmega_path(scene, monkeypatch):

@@ -79,7 +79,8 @@ def case(tmp_path_factory):
 
 def _bounce0_tie_pixels(scene, cfg, uni):
     """bool[H*W]: pixels whose primary ray's closest hit is an equal-t
-    tie, with the rays made exactly as the renderer makes them."""
+    tie, with the rays made exactly as the renderer makes them (jittered,
+    or unjittered in the fixed-light tier)."""
     nb = _num_bands(cfg)
     bh = cfg.height // nb
     ties = torch.zeros(cfg.height * cfg.width, dtype=torch.bool)
@@ -88,7 +89,8 @@ def _bounce0_tie_pixels(scene, cfg, uni):
         xx, yy_local, alive = _tile_major_pixels(bh, cfg.width, p, "cpu")
         yy = yy_local + b * bh
         seed = initial_seed(uni, cfg, yy * cfg.width + xx, 0)
-        _, o, d = make_primary_rays(uni, cfg, seed, xx, yy, cfg.height)
+        _, o, d = make_primary_rays(uni, cfg, seed, xx, yy, cfg.height,
+                                    jitter=cfg.shading != "fixed_light")
         t = tie_lanes(scene, o, d, alive, cfg)
         ties[(yy * cfg.width + xx)[t]] = True
     return ties.reshape(cfg.height, cfg.width).numpy()

@@ -58,22 +58,24 @@ def run_job(job: str, inputs: dict, tmp_path, env: dict | None = None
         return {k: f[k] for k in f.files}
 
 
-def run_jobs(jobs, tmp_path) -> list:
+def run_jobs(jobs, tmp_path, env: dict | None = None) -> list:
     """Run several (job, inputs, env) in ONE child process -> their
     results, in order. Each job runs with its ``env`` knobs set over the
     production ones and then restored (the JAX package reads the path
-    knobs when it traces, and its jit cache keys on them)."""
+    knobs when it traces, and its jit cache keys on them). ``env``: knobs
+    for the whole child, such as those the JAX package reads at import."""
     import json
 
     specs = []
-    for j, (job, inputs, env) in enumerate(jobs):
+    for j, (job, inputs, job_env) in enumerate(jobs):
         src = os.path.join(str(tmp_path), f"multi{j}_{job}_in.npz")
         np.savez(src, **inputs)
-        specs.append({"job": job, "src": src, "env": dict(env or {})})
+        specs.append({"job": job, "src": src, "env": dict(job_env or {})})
     manifest = os.path.join(str(tmp_path), "multi_jobs.json")
     with open(manifest, "w") as f:
         json.dump(specs, f)
-    out = run_job("multi", {"manifest": np.array(manifest)}, tmp_path)
+    out = run_job("multi", {"manifest": np.array(manifest)}, tmp_path,
+                  env=env)
     return [{k[len(f"j{j}_"):]: v for k, v in out.items()
              if k.startswith(f"j{j}_")} for j in range(len(jobs))]
 
@@ -623,6 +625,74 @@ def job_refit(inp):
     return out
 
 
+def job_mega(inp):
+    """kernels/packet.py's XLA functions (no Pallas): ``ray_traverse_fast``
+    on ``rays`` / ``active`` under path and fixed-light shading,
+    ``packet_traverse`` on the groups ``g_rays`` f32[6, 64, NG] /
+    ``g_active``, ``megakernel_bounces`` from each bounce of ``starts`` on
+    the ``m_*`` state (pixel ids ``m_pix``) under the job's compaction
+    knobs."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from raytracer_tpu.kernels import packet
+
+    scene, cfg = _scene(inp), _cfg(inp)
+    out = _leaves(scene, "scene_")
+    v3 = lambda a: tuple(jnp.asarray(c) for c in a)
+
+    def result(res):
+        return np.stack([np.asarray(res.closest_t),
+                         *map(np.asarray, res.normal),
+                         *map(np.asarray, res.mat_albedo),
+                         np.asarray(res.mat_type)])
+
+    r = inp["rays"]
+    for shading in ("path", "fixed_light"):
+        res = packet.ray_traverse_fast(
+            scene, v3(r[0:3]), v3(r[3:6]), jnp.asarray(inp["active"]),
+            dataclasses.replace(cfg, shading=shading))
+        out[f"fast_{shading}"] = result(res)
+        out[f"fast_{shading}_hit"] = np.asarray(res.hit)
+    g = inp["g_rays"]
+    res = packet.packet_traverse(scene, v3(g[0:3]), v3(g[3:6]),
+                                 jnp.asarray(inp["g_active"]), cfg)
+    out["packet"] = result(res)
+    out["packet_hit"] = np.asarray(res.hit)
+    m = inp["m_f"]                       # f32[12, P]: o, d, colour, atten
+    for s in inp["starts"]:
+        def mega(o, d, c, a, seed, alive, pix, s=int(s)):
+            return packet.megakernel_bounces(
+                scene, o, d, c, a, seed, alive, bool(inp["sky"]), cfg,
+                start_bounce=s, pix=pix)
+
+        cx, cy, cz, rays = jax.jit(mega)(
+            v3(m[0:3]), v3(m[3:6]), v3(m[6:9]), v3(m[9:12]),
+            jnp.asarray(inp["m_seed"]), jnp.asarray(inp["m_alive"]),
+            jnp.asarray(inp["m_pix"]))
+        out[f"mega{s}_color"] = np.stack([np.asarray(c)
+                                          for c in (cx, cy, cz)])
+        out[f"mega{s}_rays"] = np.float64(rays)
+    return out
+
+
+def job_host_bvh(inp):
+    """The host builds under the job's knobs (``RAYTPU_BVH``,
+    ``RAYTPU_NATIVE``, ``RAYTPU_LEAF_COUNTS``): ``bvh.build.build_bvh`` of
+    the soup at leaf size 8 and ``build_fast_scene_from_arrays``."""
+    import dataclasses
+
+    from raytracer_tpu.bvh.build import build_bvh
+
+    bvh = build_bvh(inp["verts"], leaf_size=8)
+    out = {f"bvh_{f.name}": np.asarray(getattr(bvh, f.name))
+           for f in dataclasses.fields(bvh)}
+    out.update(_leaves(_scene(inp), "scene_"))
+    return out
+
+
 def job_multi(inp):
     """Each job of the manifest (``run_jobs``) under its own knobs; its
     results under the prefix ``j<index>_``."""
@@ -654,6 +724,7 @@ JOBS = {"trace": job_trace, "bounce": job_bounce,
         "per_ray": job_per_ray,
         "lbvh": job_lbvh, "ploc_device": job_ploc_device,
         "instanced": job_instanced, "refit": job_refit,
+        "mega": job_mega, "host_bvh": job_host_bvh,
         "multi": job_multi}
 
 
