@@ -113,11 +113,25 @@ Phases, one or more lines each (any failure raises and exits non-zero):
     on each table against their plain versions (0 differing lanes), one
     frame each (a table whose walk needs more than the kernels' 256 stack
     slots is refused, and the refusal is printed);
+20. the sorted rounds' knobs: kernel B's ``pd5`` and ``om9`` builds of
+    ``bounce12``, ``bounce15`` and ``bounce_packed`` and the unordered
+    ``bounce12`` / ``bounce15`` against their plain versions on the
+    middle 720p band's bounce-1 state sorted by the build's key (the
+    unordered ones also on a merged-tail state with budgets 0-3): 0
+    differing bytes, with their times, the plain versions' and the
+    bounds; kernel B on that band's bounce-1 and bounce-2 rounds sorted
+    by each of the five keys (``cid``, ``pd5``, ``om9``, ``pos``,
+    ``oct_morton``), beside the bound; each knob's A/B value at 1280x720,
+    10 bounces, 4 frames, with the default before, between and after:
+    FPS, ms a frame, kernel launches and device activities a frame; a
+    256x128 frame per group of knobs through the kernels and the plain
+    versions (0 differing pixels);
 
 then a JSON line of per-kernel results (with each CUDA kernel's
 registers, local and shared bytes and resident blocks per SM as the main
 path launches it, and its launches per frame on the PLOC drag, on each
-mesh and on each XLA path) and, last, the JSON result line.
+mesh, on each XLA path and on each knob path) and, last, the JSON
+result line.
 Each path run resets the launch counts just before it, reads them just
 after and fails unless each of its kernels launched and no plain version
 ran. Imports nothing of JAX.
@@ -1861,6 +1875,291 @@ def check_host_builds(cfg, cam) -> dict:
     return out
 
 
+# Phase 20: kernel B's key and walk-order builds -> (wrapper, key mode,
+# ordered walk, source, the TPU kernel code the build replaces).
+KEY_BUILDS = {
+    "bounce12_pd5": ("bounce12", "pd5", True,
+                     "raytracer_tpu_torch/csrc/bounce_pd5.cu",
+                     "raytracer_tpu/kernels/pallas_mega.py:557"),
+    "bounce12_om9": ("bounce12", "om9", True,
+                     "raytracer_tpu_torch/csrc/bounce_om9.cu",
+                     "raytracer_tpu/kernels/pallas_mega.py:583"),
+    "bounce12_unordered": ("bounce12", "cid", False,
+                           "raytracer_tpu_torch/csrc/bounce12.cu",
+                           "raytracer_tpu/kernels/pallas_mega.py:264"),
+    "bounce15_pd5": ("bounce15", "pd5", True,
+                     "raytracer_tpu_torch/csrc/bounce_pd5.cu",
+                     "raytracer_tpu/kernels/pallas_mega.py:557"),
+    "bounce15_om9": ("bounce15", "om9", True,
+                     "raytracer_tpu_torch/csrc/bounce_om9.cu",
+                     "raytracer_tpu/kernels/pallas_mega.py:583"),
+    "bounce15_unordered": ("bounce15", "cid", False,
+                           "raytracer_tpu_torch/csrc/bounce12.cu",
+                           "raytracer_tpu/kernels/pallas_mega.py:264"),
+    "bounce_packed_pd5": ("bounce_packed", "pd5", True,
+                          "raytracer_tpu_torch/csrc/bounce_pd5.cu",
+                          "raytracer_tpu/kernels/pallas_mega.py:645"),
+    "bounce_packed_om9": ("bounce_packed", "om9", True,
+                          "raytracer_tpu_torch/csrc/bounce_om9.cu",
+                          "raytracer_tpu/kernels/pallas_mega.py:645"),
+}
+# The sorted rounds' A/B values at full width -> (their knobs, the kernels
+# a frame launches). Each new build is launched by one of them.
+KNOB_RUNS = {
+    "TAIL_MERGE=0": ({"RAYTPU_TAIL_MERGE": "0"}, ("trace4", "bounce12")),
+    "SORT_KEY=pd5": ({"RAYTPU_SORT_KEY": "pd5"}, ("trace4", "bounce12_pd5")),
+    "SORT_KEY=om9": ({"RAYTPU_SORT_KEY": "om9"}, ("trace4", "bounce12_om9")),
+    "SORT_KEY=pos": ({"RAYTPU_SORT_KEY": "pos"}, ("trace4", "bounce12")),
+    "SORT_KEY=oct_morton": ({"RAYTPU_SORT_KEY": "oct_morton"},
+                            ("trace4", "bounce12")),
+    "GLUE=pack": ({"RAYTPU_GLUE": "pack"}, ("trace4", "bounce12")),
+    "DEPOSIT=ch": ({"RAYTPU_DEPOSIT": "ch"}, ("trace4", "bounce12")),
+    "DEPOSIT=rows": ({"RAYTPU_DEPOSIT": "rows"}, ("trace4", "bounce12")),
+    "WAVE_MINW=2048": ({"RAYTPU_WAVE_MINW": "2048"}, ("trace4", "bounce12")),
+    "WAVE_BCAP=2": ({"RAYTPU_WAVE_BCAP": "2"}, ("trace4", "bounce12")),
+    "TAIL_BCAP=3": ({"RAYTPU_TAIL_BCAP": "3"}, ("trace4", "bounce12")),
+    "ORDER_MINW=65536": ({"RAYTPU_ORDER_MINW": "65536"},
+                         ("trace4", "bounce12", "bounce12_unordered")),
+    "DEEP_SUB=32": ({"RAYTPU_DEEP_SUB": "32"}, ("trace4", "bounce12")),
+    "DEEP_MAXW=100000": ({"RAYTPU_DEEP_MAXW": "100000"},
+                         ("trace4", "bounce12")),
+    "BOUNCE=pmega,SORT_KEY=pd5": (
+        {"RAYTPU_BOUNCE": "pmega", "RAYTPU_SORT_KEY": "pd5"},
+        ("trace4", "bounce15")),
+    "WAVE=fused,GLUE=perfield": ({"RAYTPU_WAVE": "fused",
+                                  "RAYTPU_GLUE": "perfield"},
+                                 ("trace4", "bounce15")),
+    "WAVE=fused,SORT_KEY=pd5": ({"RAYTPU_WAVE": "fused",
+                                 "RAYTPU_SORT_KEY": "pd5"},
+                                ("trace4", "bounce15_pd5")),
+    "WAVE=fused,SORT_KEY=om9": ({"RAYTPU_WAVE": "fused",
+                                 "RAYTPU_SORT_KEY": "om9"},
+                                ("trace4", "bounce15_om9")),
+    "WAVE=fused,ORDER_MINW=65536": (
+        {"RAYTPU_WAVE": "fused", "RAYTPU_ORDER_MINW": "65536"},
+        ("trace4", "bounce15", "bounce15_unordered")),
+    "WAVE=fused_packed,PACK_GATHER=row": (
+        {"RAYTPU_WAVE": "fused_packed", "RAYTPU_PACK_GATHER": "row"},
+        ("trace4", "bounce_packed", "bounce15")),
+    "WAVE=fused_packed,SORT_KEY=pd5": (
+        {"RAYTPU_WAVE": "fused_packed", "RAYTPU_SORT_KEY": "pd5"},
+        ("trace4", "bounce_packed_pd5", "bounce15_pd5")),
+    "WAVE=fused_packed,SORT_KEY=om9": (
+        {"RAYTPU_WAVE": "fused_packed", "RAYTPU_SORT_KEY": "om9"},
+        ("trace4", "bounce_packed_om9", "bounce15_om9")),
+}
+# The run whose launches the kernels line reports for each new build.
+BUILD_RUNS = {"bounce12_pd5": "SORT_KEY=pd5", "bounce12_om9": "SORT_KEY=om9",
+              "bounce12_unordered": "ORDER_MINW=65536",
+              "bounce15_pd5": "WAVE=fused,SORT_KEY=pd5",
+              "bounce15_om9": "WAVE=fused,SORT_KEY=om9",
+              "bounce15_unordered": "WAVE=fused,ORDER_MINW=65536",
+              "bounce_packed_pd5": "WAVE=fused_packed,SORT_KEY=pd5",
+              "bounce_packed_om9": "WAVE=fused_packed,SORT_KEY=om9"}
+# 256x128 frames, kernels against plain versions: the knobs in groups,
+# every knob and every new build in one of them -> the plain versions a
+# frame books.
+KNOB_FRAMES = {
+    "SORT_KEY=pd5": ({"RAYTPU_SORT_KEY": "pd5"}, ("bounce12_pd5",)),
+    "WAVE=fused,SORT_KEY=om9,GLUE=perfield,DEPOSIT=rows": (
+        {"RAYTPU_WAVE": "fused", "RAYTPU_SORT_KEY": "om9",
+         "RAYTPU_GLUE": "perfield", "RAYTPU_DEPOSIT": "rows"},
+        ("bounce15_om9",)),
+    "WAVE=fused_packed,SORT_KEY=pd5,PACK_GATHER=row": (
+        {"RAYTPU_WAVE": "fused_packed", "RAYTPU_SORT_KEY": "pd5",
+         "RAYTPU_PACK_GATHER": "row"},
+        ("bounce_packed_pd5", "bounce15_pd5")),
+    "WAVE=fused_packed,SORT_KEY=om9": (
+        {"RAYTPU_WAVE": "fused_packed", "RAYTPU_SORT_KEY": "om9"},
+        ("bounce_packed_om9", "bounce15_om9")),
+    "ORDER_MINW=12000,WAVE_BCAP=2,TAIL_BCAP=3": (
+        {"RAYTPU_ORDER_MINW": "12000", "RAYTPU_WAVE_BCAP": "2",
+         "RAYTPU_TAIL_BCAP": "3"}, ("bounce12", "bounce12_unordered")),
+    "WAVE=fused,ORDER_MINW=12000,SORT_KEY=pos": (
+        {"RAYTPU_WAVE": "fused", "RAYTPU_ORDER_MINW": "12000",
+         "RAYTPU_SORT_KEY": "pos"}, ("bounce15", "bounce15_unordered")),
+    "GLUE=pack,DEPOSIT=ch,WAVE_MINW=2048,DEEP_MAXW=100000": (
+        {"RAYTPU_GLUE": "pack", "RAYTPU_DEPOSIT": "ch",
+         "RAYTPU_WAVE_MINW": "2048", "RAYTPU_DEEP_MAXW": "100000"},
+        ("bounce12",)),
+    "DEEP_SUB=32,TAIL_MERGE=0,SORT_KEY=oct_morton": (
+        {"RAYTPU_DEEP_SUB": "32", "RAYTPU_TAIL_MERGE": "0",
+         "RAYTPU_SORT_KEY": "oct_morton"}, ("bounce12",)),
+}
+# RAYTPU_SORT_KEY's modes, the five of the JAX package's sort_key.
+SORT_MODES = ("cid", "pd5", "om9", "pos", "oct_morton")
+
+
+def key_states(scene, cfg, cam, mode: str):
+    """The middle band's bounce-1 state as each engine's first round gets
+    it under ``RAYTPU_SORT_KEY=mode``: sorted by that key (the host form;
+    cid's is om9's) -> (fused12 i32[13, P], fused i32[16, P], packed
+    (sf, si))."""
+    from raytracer_tpu_torch.kernels import wavefront
+    from raytracer_tpu_torch.kernels.bounce import UNIFORM_BUDGET, pack_state
+
+    o, d, color, atten, seed, alive, pix = band_bounce1(scene, cfg, cam)
+    att12 = tuple(torch.where(alive, a, c) for a, c in zip(atten, color))
+    st12 = pack_state(o, d, att12, seed, alive, UNIFORM_BUDGET, pix)
+    st15 = pack_state(o, d, atten, seed, alive, UNIFORM_BUDGET, pix,
+                      color=color)
+    packed = (torch.stack([*o, *d, *color, *atten, alive.to(torch.float32)]),
+              torch.stack([seed.to(torch.int32), pix]))
+    return tuple(
+        wavefront._sorted(st, wavefront._state_key(st, scene, engine,
+                                                   mode))[0]
+        for st, engine in ((st12, "fused12"), (st15, "fused"),
+                           (packed, "fused_packed")))
+
+
+def build_calls(scene, cfg, name, state, bcap=1):
+    """(kernel call, plain call) of build ``name`` (KEY_BUILDS) on
+    ``state`` (a packed pair for the packed builds)."""
+    from raytracer_tpu_torch.kernels import bounce
+
+    kernel, key_mode, ordered = KEY_BUILDS[name][:3]
+    if kernel == "bounce_packed":
+        args = (scene, *state, bcap, True, cfg, key_mode)
+    else:
+        args = (scene, state, bcap, True, cfg, key_mode, ordered)
+    return (lambda: getattr(bounce, kernel)(*args),
+            lambda: getattr(bounce, f"{kernel}_plain")(*args))
+
+
+def equal_outputs(got, want) -> int:
+    """Differing bytes between a kernel's outputs and its plain
+    version's."""
+    n = 0
+    for g, w in zip(got, want):
+        g, w = (x.contiguous().view(torch.uint8) for x in (g, w))
+        n += int((g != w).sum())
+    return n
+
+
+def tail_state(scene, cfg, cam, state, kernel):
+    """A merged-tail-width state from ``state`` after one default round of
+    ``kernel`` (bounce12 or bounce15), live rays first, budgets 0-3."""
+    from raytracer_tpu_torch.kernels import bounce, wavefront
+    from raytracer_tpu_torch.kernels.bounce import ROW_BUDGET
+    from raytracer_tpu_torch.kernels.packet import tail_merge_widths
+
+    out, key, _ = getattr(bounce, kernel)(scene, state, 1, True, cfg)
+    out, _ = wavefront._sorted(out, key)
+    bcfg = band_primaries(scene, cfg, cam)[0]
+    merged = tail_merge_widths(cfg, bcfg.height, cfg.height // bcfg.height)
+    w = min(merged[1], out.shape[1])
+    tail = out[:, :w].contiguous()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tail[ROW_BUDGET] = torch.randint(0, 4, (w,), generator=g, device="cuda",
+                                     dtype=torch.int32)
+    return tail
+
+
+def check_key_builds(scene, cfg, cam, results):
+    """Phase 20: each build of KEY_BUILDS against its plain version on the
+    middle 720p band's bounce-1 state sorted by its key (the unordered
+    builds also on a merged-tail state with budgets 0-3): 0 differing
+    bytes in state, key and counts; its time, the plain version's and
+    the bound."""
+    states = {m: key_states(scene, cfg, cam, m) for m in ("cid", "pd5",
+                                                           "om9")}
+    tables = nbytes(scene.nodes4, scene.clusters)
+    for name, (kernel, key_mode, ordered, _, _) in KEY_BUILDS.items():
+        st12, st15, packed = states[key_mode]
+        state = {"bounce12": st12, "bounce15": st15}.get(kernel, packed)
+        call, plain = build_calls(scene, cfg, name, state)
+        got = call()
+        want, work = plain_work(plain)
+        n_diff = equal_outputs(got, want)
+        ms = time_ms(call, 10)
+        plain_ms = time_ms(plain, 1, warm=False)
+        p = st12.shape[1]
+        b = bound(2 * nbytes(*(state if isinstance(state, tuple)
+                               else (state,))) + 4 * p + tables + 24, work)
+        print(f"check {name} ({kernel}, key {key_mode}, "
+              f"{'ordered' if ordered else 'unordered'} walk) on the sorted "
+              f"bounce-1 round of {p} rays: rays/live {got[-1].tolist()}, "
+              f"differing bytes {n_diff}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); work {work}")
+        assert n_diff == 0, f"{name} differs from its plain version"
+        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b)
+        if not ordered:
+            tail = tail_state(scene, cfg, cam, state, kernel)
+            call, plain = build_calls(scene, cfg, name, tail)
+            n_tail = equal_outputs(call(), plain())
+            print(f"check {name} on a tail round of {tail.shape[1]} rays "
+                  f"with budgets 0-3: differing bytes {n_tail}")
+            assert n_tail == 0, f"{name} differs on the tail state"
+
+
+def time_sort_keys(scene, cfg, cam) -> dict:
+    """Kernel B, each key's build, on the middle band's bounce-1 round and
+    on its bounce-2 round (after one default round; cid is then the
+    winner-cluster key the kernel emitted, on bounce 1 it is om9's host
+    form) sorted by each of the five keys: device ms (CUDA events, 20
+    launches), beside the bound (the same work and bytes whatever the
+    order)."""
+    from raytracer_tpu_torch.kernels import bounce, wavefront
+    from raytracer_tpu_torch.kernels.keys import KERNEL_KEYS
+
+    st1 = key_states(scene, cfg, cam, "cid")[0]
+    st2, cid2, _ = bounce.bounce12(scene, st1, 1, True, cfg)
+    tables = nbytes(scene.nodes4, scene.clusters)
+    out = {}
+    for label, state in (("bounce1", st1), ("bounce2", st2)):
+        _, work = plain_work(
+            lambda: bounce.bounce12_plain(scene, state, 1, True, cfg))
+        b = bound(2 * nbytes(state) + 4 * state.shape[1] + tables + 24,
+                  work)
+        for mode in SORT_MODES:
+            key = (cid2 if label == "bounce2" and mode == "cid" else
+                   wavefront._state_key(state, scene, "fused12", mode))
+            s, _ = wavefront._sorted(state, key)
+            build = mode if mode in KERNEL_KEYS else "cid"
+            ms = time_ms(lambda: bounce.bounce12(scene, s, 1, True, cfg,
+                                                 build), 20)
+            row = dict(ms=ms, build=bounce.build_name("bounce12", build),
+                       **b)
+            out[f"{label}_{mode}"] = row
+            print(f"kernel B on the {label} round of {state.shape[1]} rays "
+                  f"sorted by {mode}: {ms:.4f} ms ({row['build']}), bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return out
+
+
+def run_knob_paths(scene, cfg, cam, frames: int = 4) -> dict:
+    """Phase 20's frames: each A/B value of KNOB_RUNS at full width, with
+    the default before, between the two halves and after: FPS, ms a frame,
+    Mrays/s, kernel launches and device activities a frame."""
+    labels = list(KNOB_RUNS)
+    half = len(labels) // 2
+    order = ["default"] + labels[:half] + ["default"] + labels[half:] + [
+        "default"]
+    out = {}
+    for label in order:
+        env, kernels = (({}, ("trace4", "bounce12")) if label == "default"
+                        else KNOB_RUNS[label])
+        run = run_path(f"knob A/B {label}", scene, cfg, cam, frames, env,
+                       kernels + ("tonemap",))
+        entry = out.setdefault(label, dict(fps=[], ms=[], mrays=[]))
+        for k in ("fps", "ms", "mrays"):
+            entry[k].append(run[k])
+        entry["launches_per_frame"] = {k: v / frames
+                                       for k, v in run["counts"].items()}
+        entry["counts"] = run["counts"]
+    for label, entry in out.items():
+        env = {} if label == "default" else KNOB_RUNS[label][0]
+        entry["device_launches_per_frame"] = frame_launches(scene, cfg, cam,
+                                                            env)
+        print(f"knob A/B {label}: FPS "
+              f"{', '.join(f'{x:.3f}' for x in entry['fps'])}, ms a frame "
+              f"{', '.join(f'{x:.2f}' for x in entry['ms'])}; kernel "
+              f"launches a frame {entry['launches_per_frame']}; device "
+              f"activities a frame {entry['device_launches_per_frame']}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2017,6 +2316,16 @@ def main() -> None:
     # Phase 19: the host builds, kernels on each table, one frame each.
     host_builds = check_host_builds(cfg, cam)
 
+    # Phase 20: the sorted rounds' knobs: kernel B's key and walk-order
+    # builds against their plain versions, kernel B under the five keys,
+    # each knob's A/B value at full width, 256x128 frames kernels against
+    # plain versions.
+    check_key_builds(scene, cfg, uni, results)
+    key_times = time_sort_keys(scene, cfg, uni)
+    knob_runs = run_knob_paths(scene, cfg, cam)
+    for label, (env, plain) in KNOB_FRAMES.items():
+        small_frame(label, scene, cfg5, cam5, env, plain, 0)
+
     launches_on_path = {
         "trace4": main_run["counts"]["trace4"],
         "bounce12": main_run["counts"]["bounce12"],
@@ -2026,6 +2335,8 @@ def main() -> None:
         "bounce15": pmega_run["counts"]["bounce15"],
         "bounce_packed": packed_run["counts"]["bounce_packed"],
         "mega": xla_runs["b0_mega"]["counts"]["mega"]}
+    launches_on_path.update({k: knob_runs[run]["counts"][k]
+                             for k, run in BUILD_RUNS.items()})
     srcs = {"tonemap": ("cuda", "raytracer_tpu_torch/csrc/tonemap.cu",
                         "raytracer_tpu/kernels/pallas_ops.py:25"),
             "trace4": ("cuda", "raytracer_tpu_torch/csrc/trace4.cu",
@@ -2042,6 +2353,8 @@ def main() -> None:
                               "raytracer_tpu/kernels/pallas_mega.py:645"),
             "mega": ("cuda", "raytracer_tpu_torch/csrc/mega.cu",
                      "raytracer_tpu/kernels/packet.py:281")}
+    srcs.update({k: ("cuda", src, rep)
+                 for k, (_, _, _, src, rep) in KEY_BUILDS.items()})
     for k in srcs:
         # The bounce15 row is the pmega call: its persistent-warp kernel.
         attrs = cuda_build.kernel_attrs(
@@ -2070,7 +2383,10 @@ def main() -> None:
                                  for k, r in xla_runs.items()},
                    "c12_b0_mega": {m: v for m, v in c12_mega.items()
                                    if m != "image"},
-                   "host_builds": host_builds}, f, indent=1)
+                   "host_builds": host_builds,
+                   "key_builds": {k: results[k] for k in KEY_BUILDS},
+                   "sort_key_times": key_times,
+                   "knob_runs": knob_runs}, f, indent=1)
     # Launches per frame on this slice's paths: the PLOC drag and each
     # mesh (all ranks).
     new_paths = {"drag_lbvh_ploc": drag_runs["lbvh_ploc"][
@@ -2079,6 +2395,8 @@ def main() -> None:
         "launches_per_frame"] for shape in ("2x1", "1x2", "2x2")})
     new_paths.update({f"xla_{label}": run["launches_per_frame"]
                       for label, run in xla_runs.items()})
+    new_paths.update({f"knob_{label}": run["launches_per_frame"]
+                      for label, run in knob_runs.items()})
     print(json.dumps({"kernels": [
         dict(name=k, route=route, source=src, replaces=rep,
              launches=launches_on_path[k], **results[k],

@@ -21,12 +21,17 @@ round (bcap 1), ``bounce_packed`` on the ``fused_packed`` round's state
 of the middle band and of the top and bottom bands
 (``bounce_packed_top``, ``bounce_packed_bottom``),
 ``bounce12_pl`` (kernel B with the walk's postponed leaves, where the
-checkout has it), and the tonemap on a 1280x720 frame at spp 1: its
-kernel's device time from the profiler, after an L2 flush (``tonemap``)
-and with its inputs in L2 (``tonemap_warm``), and the time of a call
-(``tonemap_call``); with each pmega state's lane occupancy
-(``chip_smoke.lane_occupancy``) and, where the checkout has the packed
-kernel's counting build, each packed round's walk efficiency
+checkout has it), kernel B's key and walk-order builds where the checkout
+has them (``chip_smoke.KEY_BUILDS``: ``bounce12_pd5``, ``bounce12_om9``,
+``bounce12_unordered``, ``bounce15_pd5``, ``bounce15_om9``,
+``bounce15_unordered``, ``bounce_packed_pd5``, ``bounce_packed_om9``, each
+on the middle band's bounce-1 state sorted by its key, as
+``chip_smoke.py`` phase 20 runs them), and the tonemap on a 1280x720
+frame at spp 1: its kernel's device time from the profiler, after an L2
+flush (``tonemap``) and with its inputs in L2 (``tonemap_warm``), and
+the time of a call (``tonemap_call``); with each pmega state's lane
+occupancy (``chip_smoke.lane_occupancy``) and, where the checkout has the
+packed kernel's counting build, each packed round's walk efficiency
 (``chip_smoke.packed_round_profile``). The inputs come from this
 checkout's ``chip_smoke.py`` helpers, run against each checkout's
 package. Each kernel's output is compared with its plain version on the
@@ -51,7 +56,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("trace4", "bounce12", "bounce12_pl", "bounce15", "bounce15_top",
            "bounce15_bottom", "bounce15_fused", "bounce_packed",
            "bounce_packed_top", "bounce_packed_bottom", "trace2",
-           "trace2_split", "tonemap", "tonemap_warm", "tonemap_call")
+           "trace2_split", "tonemap", "tonemap_warm", "tonemap_call",
+           "bounce12_pd5", "bounce12_om9", "bounce12_unordered",
+           "bounce15_pd5", "bounce15_om9", "bounce15_unordered",
+           "bounce_packed_pd5", "bounce_packed_om9")
 # Row -> the kernel whose attributes it reports, where the checkout's
 # cuda_build knows that kernel (else the row's name, or bounce15 for the
 # pmega rows).
@@ -147,6 +155,14 @@ def run_one(tree: str, reps: int, bcaps=(), rows=None) -> dict:
             lambda: bounce._launch_rounds("bounce12_pl", scene, st12, 1,
                                           True, cfg),
             lambda: bounce.bounce12_plain(scene, st12, 1, True, cfg))
+    if "bounce12_pd5" in cuda_build.KERNELS and (
+            not rows or any(k in cs.KEY_BUILDS for k in rows)):
+        states = {m: cs.key_states(scene, cfg, cam, m)
+                  for m in ("cid", "pd5", "om9")}
+        for name, (kernel, key_mode, *_) in cs.KEY_BUILDS.items():
+            st12, st15, packed = states[key_mode]
+            state = {"bounce12": st12, "bounce15": st15}.get(kernel, packed)
+            calls[name] = cs.build_calls(scene, cfg, name, state)
     if rows:
         calls = {k: v for k, v in calls.items() if k in rows}
     attrs_of = dict(ATTRS_OF)
@@ -178,13 +194,12 @@ def run_one(tree: str, reps: int, bcaps=(), rows=None) -> dict:
                 lanes[:] = True
         res[name] = dict(ms=cs.time_ms(kern, reps),
                          differing_lanes=int(lanes.sum()))
-        if (name.startswith("bounce_packed")
-                and hasattr(bounce, "bounce_packed_count")):
-            state = {"bounce_packed": (sf, si),
-                     "bounce_packed_top": packed_top,
-                     "bounce_packed_bottom": packed_bottom}[name]
-            packed_walk[name] = cs.packed_round_profile(scene, *state, cfg,
-                                                        got)
+        packed = {"bounce_packed": (sf, si),
+                  "bounce_packed_top": packed_top,
+                  "bounce_packed_bottom": packed_bottom}
+        if name in packed and hasattr(bounce, "bounce_packed_count"):
+            packed_walk[name] = cs.packed_round_profile(
+                scene, *packed[name], cfg, got)
     if not rows or "tonemap" in rows:
         res.update(tonemap_rows(tonemap, reps))
     for name in res:

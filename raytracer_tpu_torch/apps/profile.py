@@ -52,6 +52,19 @@ PATHS = {
     "b0_mega": {"RAYTPU_B0": "mega"},
     "b0_packet": {"RAYTPU_B0": "packet"},
     "b0_pwave": {"RAYTPU_B0": "pwave"},
+    # The sorted rounds' A/B values (the JAX package's).
+    "sort_key_pd5": {"RAYTPU_SORT_KEY": "pd5"},
+    "sort_key_om9": {"RAYTPU_SORT_KEY": "om9"},
+    "sort_key_pos": {"RAYTPU_SORT_KEY": "pos"},
+    "tail_merge_off": {"RAYTPU_TAIL_MERGE": "0"},
+    "glue_pair": {"RAYTPU_GLUE": "pack"},
+    "deposit_ch": {"RAYTPU_DEPOSIT": "ch"},
+    "deposit_rows": {"RAYTPU_DEPOSIT": "rows"},
+    "wave_minw_2048": {"RAYTPU_WAVE_MINW": "2048"},
+    "wave_bcap_2": {"RAYTPU_WAVE_BCAP": "2"},
+    "tail_bcap_3": {"RAYTPU_TAIL_BCAP": "3"},
+    "order_minw_65536": {"RAYTPU_ORDER_MINW": "65536"},
+    "deep_sub_32": {"RAYTPU_DEEP_SUB": "32"},
 }
 
 
@@ -111,9 +124,10 @@ def _frame_stats(prof, wall: float, frames: int) -> dict:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    # The port's kernels: csrc/ defines them in anonymous namespaces.
+    # The port's kernels: csrc/ defines them in anonymous namespaces and
+    # kernel B's builds in namespace rtb (csrc/bounce.cuh).
     port = {n: t for n, t in by_name.items()
-            if "(anonymous namespace)::" in n}
+            if "(anonymous namespace)::" in n or "rtb::" in n}
     return {"wall_ms_per_frame": wall / frames * 1e3,
             "device_busy_ms_per_frame": busy / frames / 1e3,
             "device_idle_share": 1.0 - busy / span if span else None,

@@ -2,7 +2,7 @@
 //
 // Replaces raytracer_tpu/kernels/pallas_mega.py _kernel_core in its three
 // builds, through one device function templated on CarryColor:
-//   rt_bounce12     make_kernel(carry_color=False, key_mode="cid") via
+//   rt_bounce12     make_kernel(carry_color=False) via
 //                   bounce_megakernel12: the default fused12 rounds, where a
 //                   dying ray's atten becomes its colour deposit;
 //   rt_bounce15     make_kernel(carry_color=True) via bounce_megakernel: the
@@ -16,7 +16,21 @@
 // Each iteration is the kernel A walk (recording the winner cluster id),
 // then the material model, then the per-ray budget; after up to bcap
 // iterations the kernel writes the state, the rays/live counts and the
-// next round's cid sort key. The TPU kernel runs one tile of 1024-2048
+// next round's sort key.
+//
+// Builds (bounce.cuh), each entry point taking key_mode and ordered:
+//   key_mode 0  cid: (dead << 30) | (winner cluster << 3) | octant, the
+//               default (wavefront.py KEY_DEFAULT);
+//   key_mode 1  pd5: origin and direction, 5 bits a channel, interleaved
+//               (pallas_mega.py :557-571), against the root box;
+//   key_mode 2  om9: 9-bit Morton code of the origin, then the direction
+//               octant (:583-599), against the root box;
+//   ordered 0   the walk pushes hit children in slot order, without the
+//               near-first network (:244-266, RAYTPU_ORDER_MINW levels);
+//               not for rt_bounce_packed, which the packed engine only
+//               runs ordered.
+// The root box is read on the card (bounds, the six floats of nodes8 row
+// 0), so no build needs a host read. The TPU kernel runs one tile of 1024-2048
 // rays per grid step and loops while any ray of the tile lives; here one
 // thread runs one ray, so a thread whose ray dies stops at once (at
 // bcap > 1 only the cid bits of the keys of rays that died earlier differ
@@ -62,633 +76,237 @@
 // (0/1), bounces-left budget and pixel id (passed through). Packed state:
 // sf f32[13, w] = origin, direction, colour, atten, alive (0.0 / 1.0); si
 // i32[k, w] = seed, then k - 1 rows passed through; the budget is the
-// constant 1 << 30. Every build writes key i32[w] = (dead << 30) |
-// (cid << 3) | octant and adds (rays, live) into counts u64[2].
-#include "pcg.cuh"
-#include "walk.cuh"
+// constant 1 << 30. Every build writes key i32[w] (dead flag at bit 30)
+// and adds (rays, live) into counts u64[2].
+#include "bounce.cuh"
 
 namespace {
 
-constexpr int kRejectionRounds = 24;  // kernels/rng.py REJECTION_ROUNDS
-constexpr int kThreads = 128;
+using rtb::Builds;
+using rtb::CountOut;
+using rtb::Key;
+using rtb::kThreads;
+using rtb::Params;
 
-using rt::pcg;
+constexpr int kInvalidValue = 1;  // cudaErrorInvalidValue
 
-// pallas_mega._unit: u32 bits -> i32 -> f32, + 2^32 if negative, / 2^32.
-__device__ __forceinline__ float unit_two_step(uint32_t seed) {
-  const int32_t i = (int32_t)seed;
-  float f = (float)i;
-  if (i < 0) f = f + 4294967296.0f;
-  return f / 4294967295.0f;
+Params make_params(const void* nodes4, const void* clusters,
+                   const void* bounds, int w, int bcap, int sky_on,
+                   float fuzz, int emissive_emits, float t_min, float t_max,
+                   float det_eps) {
+  return Params{(const float*)nodes4, (const float*)clusters,
+                (const float*)bounds, w, bcap, sky_on, emissive_emits,
+                fuzz, t_min, t_max, det_eps};
 }
 
-__device__ __forceinline__ float as_f(int32_t v) { return __int_as_float(v); }
-__device__ __forceinline__ int32_t as_i(float v) { return __float_as_int(v); }
-
-struct Params {
-  const float* nodes4;
-  const float* clusters;
-  int w, bcap, sky_on, emissive_emits;
-  float fuzz, t_min, t_max, det_eps;
-};
-
-// One ray's state through a round.
-struct RayState {
-  rt::Ray r;
-  float cr, cg, cb;     // colour (CarryColor only)
-  float atr, atg, atb;  // atten, or the deposit once dead (no carry)
-  uint32_t seed;
-  bool act;
-  int bud;
-  int cid;              // winner cluster of the last walk, 0 if none
-  unsigned int rays;    // iterations entered alive
-};
-
-// Shade a live ray after its walk (pallas_mega._kernel_core shade()):
-// h is the closest hit with the normal facing the ray.
-template <bool CarryColor>
-__device__ __forceinline__ void shade(RayState& s, const rt::Hit& h,
-                                      const Params& q) {
-  s.cid = h.cid;
-  const rt::Ray& r = s.r;
-  const bool hit = h.t < q.t_max;
-  const bool miss = !hit;
-  const float dlen = sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
-  const float idl = 1.0f / (dlen > 0.0f ? dlen : 1.0f);
-  const float uy = r.dy * idl;
-  const float tsky = 0.5f * (uy + 1.0f);
-  const float omt = 1.0f - tsky;
-  const float skr = q.sky_on ? omt + tsky * 0.5f : 0.0f;
-  const float skg = q.sky_on ? omt + tsky * 0.7f : 0.0f;
-  const float skb = q.sky_on ? omt + tsky * 1.0f : 0.0f;
-
-  const float mt = h.mt;
-  const bool is_lam = mt == 0.0f;
-  const bool is_metal = (mt == 1.0f) || (mt == 2.0f);
-  const bool is_emis = mt == 3.0f;
-  const bool needs = hit && (is_lam || is_metal);
-  float sphx = 0.0f, sphy = 0.0f, sphz = 0.0f;
-  uint32_t seed = s.seed;
-  if (needs) {
-    // 3 discarded draws, then up to kRejectionRounds rounds of 3.
-    seed = pcg(pcg(pcg(seed)));
-    bool need = true;
-    for (int k = 0; k < kRejectionRounds && need; ++k) {
-      seed = pcg(seed);
-      float cx = unit_two_step(seed);
-      seed = pcg(seed);
-      float cy = unit_two_step(seed);
-      seed = pcg(seed);
-      float cz = unit_two_step(seed);
-      cx = cx * 2.0f - 1.0f;
-      cy = cy * 2.0f - 1.0f;
-      cz = cz * 2.0f - 1.0f;
-      if ((cx * cx + cy * cy + cz * cz) < 1.0f) {
-        sphx = cx;
-        sphy = cy;
-        sphz = cz;
-        need = false;
-      }
-    }
+// The kernels of build (key_mode, ordered); false for an unknown key.
+bool find_builds(int key_mode, int ordered, Builds* b) {
+  static const Builds cid = rtb::make_builds<Key::kCid, true>();
+  static const Builds cid_unordered = rtb::make_builds<Key::kCid, false>();
+  switch (key_mode) {
+    case 0: *b = ordered ? cid : cid_unordered; return true;
+    case 1: *b = rtb::builds_pd5(ordered != 0); return true;
+    case 2: *b = rtb::builds_om9(ordered != 0); return true;
   }
-  s.seed = seed;
-  const float slen = sqrtf(sphx * sphx + sphy * sphy + sphz * sphz);
-  const float isl = 1.0f / ((needs && slen > 0.0f) ? slen : 1.0f);
-  const float usx = sphx * isl, usy = sphy * isl, usz = sphz * isl;
-  float lamx = h.nx + usx, lamy = h.ny + usy, lamz = h.nz + usz;
-  const float laml = sqrtf(lamx * lamx + lamy * lamy + lamz * lamz);
-  if (laml < 1e-4f) {
-    lamx = h.nx;
-    lamy = h.ny;
-    lamz = h.nz;
-  }
-  const float fz = mt == 2.0f ? q.fuzz : 0.0f;
-  const float ndx = r.dx * idl, ndy = r.dy * idl, ndz = r.dz * idl;
-  const float dn = ndx * h.nx + ndy * h.ny + ndz * h.nz;
-  const float refx = ndx - 2.0f * dn * h.nx;
-  const float refy = ndy - 2.0f * dn * h.ny;
-  const float refz = ndz - 2.0f * dn * h.nz;
-  const float metx = refx + fz * sphx;
-  const float mety = refy + fz * sphy;
-  const float metz = refz + fz * sphz;
-  const float rawx = is_lam ? lamx : metx;
-  const float rawy = is_lam ? lamy : mety;
-  const float rawz = is_lam ? lamz : metz;
-  const float rl = sqrtf(rawx * rawx + rawy * rawy + rawz * rawz);
-  const float irl = 1.0f / (rl > 0.0f ? rl : 1.0f);
-  const float newx = rawx * irl, newy = rawy * irl, newz = rawz * irl;
-  const bool met_ok = (newx * h.nx + newy * h.ny + newz * h.nz) > 0.0f;
-  const bool scattered = hit && (is_lam || (is_metal && met_ok));
-  const bool emits = q.emissive_emits && hit && is_emis;
-
-  if (CarryColor) {
-    if (miss) {
-      s.cr = s.atr * skr;
-      s.cg = s.atg * skg;
-      s.cb = s.atb * skb;
-    }
-    if (emits) {
-      s.cr = s.cr + h.ar * s.atr;
-      s.cg = s.cg + h.ag * s.atg;
-      s.cb = s.cb + h.ab * s.atb;
-    }
-    if (scattered) {
-      s.atr = s.atr * h.ar;
-      s.atg = s.atg * h.ag;
-      s.atb = s.atb * h.ab;
-    }
-  } else {
-    // No-colour carry: a dying ray's atten becomes its deposit.
-    float dr = miss ? s.atr * skr : 0.0f;
-    float dg = miss ? s.atg * skg : 0.0f;
-    float db = miss ? s.atb * skb : 0.0f;
-    if (emits) {
-      dr = h.ar * s.atr;
-      dg = h.ag * s.atg;
-      db = h.ab * s.atb;
-    }
-    if (scattered) {
-      s.atr = s.atr * h.ar;
-      s.atg = s.atg * h.ag;
-      s.atb = s.atb * h.ab;
-    } else {
-      s.atr = dr;
-      s.atg = dg;
-      s.atb = db;
-    }
-  }
-  if (scattered) {
-    const float hx = r.ox + r.dx * h.t;
-    const float hy = r.oy + r.dy * h.t;
-    const float hz = r.oz + r.dz * h.t;
-    s.r = {hx, hy, hz, newx, newy, newz};
-  }
-  s.act = scattered;
-  // Per-ray budget: every iteration entered alive costs 1; at 0 the ray
-  // dies here (without the carry, killed to black).
-  s.bud -= 1;
-  if (!CarryColor && s.bud <= 0 && s.act) {
-    s.atr = 0.0f;
-    s.atg = 0.0f;
-    s.atb = 0.0f;
-  }
-  if (!(s.bud > 0)) s.act = false;
+  return false;
 }
 
-// One walk + shade iteration of a live ray.
-template <bool CarryColor, bool kPostpone = false>
-__device__ __forceinline__ void iterate(RayState& s, const Params& q) {
-  ++s.rays;
-  const rt::Hit h = rt::walk<kPostpone>(q.nodes4, q.clusters, s.r, q.t_min,
-                                        q.t_max, q.det_eps, true);
-  shade<CarryColor>(s, h, q);
-}
-
-// Up to bcap walk + shade iterations while the ray lives.
-template <bool CarryColor, bool kPostpone = false>
-__device__ __forceinline__ void run_ray(RayState& s, const Params& q) {
-  for (int b = 0; b < q.bcap && s.act; ++b) {
-    iterate<CarryColor, kPostpone>(s, q);
-  }
-}
-
-__device__ __forceinline__ int32_t cid_key(const RayState& s) {
-  const int octant = (s.r.dx > 0.0f ? 1 : 0) | (s.r.dy > 0.0f ? 2 : 0) |
-                     (s.r.dz > 0.0f ? 4 : 0);
-  return ((s.act ? 0 : 1) << 30) | (s.cid << 3) | octant;
-}
-
-// Warp sums of (rays, live), one atomic each. Every thread of the block
-// reaches this (invalid lanes add 0).
-__device__ __forceinline__ void add_counts(unsigned long long* counts,
-                                           unsigned int rays,
-                                           unsigned int live) {
-  const unsigned int wr = __reduce_add_sync(0xffffffffu, rays);
-  const unsigned int wl = __reduce_add_sync(0xffffffffu, live);
-  if ((threadIdx.x & 31) == 0) {
-    if (wr) atomicAdd(&counts[0], (unsigned long long)wr);
-    if (wl) atomicAdd(&counts[1], (unsigned long long)wl);
-  }
-}
-
-// Round state i32[13 | 16, w]: the float rows, then seed, alive, budget,
-// pixel id. Ray i's fields in, with no walk yet (cid 0).
-template <bool CarryColor>
-__device__ __forceinline__ void load_ray(RayState& s,
-                                         const int32_t* __restrict__ st_in,
-                                         int i, int w) {
-  constexpr int kA = CarryColor ? 9 : 6;  // first atten row
-  constexpr int kSeed = kA + 3;
-  const int32_t* in = st_in + i;
-  s.r = {as_f(in[0]),     as_f(in[w]),     as_f(in[2 * w]),
-         as_f(in[3 * w]), as_f(in[4 * w]), as_f(in[5 * w])};
-  s.cr = s.cg = s.cb = 0.0f;
-  if (CarryColor) {
-    s.cr = as_f(in[6 * w]);
-    s.cg = as_f(in[7 * w]);
-    s.cb = as_f(in[8 * w]);
-  }
-  s.atr = as_f(in[kA * w]);
-  s.atg = as_f(in[(kA + 1) * w]);
-  s.atb = as_f(in[(kA + 2) * w]);
-  s.seed = (uint32_t)in[kSeed * w];
-  s.act = in[(kSeed + 1) * w] != 0;
-  s.bud = in[(kSeed + 2) * w];
-  s.cid = 0;
-}
-
-// Ray i's state out (the pixel id passed through) and its key.
-template <bool CarryColor>
-__device__ __forceinline__ void store_ray(const RayState& s,
-                                          const int32_t* __restrict__ st_in,
-                                          int32_t* __restrict__ st_out,
-                                          int32_t* __restrict__ key_out,
-                                          int i, int w) {
-  constexpr int kA = CarryColor ? 9 : 6;
-  constexpr int kSeed = kA + 3;
-  int32_t* out = st_out + i;
-  out[0] = as_i(s.r.ox);
-  out[w] = as_i(s.r.oy);
-  out[2 * w] = as_i(s.r.oz);
-  out[3 * w] = as_i(s.r.dx);
-  out[4 * w] = as_i(s.r.dy);
-  out[5 * w] = as_i(s.r.dz);
-  if (CarryColor) {
-    out[6 * w] = as_i(s.cr);
-    out[7 * w] = as_i(s.cg);
-    out[8 * w] = as_i(s.cb);
-  }
-  out[kA * w] = as_i(s.atr);
-  out[(kA + 1) * w] = as_i(s.atg);
-  out[(kA + 2) * w] = as_i(s.atb);
-  out[kSeed * w] = (int32_t)s.seed;
-  out[(kSeed + 1) * w] = s.act ? 1 : 0;
-  out[(kSeed + 2) * w] = s.bud;
-  out[(kSeed + 3) * w] = st_in[(kSeed + 3) * w + i];
-  key_out[i] = cid_key(s);
-}
-
-// One thread runs one ray through up to bcap iterations. kPostpone (the
-// walk's postponed leaves) is measured on bounce12 only (rt_bounce12_pl).
-template <bool CarryColor, bool kPostpone = false>
-__global__ void __launch_bounds__(kThreads)
-    bounce_kernel(Params q, const int32_t* __restrict__ st_in,
-                  int32_t* __restrict__ st_out, int32_t* __restrict__ key_out,
-                  unsigned long long* __restrict__ counts) {
-  const int w = q.w;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  RayState s;
-  s.act = false;
-  s.rays = 0;
-  if (i < w) {
-    load_ray<CarryColor>(s, st_in, i, w);
-    run_ray<CarryColor, kPostpone>(s, q);
-    store_ray<CarryColor>(s, st_in, st_out, key_out, i, w);
-  }
-  add_counts(counts, s.rays, s.act ? 1u : 0u);
-}
-
-// The pmega call (bcap > 1) of the colour-carrying build: persistent
-// warps with dynamic ray fetch (Aila and Laine 2009). Each warp starts on
-// its own 32 consecutive rays, as one ray per thread would, and runs one
-// iteration at a time on each lane's ray; a lane whose ray ends (dead, or
-// bcap iterations) writes it out, and before the next iteration the warp
-// refills its idle lanes with the next rays of its batch, kBatch
-// consecutive rays taken from the counter counts[2] by one atomicAdd.
-// Each ray runs the same iterations from its own state as in
-// bounce_kernel, so state, key and counts are the same bit for bit.
-// Measured on the flagship's three bands (PERF.md): an atomic for every
-// refill, or the first rays taken from the counter too, made the bands
-// with few live rays slower than one ray per thread (their time is their
-// longest path's latency, which counter traffic lengthens); batches of
-// 64 or 128 rays serialise a warp's last batch.
-constexpr unsigned kBatch = 32;
-
-__global__ void __launch_bounds__(kThreads)
-    bounce15_pmega_kernel(Params q, const int32_t* __restrict__ st_in,
-                          int32_t* __restrict__ st_out,
-                          int32_t* __restrict__ key_out,
-                          unsigned long long* __restrict__ counts) {
-  constexpr unsigned kFull = 0xffffffffu;
-  const unsigned w = (unsigned)q.w;
-  // The first gridDim.x * kThreads rays go one to a thread; the counter
-  // hands out the rest.
-  const unsigned first = gridDim.x * kThreads;
-  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
-  RayState s;
-  s.act = false;
-  s.rays = 0;               // iterations of all this lane's rays
-  unsigned int live = 0;    // of its rays, those alive at the end
-  int i = blockIdx.x * kThreads + threadIdx.x;  // the lane's ray, or -1
-  int b = 0;                // iterations run on it
-  bool more = first < w;    // the counter may still hold rays
-  unsigned next = 0, end = 0;  // the warp's batch: rays [next, end) left
-  if (i < q.w) {
-    load_ray<true>(s, st_in, i, q.w);
-  } else {
-    i = -1;
-  }
-  while (true) {
-    unsigned idle = __ballot_sync(kFull, i < 0);
-    if (more && idle) {
-      if (next >= end) {
-        unsigned long long base = 0;
-        if ((threadIdx.x & 31) == 0) {
-          base = atomicAdd(&counts[2], (unsigned long long)kBatch);
-        }
-        next = first + (unsigned)__shfl_sync(kFull, base, 0);
-        end = next + kBatch;
-        if (next >= w) more = false;
-      }
-      const unsigned j = next + __popc(idle & below);
-      if (i < 0 && j < end && j < w) {
-        i = (int)j;
-        b = 0;
-        load_ray<true>(s, st_in, i, q.w);
-      }
-      next = min(next + __popc(idle), end);
-      idle = __ballot_sync(kFull, i < 0);
-    }
-    if (idle == kFull) break;   // no ray left
-    if (i >= 0) {
-      if (s.act && b < q.bcap) {
-        iterate<true>(s, q);
-        ++b;
-      }
-      if (!(s.act && b < q.bcap)) {
-        store_ray<true>(s, st_in, st_out, key_out, i, q.w);
-        live += s.act ? 1u : 0u;
-        i = -1;
-      }
-    }
-  }
-  add_counts(counts, s.rays, live);
-}
-
-// Packed state: sf f32[13, w], si i32[si_rows, w] (seed, then rows passed
-// through); the budget is the constant 1 << 30.
-// What a counting build (rt_bounce_packed_count) writes: the walk's
-// tallies summed over warps, u64[4] = visit trips, visit lanes, leaf
-// trips, leaf lanes; and each block's first and last %globaltimer
-// reading (ns), u64[2 * blocks].
-struct CountOut {
-  unsigned long long* tallies;
-  unsigned long long* times;
-};
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Every thread of the block reaches this.
-template <class C>
-__device__ __forceinline__ void count_out(const C& count, const CountOut& co,
-                                          unsigned long long t0) {
-  if constexpr (C::kOn) {
-    const unsigned v[4] = {count.visit_trips, count.visit_lanes,
-                           count.leaf_trips, count.leaf_lanes};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned sum = __reduce_add_sync(0xffffffffu, v[j]);
-      if ((threadIdx.x & 31) == 0 && sum) {
-        atomicAdd(&co.tallies[j], (unsigned long long)sum);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      co.times[2 * blockIdx.x] = t0;
-      co.times[2 * blockIdx.x + 1] = globaltimer();
-    }
-  }
-}
-
-// The packed round (RAYTPU_WAVE=fused_packed, bcap 1 on the path): one
-// thread runs one ray, as bounce_kernel does.
-//
-// Measured against it on the flagship's rounds (PERF.md; NVIDIA H100
-// 80GB HBM3, 700.00 W): on the middle band (300,882 live rays) one ray per
-// thread makes 148,607 warp trips through the walk's visit loop at a SIMD
-// efficiency of 0.44 and 108,793 through its leaf loop at 0.155, and
-// leaves block slots idle for the last third of the launch. Postponed
-// leaves (walk<true>) cut leaf trips by a third but added 43% of visit
-// trips (+6%). Persistent warps that refill lanes in mid-walk from 32-ray
-// batches (91 registers, 5 blocks per SM) cut visit trips by 39% but not
-// leaf trips (+6%); with postponed leaves too they cut leaf trips by 54%
-// and the middle band's round by 4-8%, the top band's by 3%, but made the
-// bottom band's 10-13% slower (refilling at 8, 16 or 32 waiting lanes),
-// and the frame runs the middle and the bottom band's rounds: no gain.
-template <class C>
-__global__ void __launch_bounds__(kThreads)
-    bounce_packed_kernel(Params q, int si_rows,
-                         const float* __restrict__ sf_in,
-                         const int32_t* __restrict__ si_in,
-                         float* __restrict__ sf_out,
-                         int32_t* __restrict__ si_out,
-                         int32_t* __restrict__ key_out,
-                         unsigned long long* __restrict__ counts,
-                         CountOut co) {
-  const unsigned long long t0 = C::kOn ? globaltimer() : 0ull;
-  const int w = q.w;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  C count;
-  RayState s;
-  s.act = false;
-  s.rays = 0;
-  if (i < w) {
-    const float* f = sf_in + i;
-    s.r = {f[0], f[w], f[2 * w], f[3 * w], f[4 * w], f[5 * w]};
-    s.cr = f[6 * w];
-    s.cg = f[7 * w];
-    s.cb = f[8 * w];
-    s.atr = f[9 * w];
-    s.atg = f[10 * w];
-    s.atb = f[11 * w];
-    s.act = f[12 * w] > 0.5f;
-    s.seed = (uint32_t)si_in[i];
-    s.bud = 1 << 30;
-    s.cid = 0;
-    for (int b = 0; b < q.bcap && s.act; ++b) {
-      ++s.rays;
-      const rt::Hit h = rt::walk<false>(q.nodes4, q.clusters, s.r, q.t_min,
-                                        q.t_max, q.det_eps, true, count);
-      shade<true>(s, h, q);
-    }
-    float* o = sf_out + i;
-    o[0] = s.r.ox;
-    o[w] = s.r.oy;
-    o[2 * w] = s.r.oz;
-    o[3 * w] = s.r.dx;
-    o[4 * w] = s.r.dy;
-    o[5 * w] = s.r.dz;
-    o[6 * w] = s.cr;
-    o[7 * w] = s.cg;
-    o[8 * w] = s.cb;
-    o[9 * w] = s.atr;
-    o[10 * w] = s.atg;
-    o[11 * w] = s.atb;
-    o[12 * w] = s.act ? 1.0f : 0.0f;
-    si_out[i] = (int32_t)s.seed;
-    for (int k = 1; k < si_rows; ++k) si_out[k * w + i] = si_in[k * w + i];
-    key_out[i] = cid_key(s);
-  }
-  add_counts(counts, s.rays, s.act ? 1u : 0u);
-  count_out(count, co, t0);
-}
-
-template <class C>
-int launch_packed(const Params& q, int si_rows, const void* sf_in,
-                  const void* si_in, void* sf_out, void* si_out, void* key,
-                  void* counts, CountOut co, void* stream) {
-  if (q.w > 0) {
-    bounce_packed_kernel<C>
-        <<<(q.w + kThreads - 1) / kThreads, kThreads, 0,
-           (cudaStream_t)stream>>>(
-            q, si_rows, (const float*)sf_in, (const int32_t*)si_in,
-            (float*)sf_out, (int32_t*)si_out, (int32_t*)key,
-            (unsigned long long*)counts, co);
-  }
-  return (int)cudaGetLastError();
-}
-
-Params make_params(const void* nodes4, const void* clusters, int w, int bcap,
-                   int sky_on, float fuzz, int emissive_emits, float t_min,
-                   float t_max, float det_eps) {
-  return Params{(const float*)nodes4, (const float*)clusters, w, bcap,
-                sky_on, emissive_emits, fuzz, t_min, t_max, det_eps};
-}
-
-}  // namespace
-
-extern "C" int rt_bounce12(const void* nodes4, const void* clusters,
-                           const void* state_in, void* state_out, void* key,
-                           void* counts, int w, int bcap, int sky_on,
-                           float fuzz, int emissive_emits, float t_min,
-                           float t_max, float det_eps, void* stream) {
-  if (w > 0) {
-    bounce_kernel<false>
-        <<<(w + kThreads - 1) / kThreads, kThreads, 0,
-           (cudaStream_t)stream>>>(
-            make_params(nodes4, clusters, w, bcap, sky_on, fuzz,
-                        emissive_emits, t_min, t_max, det_eps),
-            (const int32_t*)state_in, (int32_t*)state_out, (int32_t*)key,
-            (unsigned long long*)counts);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rt_bounce12_attrs(int* out) {
-  return rt::kernel_attrs(bounce_kernel<false>, kThreads, out);
-}
-
-// bounce12 with the walk's postponed leaves: measured (kernel_times.py),
-// not on any path.
-extern "C" int rt_bounce12_pl(const void* nodes4, const void* clusters,
-                              const void* state_in, void* state_out,
-                              void* key, void* counts, int w, int bcap,
-                              int sky_on, float fuzz, int emissive_emits,
-                              float t_min, float t_max, float det_eps,
-                              void* stream) {
-  if (w > 0) {
-    bounce_kernel<false, true>
-        <<<(w + kThreads - 1) / kThreads, kThreads, 0,
-           (cudaStream_t)stream>>>(
-            make_params(nodes4, clusters, w, bcap, sky_on, fuzz,
-                        emissive_emits, t_min, t_max, det_eps),
-            (const int32_t*)state_in, (int32_t*)state_out, (int32_t*)key,
-            (unsigned long long*)counts);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rt_bounce12_pl_attrs(int* out) {
-  return rt::kernel_attrs(bounce_kernel<false, true>, kThreads, out);
-}
-
-// Blocks of the pmega call: as many as stay resident on the card.
-cudaError_t pmega_blocks(int* blocks) {
-  static int resident = 0;
-  if (resident == 0) {
+// Blocks of a pmega call: as many as stay resident on the card, for each
+// build's kernel.
+cudaError_t resident_blocks(const void* kernel, int* blocks) {
+  static const void* kernels[8] = {};
+  static int resident[8] = {};
+  int k = 0;
+  while (k < 8 && kernels[k] && kernels[k] != kernel) ++k;
+  if (k == 8) return cudaErrorInvalidValue;
+  if (!kernels[k]) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, bounce15_pmega_kernel, kThreads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, 0);
     if (err != cudaSuccess) return err;
-    resident = sms * per_sm;
+    resident[k] = sms * per_sm;
+    kernels[k] = kernel;
   }
-  *blocks = resident;
+  *blocks = resident[k];
   return cudaSuccess;
 }
 
-extern "C" int rt_bounce15(const void* nodes4, const void* clusters,
-                           const void* state_in, void* state_out, void* key,
-                           void* counts, int w, int bcap, int sky_on,
-                           float fuzz, int emissive_emits, float t_min,
-                           float t_max, float det_eps, void* stream) {
-  if (w > 0) {
-    const Params q = make_params(nodes4, clusters, w, bcap, sky_on, fuzz,
-                                 emissive_emits, t_min, t_max, det_eps);
-    const int blocks = (w + kThreads - 1) / kThreads;
-    if (bcap > 1) {
-      int resident = 0;
-      const cudaError_t err = pmega_blocks(&resident);
-      if (err != cudaSuccess) return (int)err;
-      bounce15_pmega_kernel<<<resident < blocks ? resident : blocks,
-                              kThreads, 0, (cudaStream_t)stream>>>(
-          q, (const int32_t*)state_in, (int32_t*)state_out, (int32_t*)key,
-          (unsigned long long*)counts);
-    } else {
-      bounce_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          q, (const int32_t*)state_in, (int32_t*)state_out, (int32_t*)key,
-          (unsigned long long*)counts);
-    }
+int launch_round(rtb::RoundFn fn, const Params& q, const void* state_in,
+                 void* state_out, void* key, void* counts, void* stream) {
+  if (q.w > 0) {
+    fn<<<(q.w + kThreads - 1) / kThreads, kThreads, 0,
+         (cudaStream_t)stream>>>(q, (const int32_t*)state_in,
+                                 (int32_t*)state_out, (int32_t*)key,
+                                 (unsigned long long*)counts);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int rt_bounce15_attrs(int* out) {
-  return rt::kernel_attrs(bounce_kernel<true>, kThreads, out);
+template <class C>
+int launch_packed(rtb::PackedFn fn, const Params& q, int si_rows,
+                  const void* sf_in, const void* si_in, void* sf_out,
+                  void* si_out, void* key, void* counts, CountOut co,
+                  void* stream) {
+  if (q.w > 0) {
+    fn<<<(q.w + kThreads - 1) / kThreads, kThreads, 0,
+         (cudaStream_t)stream>>>(q, si_rows, (const float*)sf_in,
+                                 (const int32_t*)si_in, (float*)sf_out,
+                                 (int32_t*)si_out, (int32_t*)key,
+                                 (unsigned long long*)counts, co);
+  }
+  return (int)cudaGetLastError();
 }
 
-extern "C" int rt_bounce15_pmega_attrs(int* out) {
-  return rt::kernel_attrs(bounce15_pmega_kernel, kThreads, out);
+int attrs_of(rtb::RoundFn fn, int* out) {
+  return rt::kernel_attrs(fn, kThreads, out);
+}
+
+Builds builds_or_none(int key_mode, int ordered) {
+  Builds b{};
+  find_builds(key_mode, ordered, &b);
+  return b;
+}
+
+}  // namespace
+
+extern "C" int rt_bounce12(const void* nodes4, const void* clusters,
+                           const void* bounds, const void* state_in,
+                           void* state_out, void* key, void* counts, int w,
+                           int bcap, int sky_on, float fuzz,
+                           int emissive_emits, float t_min, float t_max,
+                           float det_eps, int key_mode, int ordered,
+                           void* stream) {
+  Builds b;
+  if (!find_builds(key_mode, ordered, &b)) return kInvalidValue;
+  return launch_round(b.b12,
+                      make_params(nodes4, clusters, bounds, w, bcap, sky_on,
+                                  fuzz, emissive_emits, t_min, t_max,
+                                  det_eps),
+                      state_in, state_out, key, counts, stream);
+}
+
+// bounce12 with the walk's postponed leaves: measured (kernel_times.py),
+// not on any path; the cid key and the ordered walk only.
+extern "C" int rt_bounce12_pl(const void* nodes4, const void* clusters,
+                              const void* bounds, const void* state_in,
+                              void* state_out, void* key, void* counts,
+                              int w, int bcap, int sky_on, float fuzz,
+                              int emissive_emits, float t_min, float t_max,
+                              float det_eps, int key_mode, int ordered,
+                              void* stream) {
+  if (key_mode != 0 || !ordered) return kInvalidValue;
+  return launch_round(&rtb::bounce_kernel<false, Key::kCid, true, true>,
+                      make_params(nodes4, clusters, bounds, w, bcap, sky_on,
+                                  fuzz, emissive_emits, t_min, t_max,
+                                  det_eps),
+                      state_in, state_out, key, counts, stream);
+}
+
+// The colour-carrying round; at bcap > 1 (the pmega call, multi-bounce
+// rounds) the persistent warps of bounce15_pmega_kernel.
+extern "C" int rt_bounce15(const void* nodes4, const void* clusters,
+                           const void* bounds, const void* state_in,
+                           void* state_out, void* key, void* counts, int w,
+                           int bcap, int sky_on, float fuzz,
+                           int emissive_emits, float t_min, float t_max,
+                           float det_eps, int key_mode, int ordered,
+                           void* stream) {
+  Builds b;
+  if (!find_builds(key_mode, ordered, &b)) return kInvalidValue;
+  const Params q = make_params(nodes4, clusters, bounds, w, bcap, sky_on,
+                               fuzz, emissive_emits, t_min, t_max, det_eps);
+  if (w <= 0 || bcap <= 1) {
+    return launch_round(b.b15, q, state_in, state_out, key, counts, stream);
+  }
+  int resident = 0;
+  const cudaError_t err = resident_blocks((const void*)b.pmega, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (w + kThreads - 1) / kThreads;
+  b.pmega<<<resident < blocks ? resident : blocks, kThreads, 0,
+            (cudaStream_t)stream>>>(q, (const int32_t*)state_in,
+                                    (int32_t*)state_out, (int32_t*)key,
+                                    (unsigned long long*)counts);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int rt_bounce_packed(const void* nodes4, const void* clusters,
-                                const void* sf_in, const void* si_in,
-                                void* sf_out, void* si_out, void* key,
-                                void* counts, int w, int si_rows, int bcap,
-                                int sky_on, float fuzz, int emissive_emits,
-                                float t_min, float t_max, float det_eps,
+                                const void* bounds, const void* sf_in,
+                                const void* si_in, void* sf_out,
+                                void* si_out, void* key, void* counts, int w,
+                                int si_rows, int bcap, int sky_on,
+                                float fuzz, int emissive_emits, float t_min,
+                                float t_max, float det_eps, int key_mode,
                                 void* stream) {
+  Builds b;
+  if (!find_builds(key_mode, 1, &b)) return kInvalidValue;
   return launch_packed<rt::NoCount>(
-      make_params(nodes4, clusters, w, bcap, sky_on, fuzz, emissive_emits,
-                  t_min, t_max, det_eps),
+      b.packed,
+      make_params(nodes4, clusters, bounds, w, bcap, sky_on, fuzz,
+                  emissive_emits, t_min, t_max, det_eps),
       si_rows, sf_in, si_in, sf_out, si_out, key, counts,
       CountOut{nullptr, nullptr}, stream);
 }
 
-// The counting build of the packed round: the same launch, outputs and
-// counts, plus the walk's tallies u64[4] and each block's timer readings
-// u64[2 * blocks] (see CountOut).
+// The counting build of the packed round (cid key): the same launch,
+// outputs and counts, plus the walk's tallies u64[4] and each block's
+// timer readings u64[2 * blocks] (see CountOut).
 extern "C" int rt_bounce_packed_count(
-    const void* nodes4, const void* clusters, const void* sf_in,
-    const void* si_in, void* sf_out, void* si_out, void* key, void* counts,
-    void* tallies, void* times, int w, int si_rows, int bcap, int sky_on,
-    float fuzz, int emissive_emits, float t_min, float t_max, float det_eps,
-    void* stream) {
+    const void* nodes4, const void* clusters, const void* bounds,
+    const void* sf_in, const void* si_in, void* sf_out, void* si_out,
+    void* key, void* counts, void* tallies, void* times, int w, int si_rows,
+    int bcap, int sky_on, float fuzz, int emissive_emits, float t_min,
+    float t_max, float det_eps, void* stream) {
   return launch_packed<rt::LaneCount>(
-      make_params(nodes4, clusters, w, bcap, sky_on, fuzz, emissive_emits,
-                  t_min, t_max, det_eps),
+      &rtb::bounce_packed_kernel<rt::LaneCount, Key::kCid>,
+      make_params(nodes4, clusters, bounds, w, bcap, sky_on, fuzz,
+                  emissive_emits, t_min, t_max, det_eps),
       si_rows, sf_in, si_in, sf_out, si_out, key, counts,
       CountOut{(unsigned long long*)tallies, (unsigned long long*)times},
       stream);
 }
 
+// Registers, local bytes, shared bytes, blocks per SM and threads of each
+// build's kernels (kernels/cuda_build.py KERNELS).
+extern "C" int rt_bounce12_attrs(int* out) {
+  return attrs_of(builds_or_none(0, 1).b12, out);
+}
+extern "C" int rt_bounce12_pd5_attrs(int* out) {
+  return attrs_of(builds_or_none(1, 1).b12, out);
+}
+extern "C" int rt_bounce12_om9_attrs(int* out) {
+  return attrs_of(builds_or_none(2, 1).b12, out);
+}
+extern "C" int rt_bounce12_unordered_attrs(int* out) {
+  return attrs_of(builds_or_none(0, 0).b12, out);
+}
+extern "C" int rt_bounce12_pl_attrs(int* out) {
+  return attrs_of(&rtb::bounce_kernel<false, Key::kCid, true, true>, out);
+}
+extern "C" int rt_bounce15_attrs(int* out) {
+  return attrs_of(builds_or_none(0, 1).b15, out);
+}
+extern "C" int rt_bounce15_pd5_attrs(int* out) {
+  return attrs_of(builds_or_none(1, 1).b15, out);
+}
+extern "C" int rt_bounce15_om9_attrs(int* out) {
+  return attrs_of(builds_or_none(2, 1).b15, out);
+}
+extern "C" int rt_bounce15_unordered_attrs(int* out) {
+  return attrs_of(builds_or_none(0, 0).b15, out);
+}
+extern "C" int rt_bounce15_pmega_attrs(int* out) {
+  return attrs_of(builds_or_none(0, 1).pmega, out);
+}
 extern "C" int rt_bounce_packed_attrs(int* out) {
-  return rt::kernel_attrs(bounce_packed_kernel<rt::NoCount>, kThreads, out);
+  return rt::kernel_attrs(builds_or_none(0, 1).packed, kThreads, out);
+}
+extern "C" int rt_bounce_packed_pd5_attrs(int* out) {
+  return rt::kernel_attrs(builds_or_none(1, 1).packed, kThreads, out);
+}
+extern "C" int rt_bounce_packed_om9_attrs(int* out) {
+  return rt::kernel_attrs(builds_or_none(2, 1).packed, kThreads, out);
 }

@@ -204,7 +204,8 @@ __device__ __forceinline__ void walk_start(Walk& w, const Ray& r,
   }
 
 // Visit node w.nid against the closest t so far: push its hit internal
-// children far-first, and set w.leaves to its hit leaf slots.
+// children far-first (kOrdered) or in slot order, and set w.leaves to its
+// hit leaf slots.
 //
 // Each step does only the work that can change the result, in the order
 // of the full test:
@@ -215,6 +216,15 @@ __device__ __forceinline__ void walk_start(Walk& w, const Ray& r,
 // - The network sorts (key, push) pairs, push = the hit internal child's
 //   meta or 0, and runs only when the ray pushes two children or more:
 //   one push needs no order.
+// - Without kOrdered (pallas_mega.py:264-266, the deep rounds of
+//   RAYTPU_ORDER_MINW) there is no key and no network: the hit internal
+//   children go on the stack in slot order, the highest slot on top. With
+//   one fixed child order a ray's depth-first visits are the tile walk's
+//   union order restricted to the nodes that ray hits (a child box lies
+//   inside its parent's, so a ray that misses a node misses its whole
+//   subtree), so the walk tests its leaves in the TPU's order, ties
+//   included.
+template <bool kOrdered = true>
 __device__ __forceinline__ void visit(Walk& w, int* stack,
                                       const float* __restrict__ nodes4,
                                       float t_min) {
@@ -244,7 +254,9 @@ __device__ __forceinline__ void visit(Walk& w, int* stack,
           min_nan(max_nan(lo0, hi0),
                   min_nan(max_nan(lo1, hi1), max_nan(lo2, hi2)));
       const bool hit = (t_ex > t_en) && (t_ex > t_min) && (t_en < closest);
-      key[c] = (a.x + a.w) * r.dx + (a.y + b.x) * r.dy + (a.z + b.y) * r.dz;
+      if constexpr (kOrdered) {
+        key[c] = (a.x + a.w) * r.dx + (a.y + b.x) * r.dy + (a.z + b.y) * r.dz;
+      }
       if (hit && meta > 0) {
         push[c] = meta;
         ++npush;
@@ -252,7 +264,7 @@ __device__ __forceinline__ void visit(Walk& w, int* stack,
       if (hit && meta < 0) leaves |= 1u << c;
     }
   }
-  if (npush > 1) {
+  if (kOrdered && npush > 1) {
     RT_CSWAP(0, 1) RT_CSWAP(2, 3) RT_CSWAP(4, 5) RT_CSWAP(6, 7)
     RT_CSWAP(0, 2) RT_CSWAP(1, 3) RT_CSWAP(4, 6) RT_CSWAP(5, 7)
     RT_CSWAP(1, 2) RT_CSWAP(5, 6) RT_CSWAP(0, 4) RT_CSWAP(3, 7)
@@ -301,7 +313,7 @@ __device__ __forceinline__ bool pop(Walk& w, const int* stack) {
 // One step of the walk: a visit and its leaves, or with kPostpone visits
 // until one hits a leaf, then its leaves (see walk()). False when the walk
 // has ended.
-template <bool kPostpone, class C>
+template <bool kPostpone, bool kOrdered, class C>
 __device__ __forceinline__ bool walk_step(Walk& w, int* stack,
                                           const float* __restrict__ nodes4,
                                           const float* __restrict__ clusters,
@@ -311,13 +323,13 @@ __device__ __forceinline__ bool walk_step(Walk& w, int* stack,
     bool more = true;
     while (more && !w.leaves) {
       count.visit();
-      visit(w, stack, nodes4, t_min);
+      visit<kOrdered>(w, stack, nodes4, t_min);
       if (!w.leaves) more = pop(w, stack);
     }
     if (!w.leaves) return false;
   } else {
     count.visit();
-    visit(w, stack, nodes4, t_min);
+    visit<kOrdered>(w, stack, nodes4, t_min);
   }
   test_leaves(w, nodes4, clusters, t_min, det_eps, count);
   return pop(w, stack);
@@ -331,8 +343,9 @@ __device__ __forceinline__ bool walk_step(Walk& w, int* stack,
 // tests its parked leaves together. A lane tests a visit's leaves before
 // it visits again, so each ray keeps its own visit and test order, and
 // its result is the same bit for bit.
+// kOrdered: near-first pushes (the default), or slot order (see visit).
 // count: the tallies of a counting build (LaneCount), or NoCount.
-template <bool kPostpone, class C>
+template <bool kPostpone, bool kOrdered = true, class C>
 __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
                                     const float* __restrict__ clusters,
                                     const Ray& r, float t_min, float t_max,
@@ -340,21 +353,21 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
   Walk w;
   int stack[kStackCap];
   walk_start(w, r, t_max);
-  while (walk_step<kPostpone>(w, stack, nodes4, clusters, t_min, det_eps,
-                              count)) {
+  while (walk_step<kPostpone, kOrdered>(w, stack, nodes4, clusters, t_min,
+                                        det_eps, count)) {
   }
   if (flip) face_ray(r, w.h);
   return w.h;
 }
 
-template <bool kPostpone = false>
+template <bool kPostpone = false, bool kOrdered = true>
 __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
                                     const float* __restrict__ clusters,
                                     const Ray& r, float t_min, float t_max,
                                     float det_eps, bool flip) {
   NoCount count;
-  return walk<kPostpone>(nodes4, clusters, r, t_min, t_max, det_eps, flip,
-                         count);
+  return walk<kPostpone, kOrdered>(nodes4, clusters, r, t_min, t_max,
+                                   det_eps, flip, count);
 }
 
 #undef RT_CSWAP

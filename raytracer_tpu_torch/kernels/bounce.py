@@ -4,7 +4,7 @@
 Replaces the Pallas kernel ``raytracer_tpu/kernels/pallas_mega.py``
 ``_kernel_core`` in its three builds: up to ``bcap`` iterations of the
 kernel A walk plus the material model, the per-ray budget, the rays/live
-counts and the next round's ``cid`` sort key.
+counts and the next round's sort key.
 
 * ``bounce12`` (``make_kernel(carry_color=False)`` via
   ``bounce_megakernel12``, the default rounds): the no-color carry, where a
@@ -20,6 +20,15 @@ counts and the next round's ``cid`` sort key.
   ``bounce15`` core over packed state, sf f32[13, w] (origin, direction,
   colour, atten, alive as 0.0 / 1.0) and si i32[k, w] (seed, then rows
   passed through), with the budget fixed at ``1 << 30``.
+
+Each wrapper takes ``key_mode``, the key it emits (``keys.KERNEL_KEYS``:
+``cid``, the winner cluster id of the last walk, by default; ``pd5`` or
+``om9``, ``keys.sort_key`` of the advanced state against the root box with
+the dead flag at bit 30), and ``ordered`` (``bounce12`` and ``bounce15``
+only): False walks without the near-first push order (``walk_plain``), as
+``RAYTPU_ORDER_MINW`` levels do. Each (key, order) pair is a build of its
+own on the card (``csrc/bounce.cuh``), booked in ``launches`` under
+``build_name``.
 
 Round state is one i32 tensor, one row per field: f32 bits of origin,
 direction, [colour,] atten, then the PCG seed bits, the alive flag, the
@@ -42,14 +51,28 @@ import torch
 from raytracer_tpu_torch.core.fast_types import FastScene
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.kernels import cuda_build, launches
+from raytracer_tpu_torch.kernels.keys import KERNEL_KEYS, sort_key
 from raytracer_tpu_torch.kernels.rng import M32, REJECTION_ROUNDS, pcg
-from raytracer_tpu_torch.kernels.trace import _check_scene, walk_plain
+from raytracer_tpu_torch.kernels.trace import (_check_scene, _check_table,
+                                               walk_plain)
 
 ROW_SEED, ROW_ALIVE, ROW_BUDGET, ROW_PIX = -4, -3, -2, -1
 STATE_ROWS = 13            # no-color carry (bounce12)
 COLOR_ROWS = 16            # colour carried (bounce15)
 SF_ROWS = 13               # packed floats (bounce_packed)
 UNIFORM_BUDGET = 1 << 30   # never gates: the bounce cap alone does
+
+
+def build_name(kernel: str, key_mode: str = "cid",
+               ordered: bool = True) -> str:
+    """The name a build of ``kernel`` books its launches under: the
+    kernel's own for the cid key and the ordered walk, else suffixed
+    ("bounce12_pd5", "bounce15_unordered", "bounce12_om9_unordered")."""
+    if key_mode not in KERNEL_KEYS:
+        raise ValueError(f"kernel B emits no {key_mode!r} key "
+                         f"(builds: {', '.join(KERNEL_KEYS)})")
+    return (kernel + ("" if key_mode == "cid" else f"_{key_mode}")
+            + ("" if ordered else "_unordered"))
 
 
 def pack_state(ray_o, ray_d, atten, seed, alive, budget, pix, color=None):
@@ -199,10 +222,11 @@ def _shade(hit_out, o, d, c, a, seed, alive, sky_on: bool,
 
 
 def _rounds_plain(scene: FastScene, state: torch.Tensor, bcap: int,
-                  sky_on: bool, cfg: RenderConfig):
+                  sky_on: bool, cfg: RenderConfig, key_mode: str = "cid",
+                  ordered: bool = True):
     """Up to ``bcap`` walk + shade iterations on a round state (either
-    layout) -> (state', key i32[w], counts int64[2] = (rays traced, live
-    at the end))."""
+    layout) -> (state', key i32[w] of ``key_mode``, counts int64[2] =
+    (rays traced, live at the end))."""
     o, d, c, a = unpack_floats(state)
     seed = state[ROW_SEED].to(torch.int64) & M32
     act = state[ROW_ALIVE] != 0
@@ -216,7 +240,7 @@ def _rounds_plain(scene: FastScene, state: torch.Tensor, bcap: int,
         rays = rays + entered.sum()
         hit_out, cid_new = walk_plain(scene.nodes4, scene.clusters, o, d,
                                       entered, cfg.t_min, cfg.t_max,
-                                      cfg.det_eps)
+                                      cfg.det_eps, ordered=ordered)
         cid = torch.where(entered, cid_new, cid)
         o, d, c, a, seed, act = _shade(hit_out, o, d, c, a, seed, entered,
                                        sky_on, cfg)
@@ -226,40 +250,48 @@ def _rounds_plain(scene: FastScene, state: torch.Tensor, bcap: int,
             a = tuple(torch.where(killed, 0.0, x) for x in a)
         act = act & (bud > 0)
     out = pack_state(o, d, a, seed, act, bud, state[ROW_PIX], color=c)
-    octant = ((d[0] > 0.0).to(torch.int32)
-              | ((d[1] > 0.0).to(torch.int32) << 1)
-              | ((d[2] > 0.0).to(torch.int32) << 2))
-    key = ((~act).to(torch.int32) << 30) | (cid << 3) | octant
+    if key_mode == "cid":
+        octant = ((d[0] > 0.0).to(torch.int32)
+                  | ((d[1] > 0.0).to(torch.int32) << 1)
+                  | ((d[2] > 0.0).to(torch.int32) << 2))
+        key = ((~act).to(torch.int32) << 30) | (cid << 3) | octant
+    else:
+        key = sort_key(o, d, act, *scene.bounds(), key_mode,
+                       dead_bit=30).to(torch.int32)
     counts = torch.stack([rays, act.sum()])
     return out, key, counts
 
 
 def bounce12_plain(scene: FastScene, state: torch.Tensor, bcap: int,
-                   sky_on: bool, cfg: RenderConfig):
+                   sky_on: bool, cfg: RenderConfig, key_mode: str = "cid",
+                   ordered: bool = True):
     """Plain version of kernel B -> (state' i32[13, w], key i32[w],
     counts int64[2] = (rays traced, live at the end))."""
     _check_state(scene, state, STATE_ROWS)
-    launches.plain["bounce12"] += 1
-    return _rounds_plain(scene, state, bcap, sky_on, cfg)
+    launches.plain[build_name("bounce12", key_mode, ordered)] += 1
+    return _rounds_plain(scene, state, bcap, sky_on, cfg, key_mode, ordered)
 
 
 def bounce15_plain(scene: FastScene, state: torch.Tensor, bcap: int,
-                   sky_on: bool, cfg: RenderConfig):
+                   sky_on: bool, cfg: RenderConfig, key_mode: str = "cid",
+                   ordered: bool = True):
     """Plain version of the colour-carrying kernel -> (state' i32[16, w],
     key i32[w], counts int64[2])."""
     _check_state(scene, state, COLOR_ROWS)
-    launches.plain["bounce15"] += 1
-    return _rounds_plain(scene, state, bcap, sky_on, cfg)
+    launches.plain[build_name("bounce15", key_mode, ordered)] += 1
+    return _rounds_plain(scene, state, bcap, sky_on, cfg, key_mode, ordered)
 
 
 def bounce_packed_plain(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
-                        bcap: int, sky_on: bool, cfg: RenderConfig):
+                        bcap: int, sky_on: bool, cfg: RenderConfig,
+                        key_mode: str = "cid"):
     """Plain version of the packed kernel: sf f32[13, w], si i32[k, w] ->
     (sf', si', key i32[w], counts int64[2]); si rows >= 1 pass through."""
     _check_packed(scene, sf, si)
-    launches.plain["bounce_packed"] += 1
+    launches.plain[build_name("bounce_packed", key_mode)] += 1
     state = packed_to_state(sf, si, UNIFORM_BUDGET, 0)
-    out, key, counts = _rounds_plain(scene, state, bcap, sky_on, cfg)
+    out, key, counts = _rounds_plain(scene, state, bcap, sky_on, cfg,
+                                     key_mode)
     sf_out = torch.cat([out[0:12].view(torch.float32),
                         out[ROW_ALIVE].to(torch.float32)[None]])
     si_out = torch.cat([out[ROW_SEED][None], si[1:]])
@@ -268,6 +300,7 @@ def bounce_packed_plain(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
 
 def _check_state(scene: FastScene, state: torch.Tensor, rows: int) -> None:
     _check_scene(scene, state.device)
+    _check_table(scene, "nodes8", 8, state.device)
     if (state.dtype != torch.int32 or state.dim() != 2
             or state.shape[0] != rows or not state.is_contiguous()):
         raise ValueError(f"state must be contiguous i32[{rows}, w]")
@@ -276,6 +309,7 @@ def _check_state(scene: FastScene, state: torch.Tensor, rows: int) -> None:
 def _check_packed(scene: FastScene, sf: torch.Tensor,
                   si: torch.Tensor) -> None:
     _check_scene(scene, sf.device)
+    _check_table(scene, "nodes8", 8, sf.device)
     if (sf.dtype != torch.float32 or sf.dim() != 2
             or sf.shape[0] != SF_ROWS or not sf.is_contiguous()):
         raise ValueError("sf must be contiguous f32[13, w]")
@@ -286,7 +320,8 @@ def _check_packed(scene: FastScene, sf: torch.Tensor,
 
 
 def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
-                   bcap: int, sky_on: bool, cfg: RenderConfig):
+                   bcap: int, sky_on: bool, cfg: RenderConfig,
+                   key_mode: str = "cid", ordered: bool = True):
     w = state.shape[1]
     out = torch.empty_like(state)
     key = torch.empty(w, dtype=torch.int32, device=state.device)
@@ -297,10 +332,12 @@ def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
     stream = torch.cuda.current_stream(state.device).cuda_stream
     cuda_build.check(getattr(lib, f"rt_{name}")(
         scene.nodes4.data_ptr(), scene.clusters.data_ptr(),
-        state.data_ptr(), out.data_ptr(), key.data_ptr(), counts.data_ptr(),
-        w, int(bcap), int(bool(sky_on)), cfg.fuzz, int(cfg.emissive_emits),
-        cfg.t_min, cfg.t_max, cfg.det_eps, stream), f"rt_{name}")
-    launches.kernel[name] += 1
+        scene.nodes8.data_ptr(), state.data_ptr(), out.data_ptr(),
+        key.data_ptr(), counts.data_ptr(), w, int(bcap), int(bool(sky_on)),
+        cfg.fuzz, int(cfg.emissive_emits), cfg.t_min, cfg.t_max, cfg.det_eps,
+        KERNEL_KEYS.index(key_mode), int(bool(ordered)), stream),
+        f"rt_{name}")
+    launches.kernel[build_name(name, key_mode, ordered)] += 1
     return out, key, counts[:2]
 
 
@@ -313,28 +350,33 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def bounce12(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
-             cfg: RenderConfig):
+             cfg: RenderConfig, key_mode: str = "cid", ordered: bool = True):
     """Kernel B on CUDA tensors, its plain version on CPU tensors (same
     arguments and results as ``bounce12_plain``)."""
     if not _on_cuda(state):
-        return bounce12_plain(scene, state, bcap, sky_on, cfg)
+        return bounce12_plain(scene, state, bcap, sky_on, cfg, key_mode,
+                              ordered)
     _check_state(scene, state, STATE_ROWS)
-    return _launch_rounds("bounce12", scene, state, bcap, sky_on, cfg)
+    return _launch_rounds("bounce12", scene, state, bcap, sky_on, cfg,
+                          key_mode, ordered)
 
 
 def bounce15(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
-             cfg: RenderConfig):
+             cfg: RenderConfig, key_mode: str = "cid", ordered: bool = True):
     """The colour-carrying kernel on CUDA tensors, its plain version on
     CPU tensors (same arguments and results as ``bounce15_plain``)."""
     if not _on_cuda(state):
-        return bounce15_plain(scene, state, bcap, sky_on, cfg)
+        return bounce15_plain(scene, state, bcap, sky_on, cfg, key_mode,
+                              ordered)
     _check_state(scene, state, COLOR_ROWS)
-    return _launch_rounds("bounce15", scene, state, bcap, sky_on, cfg)
+    return _launch_rounds("bounce15", scene, state, bcap, sky_on, cfg,
+                          key_mode, ordered)
 
 
 def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
                    si: torch.Tensor, bcap: int, sky_on: bool,
-                   cfg: RenderConfig, *extra: torch.Tensor):
+                   cfg: RenderConfig, *extra: torch.Tensor,
+                   key_mode: str = "cid"):
     w = sf.shape[1]
     sf_out = torch.empty_like(sf)
     si_out = torch.empty_like(si)
@@ -342,24 +384,30 @@ def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
     counts = torch.zeros(2, dtype=torch.int64, device=sf.device)
     lib = cuda_build.library()
     stream = torch.cuda.current_stream(sf.device).cuda_stream
+    # The counting build has the cid key only and takes no key code.
+    code = () if extra else (KERNEL_KEYS.index(key_mode),)
     cuda_build.check(getattr(lib, f"rt_{name}")(
-        scene.nodes4.data_ptr(), scene.clusters.data_ptr(), sf.data_ptr(),
-        si.data_ptr(), sf_out.data_ptr(), si_out.data_ptr(), key.data_ptr(),
+        scene.nodes4.data_ptr(), scene.clusters.data_ptr(),
+        scene.nodes8.data_ptr(), sf.data_ptr(), si.data_ptr(),
+        sf_out.data_ptr(), si_out.data_ptr(), key.data_ptr(),
         counts.data_ptr(), *(t.data_ptr() for t in extra), w, si.shape[0],
         int(bcap), int(bool(sky_on)), cfg.fuzz, int(cfg.emissive_emits),
-        cfg.t_min, cfg.t_max, cfg.det_eps, stream), f"rt_{name}")
-    launches.kernel[name] += 1
+        cfg.t_min, cfg.t_max, cfg.det_eps, *code, stream), f"rt_{name}")
+    launches.kernel[build_name(name, key_mode)] += 1
     return sf_out, si_out, key, counts
 
 
 def bounce_packed(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
-                  bcap: int, sky_on: bool, cfg: RenderConfig):
+                  bcap: int, sky_on: bool, cfg: RenderConfig,
+                  key_mode: str = "cid"):
     """The packed kernel on CUDA tensors, its plain version on CPU tensors
     (same arguments and results as ``bounce_packed_plain``)."""
     if not _on_cuda(sf):
-        return bounce_packed_plain(scene, sf, si, bcap, sky_on, cfg)
+        return bounce_packed_plain(scene, sf, si, bcap, sky_on, cfg,
+                                   key_mode)
     _check_packed(scene, sf, si)
-    return _launch_packed("bounce_packed", scene, sf, si, bcap, sky_on, cfg)
+    return _launch_packed("bounce_packed", scene, sf, si, bcap, sky_on, cfg,
+                          key_mode=key_mode)
 
 
 def bounce_packed_count(scene: FastScene, sf: torch.Tensor,

@@ -20,10 +20,16 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu", "tonemap.cu", "mega.cu")
-HEADERS = ("walk.cuh", "walk2.cuh", "pcg.cuh")
+SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu", "bounce_pd5.cu",
+           "bounce_om9.cu", "tonemap.cu", "mega.cu")
+HEADERS = ("walk.cuh", "walk2.cuh", "pcg.cuh", "bounce.cuh")
+# Kernel B's builds of other keys and walk orders go by
+# kernels/bounce.py build_name ("bounce12_pd5", ...).
 KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce12_pl",
-           "bounce15", "bounce15_pmega", "bounce_packed", "tonemap", "mega")
+           "bounce15", "bounce15_pmega", "bounce_packed", "tonemap", "mega",
+           "bounce12_pd5", "bounce12_om9", "bounce12_unordered",
+           "bounce15_pd5", "bounce15_om9", "bounce15_unordered",
+           "bounce_packed_pd5", "bounce_packed_om9")
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,14 +67,13 @@ def _declare(lib) -> None:
     for name in ("rt_bounce12", "rt_bounce12_pl", "rt_bounce15"):
         fn = getattr(lib, name)
         fn.restype = i32
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, f32, i32, f32,
-                       f32, f32, vp]
+        fn.argtypes = [vp] * 7 + [i32, i32, i32, f32, i32, f32, f32, f32,
+                                  i32, i32, vp]
     lib.rt_bounce_packed.restype = i32
-    lib.rt_bounce_packed.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
-                                     i32, i32, i32, f32, i32, f32, f32, f32,
-                                     vp]
+    lib.rt_bounce_packed.argtypes = [vp] * 9 + [i32, i32, i32, i32, f32, i32,
+                                                f32, f32, f32, i32, vp]
     lib.rt_bounce_packed_count.restype = i32
-    lib.rt_bounce_packed_count.argtypes = [vp] * 10 + [
+    lib.rt_bounce_packed_count.argtypes = [vp] * 11 + [
         i32, i32, i32, i32, f32, i32, f32, f32, f32, vp]
     lib.rt_tonemap.restype = i32
     lib.rt_tonemap.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp]

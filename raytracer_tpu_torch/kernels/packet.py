@@ -62,16 +62,17 @@ TRAVERSE_UNROLL = 2
 def tail_merge_widths(cfg: RenderConfig, band_h: int, nb: int):
     """(handoff_width, merged_width) for the cross-band deep-round merge,
     or None when it cannot apply (one band, one bounce, fixed light, or a
-    band too small to have deep levels). The handoff is the band ladder
-    width nearest band rays / 4 (>= MIN_WIDTH)."""
-    knobs.fixed("RAYTPU_TAIL_MERGE")
-    if nb <= 1 or cfg.max_bounces <= 1 or cfg.shading == "fixed_light":
+    band too small to have deep levels, or ``RAYTPU_TAIL_MERGE=0``). The
+    handoff is the band ladder width nearest band rays / 4 (>= the
+    narrowest level)."""
+    if (nb <= 1 or cfg.max_bounces <= 1 or cfg.shading == "fixed_light"
+            or not knobs.tail_merge()):
         return None
     p = band_h * cfg.width
     grain = max(BLOCK, BBLOCK)
     p_pad = -(-p // grain) * grain
     widths = wavefront.round_widths(p_pad)
-    target = max(wavefront.MIN_WIDTH, p_pad // 4)
+    target = max(wavefront.min_width(), p_pad // 4)
     cands = [w for w in widths[1:] if w <= target]
     if not cands:
         return None
@@ -435,23 +436,24 @@ def _mega_step(scene: FastScene, links, st: dict, rays, sky_on: bool,
 
 def _pmega(scene: FastScene, ray_o, ray_d, color, atten, seed, alive,
            sky_on: bool, cfg: RenderConfig, pix):
-    """``RAYTPU_BOUNCE=pmega``: one stable sort by the host key (the
-    ``om9`` form of the cid key, dead bit 31), one gather, then every
-    bounce in ONE ``bounce15`` call (bcap = max_bounces - 1, budget never
-    gating); colours deposit at the sorted pixel ids. The kernel's key is
-    not used. Returns (color f32[3, P + 1], rays traced in the call)."""
-    knobs.fixed("RAYTPU_SORT_KEY")
+    """``RAYTPU_BOUNCE=pmega``: one stable sort by the host key of
+    ``RAYTPU_SORT_KEY`` (u32, dead bit 31; ``cid`` in its ``om9`` form),
+    one gather, then every bounce in ONE ``bounce15`` call (bcap =
+    max_bounces - 1, budget never gating, the cid build with the ordered
+    walk); colours deposit at the sorted pixel ids, a channel at a time.
+    The kernel's key is not used. Returns (color f32[3, P], rays traced in
+    the call)."""
     smin, smax = scene.bounds()
-    key = wavefront.sort_key(ray_o, ray_d, alive, smin, smax)
+    key = wavefront.sort_key(ray_o, ray_d, alive, smin, smax,
+                             knobs.sort_key_mode())
     state = pack_state(ray_o, ray_d, atten, seed, alive, UNIFORM_BUDGET, pix,
                        color=color)
     state = state.index_select(1, torch.argsort(key, stable=True))
     state, _, counts = bounce15(scene, state, cfg.max_bounces - 1, sky_on,
                                 cfg)
-    out = torch.zeros((3, alive.shape[0] + 1), dtype=torch.float32,
-                      device=alive.device)
-    wavefront._deposit(out, state)
-    return out, counts[0]
+    deposits = wavefront._Deposits(alive.shape[0], alive.device, "ch")
+    deposits.add_state(state)
+    return deposits.colors(), counts[0]
 
 
 def _traverse_fast(scene: FastScene, ray_o, ray_d, active,
@@ -595,7 +597,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
         # the primaries (the first round's key from the unshaded rays).
         col, rays, _ = wavefront.wavefront_bounces(
             scene, ray_o, ray_d, (zero, zero, zero), (one, one, one), seed,
-            alive, sky_on, cfg, pix_local, start_bounce=0)
+            alive, sky_on, cfg, pix_local, start_bounce=0, dense_pix=True)
         return col[:, :p], rays, None
 
     res = trace.traverse(scene, ray_o, ray_d, alive, cfg, coherent=True)
@@ -617,7 +619,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
 
     col, rays, surv = wavefront.wavefront_bounces(
         scene, ray_o, ray_d, color, atten, seed, alive, sky_on, cfg,
-        pix_local, handoff_width=tail_handoff)
+        pix_local, handoff_width=tail_handoff, dense_pix=True)
     if surv is not None:
         # Survivor pixel ids go global for the cross-band merge; the pad
         # sentinel (p) maps to gh * w so merged deposits still drop it.

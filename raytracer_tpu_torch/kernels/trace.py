@@ -111,15 +111,18 @@ def _face_ray(out: torch.Tensor, ray_d, flip: bool) -> None:
 
 def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
                active: torch.Tensor, t_min: float, t_max: float,
-               det_eps: float, flip: bool = True):
+               det_eps: float, flip: bool = True, ordered: bool = True):
     """Per-ray stack walk, plain torch. Returns (out f32[8, P] = t, normal
     xyz, albedo rgb, material type; cid i32[P] = winner cluster id, 0 on a
-    miss or for inactive rays). Counts in ``launches.work`` the work the
-    walk needs: node visits (``visits4``), slab tests and keys of live
-    child slots (``slots4``), visits that push two children or more and so
-    need the sorting network (``nets4``), and tests of live triangles
-    (``tris``, each hit leaf's count); keeps the largest stack depth
-    reached as ``stack4_max``."""
+    miss or for inactive rays). ``ordered=False`` pushes a visit's hit
+    internal children in slot order, without the near-first network (the
+    JAX kernel's ``ordered=False``, ``pallas_mega.py:264-266``). Counts in
+    ``launches.work`` the work the walk needs: node visits (``visits4``),
+    slab tests and keys of live child slots (``slots4``), visits that push
+    two children or more and so need the sorting network (``nets4``, the
+    ordered walk only), and tests of live triangles (``tris``, each hit
+    leaf's count); keeps the largest stack depth reached as
+    ``stack4_max``."""
     dev = active.device
     p = active.shape[0]
     out = torch.zeros((8, p), dtype=torch.float32, device=dev)
@@ -162,17 +165,19 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
                    + (node[:, :, 1] + node[:, :, 4]) * dd[1][:, None]
                    + (node[:, :, 2] + node[:, :, 5]) * dd[2][:, None])
 
-            # Far-first push order, then push the hit internal children.
+            # Far-first push order (or slot order), then push the hit
+            # internal children.
             ks = [key[:, c] for c in range(WIDE_WIDTH)]
             ms = [meta[:, c] for c in range(WIDE_WIDTH)]
             push = hit & (meta > 0)
-            launches.work["nets4"] += int((push.sum(1) >= 2).sum())
             ps = [push[:, c] for c in range(WIDE_WIDTH)]
-            for i, j in NET8:
-                sw = ks[j] > ks[i]
-                for f in (ks, ms, ps):
-                    f[i], f[j] = (torch.where(sw, f[j], f[i]),
-                                  torch.where(sw, f[i], f[j]))
+            if ordered:
+                launches.work["nets4"] += int((push.sum(1) >= 2).sum())
+                for i, j in NET8:
+                    sw = ks[j] > ks[i]
+                    for f in (ks, ms, ps):
+                        f[i], f[j] = (torch.where(sw, f[j], f[i]),
+                                      torch.where(sw, f[i], f[j]))
             lsp = sp[li]
             for c in range(WIDE_WIDTH):
                 stack[li, lsp] = ms[c] - 1

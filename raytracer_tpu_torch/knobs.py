@@ -43,15 +43,53 @@ the knob.
   ``RAYTPU_REFIT_TOPO``: the refit capture's host tree, ``ploc``
   (default) or ``sah``.
 
+The sorted rounds' A/B knobs (``kernels/wavefront.py``,
+``kernels/packet.py``), each read at call time where the JAX package reads
+it at trace time, or, for the level schedule, at import
+(``raytracer_tpu/kernels/wavefront.py:57-95``): a process may switch them
+between frames, and a test sets them with ``monkeypatch.setenv``.
+
+* ``RAYTPU_SORT_KEY`` (``sort_key_mode``): ``cid`` (default), ``pd5`` or
+  ``om9``, which kernel B emits (its builds of that key), or ``pos``,
+  ``oct_morton`` or any other value (the ``oct_morton`` form), which the
+  host computes after each round (``kernels/keys.py``);
+* ``RAYTPU_GLUE``: the round gather of the band rounds, ``one``
+  (default: one gather of the round state), ``perfield`` (one gather a
+  field), ``packT`` (a row gather of the transposed state, then a
+  transpose back) or any other value (the f32 rows and the i32 rows as
+  two gathers); ``perfield`` and ``packT`` raise under ``fused12``, where
+  the JAX package fails with a ``TypeError`` (it iterates the colour that
+  the no-colour carry drops);
+* ``RAYTPU_DEPOSIT``: ``grave`` (default: each level's dead tail goes to a
+  graveyard of (pixel, colour) rows, one argsort of the pixel ids and a
+  row gather a band; band rounds only, elsewhere as ``ch``), ``rows``
+  (one ``[n, 3]`` add a level) or any other value (``ch``: one add a
+  channel); the packed engine always adds a channel at a time;
+* ``RAYTPU_PACK_GATHER``: ``col`` (default) gathers the packed engine's
+  state along its ray axis; ``row`` transposes, gathers rows and
+  transposes back;
+* ``RAYTPU_TAIL_MERGE``: ``0`` turns the cross-band tail merge off;
+* the level schedule: ``RAYTPU_WAVE_MINW`` (the narrowest level, rounded
+  up to whole 2048-ray tiles; unset, ``wavefront.MIN_WIDTH``),
+  ``RAYTPU_WAVE_BCAP`` and ``RAYTPU_TAIL_BCAP`` (bounces a fused band
+  round and a tail round runs, at least 1), ``RAYTPU_ORDER_MINW``
+  (levels narrower than this walk unordered; 0, the default, never),
+  ``RAYTPU_DEEP_SUB`` (widths floor to ``DEEP_SUB * 128`` rays) and
+  ``RAYTPU_DEEP_MAXW``. The tile sublanes that ``DEEP_SUB`` and
+  ``DEEP_MAXW`` select for the TPU's deep levels (``_level_sub``) have
+  no counterpart in a kernel that runs one ray a thread, and change no
+  result: like ``RAYTPU_PALLAS_BSUBLANES`` they do not apply;
+  ``DEEP_MAXW`` is read with ``DEEP_SUB`` and used nowhere else.
+
 Counts read at call time where the JAX package reads them (``count``):
 ``RAYTPU_REFIT_REFRESH`` (edits between refit recaptures),
 ``RAYTPU_PIPELINE`` (frames in flight in ``engine/loop.py``),
 ``RAYTPU_LADDER`` and ``RAYTPU_LADDER_SCALE`` (the resolution ladder).
 
 The JAX package's other result-bearing knobs select A/B variants that the
-port has not ported (``FIXED``: tail merge, sort key, round schedule and
-glue, table layout). Each is read where the JAX package reads it, and any
-value but its JAX default raises ``NotImplementedError``.
+port has not ported (``FIXED``: the table layout). Each is read where the
+JAX package reads it, and any value but its JAX default raises
+``NotImplementedError``.
 
 The JAX package's TPU tile-shape knobs change no result and do not apply
 to the port, which does not read them: ``RAYTPU_PALLAS_SUBLANES``,
@@ -76,28 +114,9 @@ DEVICE_TREES = ("karras", "ploc")
 WAVE_ENGINES = ("fused12", "fused", "fused_packed", "split")
 NODE_SOURCES = ("pack", "extract")
 
-# Knob -> its JAX default, the only value the port accepts. Read sites
-# (the JAX package's in parentheses):
-# * ``kernels/packet.tail_merge_widths``: TAIL_MERGE (packet.py:488);
-# * ``kernels/wavefront.py`` rounds and tail, ``packet._pmega``: SORT_KEY
-#   (wavefront.py:333, :803; packet.py:695), GLUE (:409), DEPOSIT (:180),
-#   PACK_GATHER on the fused_packed engine (:661);
-# * ``wavefront.round_widths``, the level schedule: WAVE_MINW, WAVE_BCAP,
-#   TAIL_BCAP, ORDER_MINW, DEEP_SUB, DEEP_MAXW (wavefront.py:57-94, read
-#   at import there);
-# * ``FastScene``: CLUSTER and WIDE (fast_types.py:40, :67).
+# Knob -> its JAX default, the only value the port accepts. Read where
+# ``FastScene`` tables are built (the JAX package's fast_types.py:40, :67).
 FIXED = {
-    "RAYTPU_TAIL_MERGE": "1",
-    "RAYTPU_SORT_KEY": "cid",
-    "RAYTPU_GLUE": "one",
-    "RAYTPU_DEPOSIT": "grave",
-    "RAYTPU_PACK_GATHER": "col",
-    "RAYTPU_WAVE_MINW": "8192",
-    "RAYTPU_WAVE_BCAP": "1",
-    "RAYTPU_TAIL_BCAP": "1",
-    "RAYTPU_ORDER_MINW": "0",
-    "RAYTPU_DEEP_SUB": "0",
-    "RAYTPU_DEEP_MAXW": "200000",
     "RAYTPU_CLUSTER": "8",
     "RAYTPU_WIDE": "8",
 }
@@ -201,3 +220,70 @@ def count(name: str, default: int) -> int:
     """An integer knob (``RAYTPU_PIPELINE``, ``RAYTPU_LADDER``, ...),
     ``default`` when unset."""
     return int(os.environ.get(name, str(default)))
+
+
+def sort_key_mode() -> str:
+    """``RAYTPU_SORT_KEY``: "cid" (default), "pd5", "om9", "pos",
+    "oct_morton"; any other value is taken, and keys as "oct_morton"."""
+    return os.environ.get("RAYTPU_SORT_KEY", "cid")
+
+
+def glue(engine: str) -> str:
+    """``RAYTPU_GLUE`` for the band rounds of ``engine``: "one" (default),
+    "perfield", "packT" or any other value (the f32 / i32 pair). Raises
+    for "perfield" and "packT" under "fused12", which the JAX package
+    cannot run (a ``TypeError`` on the colour the no-colour carry
+    drops)."""
+    value = os.environ.get("RAYTPU_GLUE", "one")
+    if engine == "fused12" and value in ("perfield", "packT"):
+        raise NotImplementedError(
+            f"RAYTPU_GLUE={value!r} with RAYTPU_WAVE=fused12: the JAX "
+            f"package fails there (its glue iterates the colour that the "
+            f"no-colour carry drops); use RAYTPU_WAVE=fused or split")
+    return value
+
+
+def deposit() -> str:
+    """``RAYTPU_DEPOSIT``: "grave" (default), "rows", or any other value
+    (per-channel adds, "ch")."""
+    return os.environ.get("RAYTPU_DEPOSIT", "grave")
+
+
+def pack_gather() -> str:
+    """``RAYTPU_PACK_GATHER``: "row", or "col" for any other value (the
+    default)."""
+    return ("row" if os.environ.get("RAYTPU_PACK_GATHER", "col") == "row"
+            else "col")
+
+
+def tail_merge() -> bool:
+    """``RAYTPU_TAIL_MERGE``: False only for "0"."""
+    return os.environ.get("RAYTPU_TAIL_MERGE", "1") != "0"
+
+
+def wave_minw():
+    """``RAYTPU_WAVE_MINW`` as an int, or None when unset."""
+    value = os.environ.get("RAYTPU_WAVE_MINW")
+    return None if value is None else int(value)
+
+
+def wave_bcap() -> int:
+    """``RAYTPU_WAVE_BCAP``: bounces a fused band round runs (>= 1)."""
+    return max(1, count("RAYTPU_WAVE_BCAP", 1))
+
+
+def tail_bcap() -> int:
+    """``RAYTPU_TAIL_BCAP``: bounces a tail round runs (>= 1)."""
+    return max(1, count("RAYTPU_TAIL_BCAP", 1))
+
+
+def order_minw() -> int:
+    """``RAYTPU_ORDER_MINW``: levels narrower than this walk unordered (0:
+    none)."""
+    return count("RAYTPU_ORDER_MINW", 0)
+
+
+def deep_grain() -> tuple[int, int]:
+    """(``RAYTPU_DEEP_SUB``, ``RAYTPU_DEEP_MAXW``): the deep levels' tile
+    sublanes (0: off) and the widest deep level."""
+    return count("RAYTPU_DEEP_SUB", 0), count("RAYTPU_DEEP_MAXW", 200000)

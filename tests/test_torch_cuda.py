@@ -536,6 +536,9 @@ def _plain_versions(monkeypatch):
                        (trace, "trace2", trace.trace2_plain),
                        (wavefront, "bounce12", bounce.bounce12_plain),
                        (wavefront, "bounce15", bounce.bounce15_plain),
+                       (wavefront, "bounce_packed",
+                        bounce.bounce_packed_plain),
+                       (packet, "bounce15", bounce.bounce15_plain),
                        (packet, "_traverse_fast", packet.ray_traverse_fast),
                        (packet, "_traverse_groups", packet.packet_traverse),
                        (mega, "mega", mega.mega_plain),
@@ -587,3 +590,132 @@ def test_xla_path_frame_matches_plain(scene, monkeypatch, path):
         assert differ == 0
         assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
         assert int(st_k["rays_traced"]) == int(st_p["rays_traced"])
+
+
+def _round_state(n, seed, color):
+    """A round state with origins around and outside the root box (the
+    pd5 / om9 keys clip), 20% dead, budgets 0-3."""
+    from raytracer_tpu_torch.kernels.bounce import pack_state
+
+    o, d = _rays(n, seed)
+    o[:, : n // 16] *= 3.0
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    a = torch.rand((3, n), generator=g, device="cuda")
+    c = torch.rand((3, n), generator=g, device="cuda") * 0.2
+    s = torch.randint(0, 2 ** 32, (n,), generator=g, device="cuda")
+    alive = torch.rand(n, generator=g, device="cuda") < 0.8
+    budget = torch.randint(0, 4, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    return pack_state(tuple(o), tuple(d), tuple(a), s, alive, budget,
+                      torch.arange(n, device="cuda"),
+                      color=tuple(c) if color else None)
+
+
+# Kernel B's builds of the sorted rounds' knobs: (wrapper, key, ordered).
+BUILDS = [("bounce12", "pd5", True), ("bounce12", "om9", True),
+          ("bounce12", "cid", False), ("bounce12", "pd5", False),
+          ("bounce15", "pd5", True), ("bounce15", "om9", True),
+          ("bounce15", "cid", False), ("bounce15", "om9", False),
+          ("bounce_packed", "pd5", True), ("bounce_packed", "om9", True)]
+
+
+@pytest.mark.parametrize("build", BUILDS,
+                         ids=["_".join(map(str, b)) for b in BUILDS])
+def test_bounce_build_kernel_matches_plain(scene, build):
+    """Each key and walk-order build of kernel B against its plain version
+    at bcap 1 and 3 (``bounce15`` at bcap 3: the persistent warps of the
+    pmega call): 0 differing bytes in state, key and counts, and the
+    launch booked under the build's name."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import bounce, launches
+
+    kernel, key_mode, ordered = build
+    cfg = RenderConfig()
+    n = 8192
+    state = _round_state(n, 30, kernel != "bounce12")
+    name = bounce.build_name(kernel, key_mode, ordered)
+    for bcap in (1, 3):
+        launches.reset()
+        if kernel == "bounce_packed":
+            sf = torch.cat([state[0:12].view(torch.float32),
+                            (state[-3] != 0).to(torch.float32)[None]])
+            si = state[[-4, -1]].contiguous()
+            got = bounce.bounce_packed(scene, sf, si, bcap, True, cfg,
+                                       key_mode)
+            want = bounce.bounce_packed_plain(scene, sf, si, bcap, True,
+                                              cfg, key_mode)
+        else:
+            run = getattr(bounce, kernel)
+            got = run(scene, state, bcap, True, cfg, key_mode, ordered)
+            want = getattr(bounce, f"{kernel}_plain")(
+                scene, state, bcap, True, cfg, key_mode, ordered)
+        assert dict(launches.kernel) == {name: 1}
+        for k, p in zip(got, want):
+            assert torch.equal(k.view(torch.int32) if k.is_floating_point()
+                               else k, p.view(torch.int32)
+                               if p.is_floating_point() else p), (build, bcap)
+        key = got[-2]
+        assert len(torch.unique(key)) > 100
+
+
+# Knobs of the sorted rounds -> the kernels a 256x192 frame launches.
+KNOB_FRAMES = {
+    "SORT_KEY=pd5": ({"RAYTPU_SORT_KEY": "pd5"}, {"trace4", "bounce12_pd5"}),
+    "SORT_KEY=om9,WAVE=fused": ({"RAYTPU_SORT_KEY": "om9",
+                                 "RAYTPU_WAVE": "fused"},
+                                {"trace4", "bounce15_om9"}),
+    "SORT_KEY=pd5,WAVE=fused_packed": (
+        {"RAYTPU_SORT_KEY": "pd5", "RAYTPU_WAVE": "fused_packed"},
+        {"trace4", "bounce_packed_pd5", "bounce15_pd5"}),
+    "ORDER_MINW": ({"RAYTPU_ORDER_MINW": str(1 << 30)},
+                   {"trace4", "bounce12_unordered"}),
+    "WAVE_BCAP=2,TAIL_BCAP=3": ({"RAYTPU_WAVE_BCAP": "2",
+                                 "RAYTPU_TAIL_BCAP": "3"},
+                                {"trace4", "bounce12"}),
+    "GLUE=perfield,WAVE=fused,DEPOSIT=rows": (
+        {"RAYTPU_GLUE": "perfield", "RAYTPU_WAVE": "fused",
+         "RAYTPU_DEPOSIT": "rows"}, {"trace4", "bounce15"}),
+    "PACK_GATHER=row,WAVE=fused_packed": (
+        {"RAYTPU_PACK_GATHER": "row", "RAYTPU_WAVE": "fused_packed"},
+        {"trace4", "bounce_packed", "bounce15"}),
+    "DEEP_SUB=32,TAIL_MERGE=0": ({"RAYTPU_DEEP_SUB": "32",
+                                  "RAYTPU_TAIL_MERGE": "0"},
+                                 {"trace4", "bounce12"}),
+}
+
+
+@pytest.mark.parametrize("knob", list(KNOB_FRAMES))
+def test_knob_frame_matches_plain(scene, monkeypatch, knob):
+    """A 256x192 frame (three bands, the tail merge live) under each knob
+    through the kernels and through the plain versions: 0 differing
+    pixels, and the same bytes as the default frame through the kernels
+    (each ray's path is its own), except that the unordered walk may pick
+    another winner of an equal-t tie (at most 0.5% of the pixels)."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+
+    cfg = RenderConfig(width=256, height=192, band_rays=16384)
+    uni = default_camera(cfg.width, cfg.height).uniforms()
+    acc_d, _, _ = Renderer(cfg).render(scene, uni)
+    env, kernels = KNOB_FRAMES[knob]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    launches.reset()
+    acc_k, img_k, st_k = Renderer(cfg).render(scene, uni)
+    assert set(launches.kernel) == kernels | {"tonemap"}
+    assert not launches.plain
+    with monkeypatch.context() as mp:
+        _plain_versions(mp)
+        acc_p, img_p, st_p = Renderer(cfg).render(scene, uni)
+    assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
+    assert torch.equal(img_k, img_p)
+    assert int(st_k["rays_traced"]) == int(st_p["rays_traced"])
+    if knob == "ORDER_MINW":
+        differ = int((acc_k != acc_d).any(-1).sum())
+        assert differ <= 0.005 * cfg.width * cfg.height
+    else:
+        assert torch.equal(acc_k.view(torch.int32),
+                           acc_d.view(torch.int32))
+

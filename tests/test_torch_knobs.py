@@ -1,8 +1,10 @@
 """Every result-bearing knob of the JAX package that selects a variant
-the port has not ported (``knobs.FIXED``) is read where the JAX package
-reads it: a non-default value raises ``NotImplementedError`` naming the
-knob, and the knob set to its JAX default runs as before. The knobs the
-port has ported since (``PORTED``) run their JAX A/B value instead.
+the port has not ported (``knobs.FIXED``: the table layout) is read where
+the JAX package reads it: a non-default value raises
+``NotImplementedError`` naming the knob, and the knob set to its JAX
+default runs as before. The knobs the port has ported since (``PORTED``:
+the XLA path's and host builds' knobs, and the sorted rounds' A/B knobs)
+run their JAX A/B value instead.
 
 Each knob is exercised through the entry point that reads it: a tiny
 frame (16x8, three bounces, one band: bounce 0, the sorted rounds, the
@@ -17,6 +19,7 @@ from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.camera import Camera
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.engine.renderer import Renderer
+from raytracer_tpu_torch.kernels import launches, wavefront
 from raytracer_tpu_torch.scene.builder import build_fast_scene_from_arrays
 from raytracer_tpu_torch.scene.objloader import load_obj
 from raytracer_tpu_torch.utils import assets
@@ -64,29 +67,39 @@ def _load(tmp_path):
     return run
 
 
-ENTRY = {
-    "RAYTPU_TAIL_MERGE": "frame", "RAYTPU_SORT_KEY": "frame",
-    "RAYTPU_GLUE": "frame", "RAYTPU_DEPOSIT": "frame",
-    "RAYTPU_PACK_GATHER": "packed", "RAYTPU_WAVE_MINW": "frame",
-    "RAYTPU_WAVE_BCAP": "frame", "RAYTPU_TAIL_BCAP": "frame",
-    "RAYTPU_ORDER_MINW": "frame", "RAYTPU_DEEP_SUB": "frame",
-    "RAYTPU_DEEP_MAXW": "frame", "RAYTPU_CLUSTER": "build",
-    "RAYTPU_WIDE": "build",
-}
+ENTRY = {"RAYTPU_CLUSTER": "build", "RAYTPU_WIDE": "build"}
 # Values the JAX package accepts for each knob (each selects another path
 # there).
-OTHER = {"RAYTPU_TAIL_MERGE": "0", "RAYTPU_SORT_KEY": "om9",
-         "RAYTPU_GLUE": "perfield", "RAYTPU_DEPOSIT": "rows",
-         "RAYTPU_PACK_GATHER": "row", "RAYTPU_WAVE_MINW": "2048",
-         "RAYTPU_WAVE_BCAP": "2", "RAYTPU_TAIL_BCAP": "3",
-         "RAYTPU_ORDER_MINW": "65536", "RAYTPU_DEEP_SUB": "32",
-         "RAYTPU_DEEP_MAXW": "100000", "RAYTPU_CLUSTER": "4",
-         "RAYTPU_WIDE": "16"}
+OTHER = {"RAYTPU_CLUSTER": "4", "RAYTPU_WIDE": "16"}
 # The knobs the port has taken out of FIXED, each with the value the JAX
 # package's A/B path takes (``test_ported_knob_runs_its_jax_value``).
 PORTED = {"RAYTPU_COMPACT_FLOOR": "512", "RAYTPU_COMPACT_RATIO": "4",
           "RAYTPU_BVH": "median", "RAYTPU_NATIVE": "0",
-          "RAYTPU_LEAF_COUNTS": "0"}
+          "RAYTPU_LEAF_COUNTS": "0",
+          # The sorted rounds' knobs (the frame's kernels walk and shade
+          # every ray as before, so the frame keeps its bytes).
+          "RAYTPU_TAIL_MERGE": "0", "RAYTPU_SORT_KEY": "om9",
+          "RAYTPU_GLUE": "perfield", "RAYTPU_DEPOSIT": "rows",
+          "RAYTPU_PACK_GATHER": "row", "RAYTPU_WAVE_MINW": "2048",
+          "RAYTPU_WAVE_BCAP": "2", "RAYTPU_TAIL_BCAP": "3",
+          "RAYTPU_ORDER_MINW": "65536", "RAYTPU_DEEP_SUB": "32",
+          "RAYTPU_DEEP_MAXW": "100000"}
+# The engine a ported round knob needs (perfield: the JAX package runs it
+# on the colour-carrying rounds only), and the plain version of kernel B
+# the frame runs under it.
+ROUND_KNOBS = {
+    "RAYTPU_TAIL_MERGE": ({}, "bounce12"),
+    "RAYTPU_SORT_KEY": ({}, "bounce12_om9"),
+    "RAYTPU_GLUE": ({"RAYTPU_WAVE": "fused"}, "bounce15"),
+    "RAYTPU_DEPOSIT": ({}, "bounce12"),
+    "RAYTPU_PACK_GATHER": ({"RAYTPU_WAVE": "fused_packed"}, "bounce_packed"),
+    "RAYTPU_WAVE_MINW": ({}, "bounce12"),
+    "RAYTPU_WAVE_BCAP": ({}, "bounce12"),
+    "RAYTPU_TAIL_BCAP": ({}, "bounce12"),
+    "RAYTPU_ORDER_MINW": ({}, "bounce12_unordered"),
+    "RAYTPU_DEEP_SUB": ({}, "bounce12"),
+    "RAYTPU_DEEP_MAXW": ({}, "bounce12"),
+}
 
 
 def test_every_fixed_knob_has_a_case():
@@ -115,6 +128,7 @@ def _accum(scene, env):
         cfg = RenderConfig(width=16, height=8, max_bounces=3)
         uni = Camera((-10.0, 6.0, 30.0), (0.0, -6.0, 0.0), vfov_deg=40.0,
                      aspect_ratio=2.0).uniforms(device="cpu")
+        launches.reset()
         accum, _, _ = Renderer(cfg).render(scene, uni)
     return accum.numpy(), cfg, uni
 
@@ -126,11 +140,20 @@ def test_ported_knob_runs_its_jax_value(knob, scene, tmp_path,
     the compaction knobs on the ``RAYTPU_BOUNCE=mega`` frame (another
     level schedule, the same bytes), the host-build knobs on a scene built
     under them (another tree renders the default frame except on bounce-0
-    tie pixels; full leaf counts the same bytes). ``RAYTPU_NATIVE=0`` also
-    parses an .obj in Python, as the native parser does."""
+    tie pixels; full leaf counts the same bytes), the sorted rounds' knobs
+    on the frame through the build they select (the same bytes).
+    ``RAYTPU_NATIVE=0`` also parses an .obj in Python, as the native
+    parser does."""
     from test_torch_renderer import _bounce0_tie_pixels
 
     value = PORTED[knob]
+    if knob in ROUND_KNOBS:
+        engine, kernel = ROUND_KNOBS[knob]
+        want = _accum(scene, engine)[0]
+        got = _accum(scene, dict(engine, **{knob: value}))[0]
+        assert launches.plain[kernel] > 0
+        assert got.tobytes() == want.tobytes()
+        return
     if knob.startswith("RAYTPU_COMPACT_"):
         want = _accum(scene, {"RAYTPU_BOUNCE": "mega"})[0]
         got = _accum(scene, {"RAYTPU_BOUNCE": "mega", knob: value})[0]
@@ -159,10 +182,51 @@ def test_ported_knob_runs_its_jax_value(knob, scene, tmp_path,
 
 
 def test_sort_key_is_read_on_the_pmega_path(scene, monkeypatch):
-    monkeypatch.setenv("RAYTPU_BOUNCE", "pmega")
-    monkeypatch.setenv("RAYTPU_SORT_KEY", "pd5")
-    with pytest.raises(NotImplementedError, match="RAYTPU_SORT_KEY"):
+    """The pmega path sorts once by the host key of ``RAYTPU_SORT_KEY``
+    (JAX ``packet.py:686-700``), and its frame keeps its bytes."""
+    modes = []
+    real = wavefront.sort_key
+
+    def spy(*args, **kw):
+        modes.append(args[5] if len(args) > 5 else kw.get("mode"))
+        return real(*args, **kw)
+
+    want = _accum(scene, {"RAYTPU_BOUNCE": "pmega"})[0]
+    monkeypatch.setattr(wavefront, "sort_key", spy)
+    got = _accum(scene, {"RAYTPU_BOUNCE": "pmega",
+                         "RAYTPU_SORT_KEY": "pd5"})[0]
+    assert modes == ["pd5"] and launches.plain["bounce15"] == 1
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("glue", ["perfield", "packT"])
+def test_glue_without_the_colour_rows_raises(scene, monkeypatch, glue):
+    """``RAYTPU_GLUE=perfield|packT`` under the default ``fused12`` rounds:
+    the JAX package fails there with a ``TypeError`` (its glue iterates the
+    colour that the no-colour carry drops); the port names the knob."""
+    monkeypatch.setenv("RAYTPU_GLUE", glue)
+    with pytest.raises(NotImplementedError, match="RAYTPU_GLUE"):
         _frame(scene)(monkeypatch)
+    monkeypatch.setenv("RAYTPU_WAVE", "fused")
+    _frame(scene)(monkeypatch)
+
+
+def test_unknown_sort_key_keys_as_oct_morton(scene):
+    """An unknown ``RAYTPU_SORT_KEY`` runs, as in the JAX package: the host
+    keys the rounds in the ``oct_morton`` form (``wavefront.py:280``)
+    after each round, with the default build of kernel B."""
+    want = _accum(scene, {})[0]
+    got = _accum(scene, {"RAYTPU_SORT_KEY": "hilbert"})[0]
+    assert launches.plain["bounce12"] > 0
+    assert got.tobytes() == want.tobytes()
+    g = torch.Generator().manual_seed(0)
+    o = tuple(torch.rand(64, generator=g) * 40 - 20 for _ in range(3))
+    d = tuple(torch.randn(64, generator=g) for _ in range(3))
+    alive = torch.rand(64, generator=g) < 0.5
+    smin, smax = scene.bounds()
+    assert torch.equal(
+        wavefront.sort_key(o, d, alive, smin, smax, "hilbert"),
+        wavefront.sort_key(o, d, alive, smin, smax, "oct_morton"))
 
 
 @pytest.mark.parametrize("knob", ["RAYTPU_PALLAS_SUBLANES",

@@ -80,6 +80,22 @@ def run_jobs(jobs, tmp_path, env: dict | None = None) -> list:
              if k.startswith(f"j{j}_")} for j in range(len(jobs))]
 
 
+def run_children(groups, tmp_path) -> list:
+    """``run_jobs`` for each (jobs, env) of ``groups``, each in a child of
+    its own, the children at once (threads) -> their results, in order.
+    For knobs the JAX package reads at import, which differ per child, and
+    to split a module's Pallas interpret lowerings (~20 s each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(groups)) as pool:
+        futs = []
+        for g, (jobs, env) in enumerate(groups):
+            sub = os.path.join(str(tmp_path), f"child{g}")
+            os.makedirs(sub, exist_ok=True)
+            futs.append(pool.submit(run_jobs, jobs, sub, env))
+        return [f.result() for f in futs]
+
+
 def tie_lanes(scene, ray_o, ray_d, active, cfg):
     """bool[P]: active rays whose closest hit is an equal-t tie, i.e. at
     least two triangles of the scene hit at exactly the closest t (found
@@ -291,6 +307,88 @@ def job_bounce(inp):
     return out
 
 
+def job_bounce_builds(inp):
+    """Kernel B's builds in interpret mode (sub 16) at bcap ``bcap`` on one
+    state, f32[13, w] (o3 d3 c3 a3 act) and i32[3, w] (seed bits, budget,
+    pixel id): each entry of ``builds`` is "kernel:key_mode:ordered" with
+    kernel ``b12`` (bounce_megakernel12: the colour rows dropped), ``b15``
+    (bounce_megakernel) or ``packed`` (bounce_megakernel_packed, si = seed,
+    pixel id; no budget). Results under the entry's name: ``_f`` (the
+    float rows as the kernel returns them, then alive), ``_i`` (seed,
+    budget, key), ``_rays``, ``_live``."""
+    import jax.numpy as jnp
+
+    from raytracer_tpu.kernels.pallas_mega import (bounce_megakernel,
+                                                   bounce_megakernel12,
+                                                   bounce_megakernel_packed)
+
+    scene, cfg = _scene(inp), _cfg(inp)
+    out = _leaves(scene, "scene_")
+    num4 = jnp.asarray(scene.num_nodes4, jnp.int32).reshape(1)
+    bounds = scene.nodes8[0, :6]
+    sky = jnp.asarray([int(inp["sky"])], jnp.int32)
+    bcap = jnp.asarray([int(inp["bcap"])], jnp.int32)
+    f, i = inp["f"], inp["i"]
+    blk = lambda a: jnp.asarray(a).reshape(-1, 128)
+    for build in inp["builds"]:
+        kernel, key_mode, ordered = str(build).split(":")
+        kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, det_eps=cfg.det_eps,
+                  interpret=True, key_mode=key_mode,
+                  ordered=bool(int(ordered)))
+        args = (bcap, sky, bounds, 16, float(cfg.fuzz),
+                bool(cfg.emissive_emits))
+        if kernel == "packed":
+            sfo, sio, rays, live, key = bounce_megakernel_packed(
+                scene.nodes4, scene.clusters, num4,
+                jnp.asarray(f).reshape(13, -1, 128),
+                jnp.asarray(i[[0, 2]]).reshape(2, -1, 128), *args, **kw)
+            fl = np.asarray(sfo).reshape(13, -1)
+            il = np.stack([np.asarray(sio).reshape(2, -1)[0],
+                           np.full(f.shape[1], 1 << 30, np.int32),
+                           np.asarray(key).reshape(-1)])
+        else:
+            rows = range(12) if kernel == "b15" else (*range(6), 9, 10, 11)
+            nf = len(rows)
+            blocks = tuple(blk(f[j]) for j in rows) + (
+                blk(i[0]), blk(f[12]), blk(i[1]))
+            mk = bounce_megakernel if kernel == "b15" else bounce_megakernel12
+            outs = mk(scene.nodes4, scene.clusters, num4, blocks, *args,
+                      **kw)
+            flat = lambda j: np.asarray(outs[j]).reshape(-1)
+            fl = np.stack([flat(j) for j in (*range(nf), nf + 1)])
+            il = np.stack([flat(nf), flat(nf + 2), flat(nf + 5)])
+            rays, live = outs[nf + 3], outs[nf + 4]
+        out[f"{build}_f"] = fl
+        out[f"{build}_i"] = il
+        out[f"{build}_rays"] = np.float64(np.asarray(rays).sum())
+        out[f"{build}_live"] = np.float64(np.asarray(live).sum())
+    return out
+
+
+def job_sort_keys(inp):
+    """wavefront.sort_key (XLA) in every mode of ``modes`` at dead bits 30
+    and 31, bit patterns as i32."""
+    import jax
+    import jax.numpy as jnp
+
+    from raytracer_tpu.kernels import wavefront
+
+    o = tuple(jnp.asarray(r) for r in inp["key_o"])
+    d = tuple(jnp.asarray(r) for r in inp["key_d"])
+    alive = jnp.asarray(inp["key_alive"])
+    b = inp["bounds"]
+    smin = tuple(jnp.float32(b[ax]) for ax in range(3))
+    smax = tuple(jnp.float32(b[3 + ax]) for ax in range(3))
+    out = {}
+    for mode in inp["modes"]:
+        for bit in (30, 31):
+            k = wavefront.sort_key(o, d, alive, smin, smax, str(mode),
+                                   dead_bit=bit)
+            out[f"key_{mode}_{bit}"] = np.asarray(
+                jax.lax.bitcast_convert_type(k, jnp.int32))
+    return out
+
+
 def job_tonemap(inp):
     """tonemap_accumulate (Pallas, interpret) and renderer.tonemap; with
     ``xsamples`` f32[k, H, W, 3], ``xfc`` and ``xexposure`` f32[k], also
@@ -388,7 +486,8 @@ def job_frames(inp):
     from raytracer_tpu.core.camera import Camera
     from raytracer_tpu.engine.renderer import Renderer
 
-    wf.MIN_WIDTH = 2048
+    if "RAYTPU_WAVE_MINW" not in os.environ:
+        wf.MIN_WIDTH = 2048
     scene, cfg = _scene(inp), _cfg(inp)
     out = _leaves(scene, "scene_")
     cam = Camera(origin=inp["cam_origin"], look_at=inp["cam_look"],
@@ -725,6 +824,7 @@ JOBS = {"trace": job_trace, "bounce": job_bounce,
         "lbvh": job_lbvh, "ploc_device": job_ploc_device,
         "instanced": job_instanced, "refit": job_refit,
         "mega": job_mega, "host_bvh": job_host_bvh,
+        "bounce_builds": job_bounce_builds, "sort_keys": job_sort_keys,
         "multi": job_multi}
 
 
