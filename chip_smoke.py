@@ -126,12 +126,32 @@ Phases, one or more lines each (any failure raises and exits non-zero):
     FPS, ms a frame, kernel launches and device activities a frame; a
     256x128 frame per group of knobs through the kernels and the plain
     versions (0 differing pixels);
+21. the table layouts (``RAYTPU_CLUSTER=2|4``, ``RAYTPU_WIDE=16`` and the
+    combined 2/16 and 4/16): the five layout libraries built at once
+    (nvcc seconds, each kernel's registers, local bytes and blocks per
+    SM); on the flagship built in each layout, every kernel of its
+    library against its plain version at 0 differing bytes (kernel A on
+    the middle band's primaries; ``trace2_warp`` / ``trace2`` and
+    ``mega`` at the cluster layouts; kernel B's 15 builds, ``bounce12`` /
+    ``bounce15`` / ``bounce_packed`` x ``cid`` / ``pd5`` / ``om9`` and the
+    unordered ``bounce12`` / ``bounce15``, on the sorted bounce-1 state
+    and on a merged-tail state with budgets 0-3), with their times, the
+    plain versions' and the bounds; kernels A and B on the 16-wide stack
+    limit tree (need 256); kernels A and B of ``CLUSTER=2``, ``CLUSTER=4``
+    and ``WIDE=16`` in turns with the default layout's on the middle
+    band; every layout's flagship at 1280x720, 10 bounces on the main
+    path (4 frames for those three, 1 for the combined ones) and on the
+    paths that run its other builds (1 frame each): FPS, ms a frame,
+    Mrays/s, launches a frame; a 256x128 frame per layout, kernels
+    against plain versions (0 differing pixels); the ``two_humans`` drag
+    at ``WIDE=16`` under ``instanced`` (16-wide TLAS) and ``refit``
+    (falls back to ``lbvh``, no wide table, the binary split path);
 
 then a JSON line of per-kernel results (with each CUDA kernel's
 registers, local and shared bytes and resident blocks per SM as the main
 path launches it, and its launches per frame on the PLOC drag, on each
-mesh, on each XLA path and on each knob path) and, last, the JSON
-result line.
+mesh, on each XLA path, on each knob path and on each layout path) and,
+last, the JSON result line.
 Each path run resets the launch counts just before it, reads them just
 after and fails unless each of its kernels launched and no plain version
 ran. Imports nothing of JAX.
@@ -159,13 +179,14 @@ PEAK_OPS = 67e12
 # Operations per unit of work the plain versions count
 # (``launches.work``: only the work the function needs), priced from the
 # kernels' arithmetic: the slab test and centroid key of a live child slot
-# of an 8-wide node (pallas_trace.py:332-350), one run of the
-# 19-comparator network (a visit that pushes two children or more), a
-# binary node visit (one slab test), a Moller-Trumbore test of a live
-# triangle (:436-451), a PCG draw with its u32 -> f32 conversion, and the
-# rest of one ray's shade (sky, Lambert / metal directions, carry).
-OPS = {"slots4": 33, "nets4": 19, "visits2": 25, "tris": 54, "draws": 12,
-       "shades": 70}
+# of a wide node (pallas_trace.py:332-350), one run of the 19-comparator
+# network of an 8-wide node or the 63-comparator network of a 16-wide one
+# (a visit that pushes two children or more), a binary node visit (one
+# slab test), a Moller-Trumbore test of a live triangle (:436-451), a PCG
+# draw with its u32 -> f32 conversion, and the rest of one ray's shade
+# (sky, Lambert / metal directions, carry).
+OPS = {"slots4": 33, "nets4": 19, "nets16": 63, "visits2": 25, "tris": 54,
+       "draws": 12, "shades": 70}
 
 
 def _sync():
@@ -555,10 +576,10 @@ def check_bounce(scene, cfg, cam, results):
                                plain_ms=plain_ms, **b)
 
 
-def check_stack_limit():
-    """Kernels A and B on a tree close to the deepest the stack takes
-    (need 253 of 256 slots): bit-equal to the plain versions in every
-    lane."""
+def check_stack_limit(width: int = 8):
+    """Kernels A and B on a ``width``-wide tree at the deepest the stack
+    takes (need 253 of 256 slots at width 8, 256 at width 16): bit-equal
+    to the plain versions in every lane."""
     from raytracer_tpu_torch.bvh.bvh4 import nodes4_stack_need
     from raytracer_tpu_torch.core.types import RenderConfig
     from raytracer_tpu_torch.kernels.bounce import (bounce12,
@@ -568,7 +589,7 @@ def check_stack_limit():
     from raytracer_tpu_torch.scene import presets
 
     n = 16384
-    scene, rays = presets.stack_limit_scene(n)
+    scene, rays = presets.stack_limit_scene(n, width=width)
     cfg = RenderConfig()
     active = torch.ones(n, dtype=torch.bool, device="cuda")
     got = trace4(scene, rays, active, cfg)
@@ -584,9 +605,9 @@ def check_stack_limit():
     out_p = bounce12_plain(scene, state, 1, True, cfg)
     lanes_b = int(((out_k[0] != out_p[0]).any(0)
                    | (out_k[1] != out_p[1])).sum())
-    print(f"check stack limit ({scene.num_nodes4} wide nodes, need "
-          f"{nodes4_stack_need(scene.nodes4.cpu().numpy())}, plain walk "
-          f"reached {work['stack4_max']}), "
+    print(f"check stack limit ({scene.num_nodes4} {width}-wide nodes, need "
+          f"{nodes4_stack_need(scene.nodes4.cpu().numpy(), width)}, plain "
+          f"walk reached {work['stack4_max']}), "
           f"{n} rays: kernel A differing lanes {lanes}, kernel B differing "
           f"lanes {lanes_b}, counts {out_k[2].tolist()} vs "
           f"{out_p[2].tolist()}")
@@ -1183,11 +1204,13 @@ def check_device_builds(cfg, uni, dev="cuda", drags: int = 16) -> dict:
     return out
 
 
-def run_drag(cfg, dev="cuda", frames: int = 16) -> dict:
+def run_drag(cfg, dev="cuda", frames: int = 16, modes=None) -> dict:
     """Phase 14: ``bench.py:156-175``'s frame per mode: the last figure
     moves 0.05 in x, the scene is rebuilt on the card and rendered
     (frame count 0: a live edit restarts accumulation), one warm frame
-    then ``frames``, synchronised; launch counts reset just before."""
+    then ``frames``, synchronised; launch counts reset just before.
+    ``modes``: label -> (knobs, the builder's ``last_mode``, the kernels
+    a frame launches); default each of ``MODES``, kernels A and B."""
     from raytracer_tpu_torch.core.camera import default_camera
     from raytracer_tpu_torch.engine.renderer import Renderer
     from raytracer_tpu_torch.kernels import launches
@@ -1195,8 +1218,12 @@ def run_drag(cfg, dev="cuda", frames: int = 16) -> dict:
 
     figures = two_humans_figures()
     cam = default_camera(cfg.width, cfg.height)
+    if modes is None:
+        modes = {m: (env, env["RAYTPU_DEVICE_BUILD"],
+                     ("trace4", "bounce12", "tonemap"))
+                 for m, env in MODES.items()}
     out = {}
-    for mode, env in MODES.items():
+    for mode, (env, last_mode, kernels) in modes.items():
         with knob_env(env):
             builder = DeviceSceneBuilder(dev)
             builder.build(figures)
@@ -1221,8 +1248,8 @@ def run_drag(cfg, dev="cuda", frames: int = 16) -> dict:
                 frame_ms.append((t2 - t0) * 1e3)
             dt = time.perf_counter() - t_start
             counts, plain = dict(launches.kernel), dict(launches.plain)
-        assert builder.last_mode == env["RAYTPU_DEVICE_BUILD"]
-        for k in ("trace4", "bounce12", "tonemap"):
+        assert builder.last_mode == last_mode, (mode, builder.last_mode)
+        for k in kernels:
             assert counts.get(k, 0) > 0, f"{k} never launched on drag {mode}"
         assert not plain, f"plain versions ran on drag {mode}"
         img = image.cpu().numpy()
@@ -1233,7 +1260,9 @@ def run_drag(cfg, dev="cuda", frames: int = 16) -> dict:
                          rebuild_share=sum(build_ms) / sum(frame_ms),
                          launches_per_frame={k: v / frames
                                              for k, v in counts.items()},
-                         image_mean=float(img.mean()))
+                         image_mean=float(img.mean()),
+                         last_mode=builder.last_mode,
+                         wide_table=scene.nodes4 is not None)
         print(f"drag {mode} {cfg.width}x{cfg.height}, {cfg.max_bounces} "
               f"bounces, {frames} frames: {out[mode]['fps']:.3f} FPS, "
               f"{out[mode]['ms']:.2f} ms/frame (median "
@@ -2160,6 +2189,292 @@ def run_knob_paths(scene, cfg, cam, frames: int = 4) -> dict:
     return out
 
 
+# Phase 21: the table layouts off the default -> the knobs a table is
+# built under.
+LAYOUT_KNOBS = {"c2": {"RAYTPU_CLUSTER": "2"}, "c4": {"RAYTPU_CLUSTER": "4"},
+                "w16": {"RAYTPU_WIDE": "16"},
+                "c2w16": {"RAYTPU_CLUSTER": "2", "RAYTPU_WIDE": "16"},
+                "c4w16": {"RAYTPU_CLUSTER": "4", "RAYTPU_WIDE": "16"}}
+# The layouts rendered at full width with 4 frames, in turns with the
+# default layout's kernels A and B.
+FULL_LAYOUTS = ("c2", "c4", "w16")
+# Kernel B's 15 builds: the name at the default layout -> (wrapper, key
+# mode, ordered walk).
+B_BUILDS = {f"{k}{'' if key == 'cid' else '_' + key}"
+            f"{'' if ordered else '_unordered'}": (k, key, ordered)
+            for k in ("bounce12", "bounce15", "bounce_packed")
+            for key in ("cid", "pd5", "om9")
+            for ordered in (True, False)
+            if ordered or k != "bounce_packed"}
+# Each build's source and the TPU kernel code it replaces.
+B_SOURCES = {"cid": "raytracer_tpu_torch/csrc/bounce12.cu",
+             "pd5": "raytracer_tpu_torch/csrc/bounce_pd5.cu",
+             "om9": "raytracer_tpu_torch/csrc/bounce_om9.cu"}
+B_REPLACES = {"bounce12": "raytracer_tpu/kernels/pallas_mega.py:782",
+              "bounce15": "raytracer_tpu/kernels/pallas_mega.py:800",
+              "bounce_packed": "raytracer_tpu/kernels/pallas_mega.py:645"}
+# The paths each layout's frames run -> (their knobs, the kernels a frame
+# launches, by their default-layout names). Every build of kernel B runs
+# on one of them; the binary walks and mega (leaf builds) at the cluster
+# layouts only.
+ORDER_ALL = {"RAYTPU_ORDER_MINW": "65536"}
+LAYOUT_PATHS = {
+    "main": ({}, ("trace4", "bounce12", "tonemap")),
+    "ORDER_MINW": (ORDER_ALL, ("trace4", "bounce12", "bounce12_unordered")),
+    "SORT_KEY=pd5": (dict(ORDER_ALL, RAYTPU_SORT_KEY="pd5"),
+                     ("trace4", "bounce12_pd5", "bounce12_pd5_unordered")),
+    "SORT_KEY=om9": (dict(ORDER_ALL, RAYTPU_SORT_KEY="om9"),
+                     ("trace4", "bounce12_om9", "bounce12_om9_unordered")),
+    "WAVE=fused": (dict(ORDER_ALL, RAYTPU_WAVE="fused"),
+                   ("trace4", "bounce15", "bounce15_unordered")),
+    "WAVE=fused,SORT_KEY=pd5": (
+        dict(ORDER_ALL, RAYTPU_WAVE="fused", RAYTPU_SORT_KEY="pd5"),
+        ("trace4", "bounce15_pd5", "bounce15_pd5_unordered")),
+    "WAVE=fused,SORT_KEY=om9": (
+        dict(ORDER_ALL, RAYTPU_WAVE="fused", RAYTPU_SORT_KEY="om9"),
+        ("trace4", "bounce15_om9", "bounce15_om9_unordered")),
+    "WAVE=fused_packed": ({"RAYTPU_WAVE": "fused_packed"},
+                          ("trace4", "bounce_packed", "bounce15")),
+    "WAVE=fused_packed,SORT_KEY=pd5": (
+        {"RAYTPU_WAVE": "fused_packed", "RAYTPU_SORT_KEY": "pd5"},
+        ("trace4", "bounce_packed_pd5", "bounce15_pd5")),
+    "WAVE=fused_packed,SORT_KEY=om9": (
+        {"RAYTPU_WAVE": "fused_packed", "RAYTPU_SORT_KEY": "om9"},
+        ("trace4", "bounce_packed_om9", "bounce15_om9")),
+    "split+binary": ({"RAYTPU_WAVE": "split", "RAYTPU_TRAVERSE": "binary"},
+                     ("trace2_warp", "trace2")),
+    "B0=mega": ({"RAYTPU_B0": "mega"}, ("mega",)),
+}
+LEAF_KERNELS = ("trace2", "trace2_warp", "mega")
+
+
+def layout_kernel(name: str, layout) -> str:
+    """A kernel's launch name on tables of ``layout`` (the binary walks
+    and mega run the build of the layout's leaves)."""
+    from raytracer_tpu_torch.kernels import cuda_build
+
+    if name == "tonemap":
+        return name
+    if name in LEAF_KERNELS:
+        return cuda_build.leaf_kernel_name(name, layout)
+    return cuda_build.kernel_name(name, layout)
+
+
+def layout_scenes() -> dict:
+    """The flagship built under each layout's knobs -> name -> (scene,
+    build seconds)."""
+    from raytracer_tpu_torch.scene import presets
+
+    out = {}
+    for name, env in LAYOUT_KNOBS.items():
+        with knob_env(env):
+            t0 = time.perf_counter()
+            scene = presets.flagship_scene()
+            _sync()
+            out[name] = (scene, time.perf_counter() - t0)
+        s = out[name][0]
+        print(f"layout {name} {s.layout}: flagship {s.num_triangles} "
+              f"triangles, nodes8 {s.nodes8.shape[0]} rows, nodes4 "
+              f"{s.nodes4.shape[0]} rows ({s.num_nodes4} wide nodes), "
+              f"clusters {s.clusters.shape[0]} rows, built in "
+              f"{out[name][1]:.3f} s")
+    return out
+
+
+def build_layouts() -> dict:
+    """Phase 21 (a): the five non-default layout libraries, every nvcc at
+    once -> (nvcc seconds, launch name -> attrs of each kernel)."""
+    from raytracer_tpu_torch.kernels import cuda_build
+
+    layouts = [l for l in cuda_build.LAYOUTS
+               if l != cuda_build.DEFAULT_LAYOUT]
+    t0 = time.perf_counter()
+    cuda_build.build(layouts)
+    secs = time.perf_counter() - t0
+    attrs = {cuda_build.kernel_name(k, l): cuda_build.kernel_attrs(k, l)
+             for l in cuda_build.LAYOUTS for k in cuda_build.KERNELS}
+    print(f"build: {len(layouts)} layout libraries "
+          f"({', '.join(cuda_build.layout_tag(l)[1:] for l in layouts)}), "
+          f"{len(layouts) * len(cuda_build.SOURCES)} nvcc at once, "
+          f"{secs:.1f} s")
+    for k in ("trace4", "bounce12", "bounce15_pmega", "bounce_packed",
+              "trace2", "mega"):
+        print(f"registers / local B / blocks per SM of {k}: " + ", ".join(
+            f"{cuda_build.layout_tag(l)[1:] or 'default'} "
+            f"{attrs[cuda_build.kernel_name(k, l)]['regs']} / "
+            f"{attrs[cuda_build.kernel_name(k, l)]['local_bytes']} / "
+            f"{attrs[cuda_build.kernel_name(k, l)]['blocks_per_sm']}"
+            for l in cuda_build.LAYOUTS))
+    return dict(nvcc_s=secs, attrs=attrs)
+
+
+def _check_kernel(label, call, plain, nbytes_, rows, key):
+    """Kernel vs plain on the same inputs: 0 differing bytes -> a row with
+    its time, the plain version's (that one call, CUDA events) and the
+    bound."""
+    got = call()
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want, work = plain_work(plain)
+    end.record()
+    _sync()
+    plain_ms = start.elapsed_time(end)
+    n_diff = equal_outputs(got if isinstance(got, tuple) else (got,),
+                           want if isinstance(want, tuple) else (want,))
+    ms = time_ms(call, 10)
+    b = bound(nbytes_, work)
+    print(f"check {key} ({label}): differing bytes {n_diff}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b['bound_ms']:.4f} "
+          f"ms ({b['bound_by']}); work {work}")
+    assert n_diff == 0, f"{key} differs from its plain version"
+    rows[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b)
+    return got
+
+
+def check_layout_kernels(name, scene, cfg, cam, results):
+    """Phase 21 (b): every kernel of the layout's library on the flagship
+    of that layout against its plain version, 0 differing bytes: kernel
+    A on the middle band's primaries; at the cluster layouts the binary
+    walks (``trace2_warp`` on those primaries, ``trace2`` on the split
+    engine's sorted bounce-1 round) and mega from bounce 0 (raster
+    primaries); kernel B's 15 builds on the middle band's bounce-1 state
+    sorted by the build's key, and on a merged-tail state with budgets
+    0-3 (its packed form for the packed builds)."""
+    from raytracer_tpu_torch.engine.renderer import _num_bands
+    from raytracer_tpu_torch.kernels import bounce, mega, packet, trace
+
+    layout = scene.layout
+    _, _, ray_o, ray_d, alive, _ = band_primaries(scene, cfg, cam)
+    rays = torch.stack([*ray_o, *ray_d]).contiguous()
+    p = rays.shape[1]
+    _check_kernel(f"{p} primaries", lambda: trace.trace4(scene, rays, alive,
+                                                         cfg),
+                  lambda: trace.trace4_plain(scene, rays, alive, cfg),
+                  trace_bytes(scene, rays, "nodes4"), results,
+                  layout_kernel("trace4", layout))
+    if layout[1] == 8:
+        _check_kernel(
+            f"{p} primaries", lambda: trace.trace2(scene, rays, alive, cfg,
+                                                   coherent=True),
+            lambda: trace.trace2_plain(scene, rays, alive, cfg),
+            trace_bytes(scene, rays, "nodes8"), results,
+            layout_kernel("trace2_warp", layout))
+        srays, sact = split_round1(scene, cfg, cam)
+        _check_kernel(
+            f"{p} split-round rays",
+            lambda: trace.trace2(scene, srays, sact, cfg),
+            lambda: trace.trace2_plain(scene, srays, sact, cfg),
+            trace_bytes(scene, srays, "nodes8"), results,
+            layout_kernel("trace2", layout))
+        o, d, c, a, seed, alive0, pix = band_raster(scene, cfg, cam)
+        n_out = cfg.height // _num_bands(cfg) * cfg.width
+        args = (scene, o, d, c, a, seed, alive0, True, cfg, 0, pix, n_out)
+        _check_kernel(
+            f"{n_out} raster primaries from bounce 0",
+            lambda: mega.mega(*args)[0],
+            lambda: packet.megakernel_bounces(*args)[0],
+            n_out * (12 * 4 + 4 + 1 + 4 + 3 * 4)
+            + nbytes(scene.nodes8, scene.clusters, scene.cluster_counts),
+            results, layout_kernel("mega", layout))
+
+    states = {m: key_states(scene, cfg, cam, m) for m in ("cid", "pd5",
+                                                           "om9")}
+    tails = {k: tail_state(scene, cfg, cam, states["cid"][i], k)
+             for i, k in enumerate(("bounce12", "bounce15"))}
+    t15 = tails["bounce15"]
+    tails["bounce_packed"] = (
+        torch.cat([t15[0:12].view(torch.float32),
+                   (t15[bounce.ROW_ALIVE] != 0).to(torch.float32)[None]]),
+        t15[[bounce.ROW_SEED, bounce.ROW_PIX]].contiguous())
+    tables = nbytes(scene.nodes4, scene.clusters)
+    for base, (kernel, key_mode, ordered) in B_BUILDS.items():
+        st12, st15, packed = states[key_mode]
+        state = {"bounce12": st12, "bounce15": st15}.get(kernel, packed)
+        key = bounce.build_name(kernel, key_mode, ordered, layout)
+
+        def calls(st):
+            if kernel == "bounce_packed":
+                args = (scene, *st, 1, True, cfg, key_mode)
+            else:
+                args = (scene, st, 1, True, cfg, key_mode, ordered)
+            return (lambda: getattr(bounce, kernel)(*args),
+                    lambda: getattr(bounce, f"{kernel}_plain")(*args))
+
+        sts = state if isinstance(state, tuple) else (state,)
+        _check_kernel(f"sorted bounce-1 round of {p} rays", *calls(state),
+                      2 * nbytes(*sts) + 4 * p + tables + 24, results, key)
+        tail = tails[kernel]
+        call, plain = calls(tail)
+        n_tail = equal_outputs(call(), plain())
+        packed = kernel == "bounce_packed"
+        w = (tail[0] if packed else tail).shape[1]
+        budgets = "(packed: no budget)" if packed else "with budgets 0-3"
+        print(f"check {key} on a tail round of {w} rays {budgets}: "
+              f"differing bytes {n_tail}")
+        assert n_tail == 0, f"{key} differs on the tail state"
+
+
+def layout_turns(scenes, cfg, cam) -> dict:
+    """Phase 21 (c): kernel A on the middle band's primaries and kernel B
+    on its sorted bounce-1 round, each layout of FULL_LAYOUTS in turns
+    with the default (default, layout, layout, default): device ms (CUDA
+    events, 10 launches each)."""
+    from raytracer_tpu_torch.kernels import wavefront
+    from raytracer_tpu_torch.kernels.bounce import (UNIFORM_BUDGET, bounce12,
+                                                    pack_state)
+    from raytracer_tpu_torch.kernels.trace import trace4
+
+    inputs = {}
+    for name, scene in scenes.items():
+        _, _, ray_o, ray_d, alive, _ = band_primaries(scene, cfg, cam)
+        rays = torch.stack([*ray_o, *ray_d]).contiguous()
+        o, d, color, atten, seed, live, pix = band_bounce1(scene, cfg, cam)
+        atten = tuple(torch.where(live, a, c) for a, c in zip(atten, color))
+        st = pack_state(o, d, atten, seed, live, UNIFORM_BUDGET, pix)
+        st, _ = wavefront._sorted(st, wavefront._state_key(st, scene))
+        inputs[name] = (scene, rays, alive, st)
+    out = {}
+    for name in FULL_LAYOUTS:
+        turns = []
+        for label in ("default", name, name, "default"):
+            scene, rays, alive, st = inputs[label]
+            a_ms = time_ms(lambda: trace4(scene, rays, alive, cfg), 10)
+            b_ms = time_ms(lambda: bounce12(scene, st, 1, True, cfg), 10)
+            turns.append((label, a_ms, b_ms))
+        out[name] = turns
+        print(f"layout {name} in turns with the default, kernel A / kernel "
+              f"B ms on the middle band: " + ", ".join(
+                  f"{lb} {a:.4f} / {b:.4f}" for lb, a, b in turns))
+    return out
+
+
+def run_layout_paths(scenes, cfg, cam) -> dict:
+    """Phase 21 (c): each layout's flagship at full width through every
+    path of LAYOUT_PATHS (the binary walks and mega at the cluster layouts
+    only): 4 frames on the main path of FULL_LAYOUTS, 1 elsewhere, each
+    after a warm frame, launch counts reset just before and read just
+    after -> layout -> path -> run."""
+    out = {}
+    for name, scene in scenes.items():
+        runs = out.setdefault(name, {})
+        for label, (env, kernels) in LAYOUT_PATHS.items():
+            if scene.layout[1] != 8 and any(k in LEAF_KERNELS
+                                            for k in kernels):
+                continue
+            frames = 4 if label == "main" and name in FULL_LAYOUTS else 1
+            run = run_path(
+                f"layout {name} {label}", scene, cfg, cam, frames, env,
+                tuple(layout_kernel(k, scene.layout) for k in kernels)
+                + ("tonemap",))
+            run.pop("image")
+            run["launches_per_frame"] = {k: v / frames
+                                         for k, v in run["counts"].items()}
+            runs[label] = run
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2196,6 +2511,13 @@ def main() -> None:
     scene12 = build_fast_scene_from_arrays(*presets.c12_arrays())
     cam12 = presets.c12_camera(cfg12.width, cfg12.height)
     results = {}
+    clock = [time.perf_counter()]
+
+    def lap(phases: str) -> None:
+        now = time.perf_counter()
+        print(f"phases {phases} took {now - clock[0]:.1f} s")
+        clock[0] = now
+
     check_tonemap(results)
     check_trace(scene, cfg, uni, results)
     check_bounce(scene, cfg, uni, results)
@@ -2203,6 +2525,8 @@ def main() -> None:
                  results)
     check_color_kernels(scene, cfg, uni, results)
     check_stack_limit()
+
+    lap("1-3")
 
     # Phase 4: the main path at full size.
     main_run = run_path("main path", scene, cfg, cam, 16, {},
@@ -2278,15 +2602,21 @@ def main() -> None:
         small_frame(f"C12 {trav}", scene12, cfg8, cam8,
                     {"RAYTPU_TRAVERSE": trav}, (walk,), 0)
 
+    lap("4-8")
+
     # Phase 9: the five presets at their own widths.
     from raytracer_tpu_torch.scene.presets import ALL_PRESETS
 
     preset_runs = {name: run_preset(name, make)
                    for name, make in ALL_PRESETS.items()}
+    lap("9")
+
     # Phases 10-12: chain against frames, the headless app, per-ray path.
     chain = check_chain(scene, cfg, cam)
     headless_run = check_headless()
     per_ray = check_per_ray()
+
+    lap("10-12")
 
     # Phases 13-16: live edits on the card, the engine and the viewer.
     device_builds = check_device_builds(cfg, uni)
@@ -2294,9 +2624,13 @@ def main() -> None:
     engine_run = check_engine(cfg)
     viewer_run = check_viewer(cfg)
 
+    lap("13-16")
+
     # Phase 17: multi-GPU rendering, meshes against one device.
     mesh_run = check_mesh()
     mesh_launches = mesh_run["gloo"]
+
+    lap("17")
 
     # Phase 18: the XLA render path: the mega kernel against its plain
     # version, the paths at full width in turns with the default, C12 with
@@ -2313,8 +2647,12 @@ def main() -> None:
     small_frame("C12 B0=mega", scene12, cfg8, cam8, {"RAYTPU_B0": "mega"},
                 ("trace2",), 0)
 
+    lap("18")
+
     # Phase 19: the host builds, kernels on each table, one frame each.
     host_builds = check_host_builds(cfg, cam)
+
+    lap("19")
 
     # Phase 20: the sorted rounds' knobs: kernel B's key and walk-order
     # builds against their plain versions, kernel B under the five keys,
@@ -2325,6 +2663,35 @@ def main() -> None:
     knob_runs = run_knob_paths(scene, cfg, cam)
     for label, (env, plain) in KNOB_FRAMES.items():
         small_frame(label, scene, cfg5, cam5, env, plain, 0)
+
+    lap("20")
+
+    # Phase 21: the table layouts: their libraries, every kernel of each
+    # against its plain version on the flagship of that layout, the
+    # 16-wide stack limit, kernels A and B in turns with the default,
+    # every path at full width, 256x128 frames kernels against plain
+    # versions, the two_humans drag at width 16.
+    layout_build = build_layouts()
+    scenes = {name: s for name, (s, _) in layout_scenes().items()}
+    for lname, lscene in scenes.items():
+        check_layout_kernels(lname, lscene, cfg, uni, results)
+    check_stack_limit(width=16)
+    layout_turn_ms = layout_turns(
+        {"default": scene, **{n: scenes[n] for n in FULL_LAYOUTS}}, cfg, uni)
+    layout_runs = run_layout_paths(scenes, cfg, cam)
+    for lname, lscene in scenes.items():
+        small_frame(f"layout {lname}", lscene, cfg5, cam5, {},
+                    tuple(layout_kernel(k, lscene.layout)
+                          for k in ("trace4", "bounce12")), 0)
+    w16_drags = run_drag(cfg, frames=4, modes={
+        "w16_instanced": ({"RAYTPU_DEVICE_BUILD": "instanced",
+                           "RAYTPU_WIDE": "16"}, "instanced",
+                          ("trace4_w16", "bounce12_w16", "tonemap")),
+        "w16_refit": ({"RAYTPU_DEVICE_BUILD": "refit", "RAYTPU_WIDE": "16"},
+                      "lbvh", ("trace2_warp", "trace2", "tonemap"))})
+    assert w16_drags["w16_instanced"]["wide_table"]
+    assert not w16_drags["w16_refit"]["wide_table"]
+    lap("21")
 
     launches_on_path = {
         "trace4": main_run["counts"]["trace4"],
@@ -2360,6 +2727,34 @@ def main() -> None:
         attrs = cuda_build.kernel_attrs(
             {"bounce15": "bounce15_pmega"}.get(k, k))
         results[k].update({a: attrs.get(a) for a in cuda_build.ATTRS})
+    # Phase 21's builds: each layout's kernels, launches from the first of
+    # its paths that ran them.
+    from raytracer_tpu_torch.kernels import bounce as bounce_mod
+
+    for lname, lscene in scenes.items():
+        lay = lscene.layout
+        new = {layout_kernel("trace4", lay): (
+            "raytracer_tpu_torch/csrc/trace4.cu",
+            "raytracer_tpu/kernels/pallas_trace.py:266")}
+        if lay[1] == 8:
+            new.update({
+                layout_kernel(k, lay): (
+                    "raytracer_tpu_torch/csrc/trace2.cu",
+                    "raytracer_tpu/kernels/pallas_trace.py:66")
+                for k in ("trace2", "trace2_warp")})
+            new[layout_kernel("mega", lay)] = (
+                "raytracer_tpu_torch/csrc/mega.cu",
+                "raytracer_tpu/kernels/packet.py:281")
+        new.update({bounce_mod.build_name(k, key, ordered, lay): (
+            B_SOURCES[key], B_REPLACES[k])
+            for k, key, ordered in B_BUILDS.values()})
+        for k, (src, rep) in new.items():
+            srcs[k] = ("cuda", src, rep)
+            launches_on_path[k] = next(
+                run["counts"][k] for run in layout_runs[lname].values()
+                if run["counts"].get(k))
+            attrs = layout_build["attrs"][k]
+            results[k].update({a: attrs.get(a) for a in cuda_build.ATTRS})
     paths = {"main": main_run, "pmega": pmega_run, "fused": fused_run,
              "fused_packed": packed_run, "split_binary": split_run,
              "c12_bvh4": c12_runs["trace4"],
@@ -2386,7 +2781,20 @@ def main() -> None:
                    "host_builds": host_builds,
                    "key_builds": {k: results[k] for k in KEY_BUILDS},
                    "sort_key_times": key_times,
-                   "knob_runs": knob_runs}, f, indent=1)
+                   "knob_runs": knob_runs,
+                   "layouts": {
+                       "nvcc_s": layout_build["nvcc_s"],
+                       "tables": {n: dict(layout=s.layout,
+                                          nodes8_rows=s.nodes8.shape[0],
+                                          nodes4_rows=s.nodes4.shape[0],
+                                          wide_nodes=s.num_nodes4,
+                                          cluster_rows=s.clusters.shape[0])
+                                  for n, s in scenes.items()},
+                       "kernels": {k: results[k] for k in results
+                                   if k in srcs and k[-3:] in (
+                                       "_c2", "_c4", "w16")},
+                       "turns": layout_turn_ms, "runs": layout_runs,
+                       "w16_drags": w16_drags}}, f, indent=1)
     # Launches per frame on this slice's paths: the PLOC drag and each
     # mesh (all ranks).
     new_paths = {"drag_lbvh_ploc": drag_runs["lbvh_ploc"][
@@ -2397,6 +2805,11 @@ def main() -> None:
                       for label, run in xla_runs.items()})
     new_paths.update({f"knob_{label}": run["launches_per_frame"]
                       for label, run in knob_runs.items()})
+    new_paths.update({f"layout_{lname}_{label}": run["launches_per_frame"]
+                      for lname, runs in layout_runs.items()
+                      for label, run in runs.items()})
+    new_paths.update({f"drag_{mode}": run["launches_per_frame"]
+                      for mode, run in w16_drags.items()})
     print(json.dumps({"kernels": [
         dict(name=k, route=route, source=src, replaces=rep,
              launches=launches_on_path[k], **results[k],

@@ -4,11 +4,15 @@ code on the tensors' device.
 The port of ``raytracer_tpu/bvh/lbvh.py``: the whole scene build of a
 triangle soup (per-triangle boxes, 30-bit Morton codes of their centroids,
 a stable sort, the Karras 2012 binary radix tree over runs of
-CLUSTER_SIZE sorted triangles, range-min/max node boxes from a sparse
+``cluster_size`` sorted triangles, range-min/max node boxes from a sparse
 table, escape links by pointer doubling, the 8-wide emit and the cluster
 records) runs as dense tensor ops, so a live edit never round-trips
 geometry through the host. The tables are the JAX package's, byte for
-byte on the CPU (normals to 2 ulp).
+byte on the CPU (normals to 2 ulp), in the layout of ``knobs.layout()``:
+leaves of ``RAYTPU_CLUSTER`` sorted triangles (subclusters of the
+128-float cluster rows below 8), and under ``RAYTPU_WIDE=16`` no wide
+table at all (the emit is 8-wide only; JAX ``lbvh.py:423-430``), so the
+frame walks the binary table.
 
 What differs from the JAX code, and why the result does not:
 
@@ -28,7 +32,7 @@ What differs from the JAX code, and why the result does not:
 ``build_fast_scene_device`` reads two device scalars on the host, once
 per build and in one copy: the wide node count (the port's ``FastScene``
 holds host counts) and the wide tree's depth, for the stack bound the
-host builders check in ``collapse4``.
+host builders check in ``collapse4`` (none at width 16: no wide table).
 """
 
 from __future__ import annotations
@@ -36,15 +40,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.bvh.build import AABB_EPS
 from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP, stack_need
-from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, CLUSTER_SIZE,
-                                                 LEAF_CID_BITS, ROW_TRIS,
-                                                 FastScene)
+from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, LEAF_CID_BITS,
+                                                 ROW_TRIS, FastScene)
 
 _U32 = 0xFFFFFFFF
-# Count-encoded meta bits of a full LBVH leaf (count == CLUSTER_SIZE).
-_FULL = (CLUSTER_SIZE - 1) << LEAF_CID_BITS
+WIDTH = 8   # the wide emit's width
+
+
+def _full(cluster_size: int) -> int:
+    """Count-encoded meta bits of a full LBVH leaf (count ==
+    cluster_size)."""
+    return (cluster_size - 1) << LEAF_CID_BITS
 
 
 def _expand_bits(v: torch.Tensor) -> torch.Tensor:
@@ -171,7 +180,8 @@ def _range_minmax(lo, hi, first, last):
             torch.maximum(table_max[k, first], table_max[k, b]))
 
 
-def emit_wide_device(left, right, parent, all_lo, all_hi, l: int):
+def emit_wide_device(left, right, parent, all_lo, all_hi, l: int, *,
+                     cluster_size: int):
     """The 8-wide table from the Karras tree by dense ops: a binary
     internal node is a wide node iff its depth % 3 == 0, and its 8 slots
     are the descendants 3 left/right steps down given by the slot bits (a
@@ -209,7 +219,8 @@ def emit_wide_device(left, right, parent, all_lo, all_hi, l: int):
             child = right[safe] if bit else left[safe]
             cur = torch.where(at_leaf, cur, child)
             at_leaf = cur >= leaf_base
-        meta = torch.where(at_leaf, -((cur - leaf_base) | _FULL) - 1,
+        meta = torch.where(at_leaf,
+                           -((cur - leaf_base) | _full(cluster_size)) - 1,
                            wide_id[cur.clamp(0, leaf_base - 1)] + 1)
         meta = torch.where(valid, meta, 0).to(torch.float32)
         slot_cols.append(torch.cat(
@@ -240,16 +251,19 @@ def _as_i32(f: torch.Tensor) -> torch.Tensor:
     return f.contiguous().view(torch.int32)
 
 
-def device_tables(verts: torch.Tensor, mats: torch.Tensor):
+def device_tables(verts: torch.Tensor, mats: torch.Tensor,
+                  cluster_size: int):
     """[T,3,3] verts + [T,4] mats (T a multiple of ROW_TRIS) -> (nodes8
-    f32[2L-1, 8], clusters f32[T/8, 128], nodes4 f32[max(L-1, 1), 128],
-    n_wide and wide depth as device scalars). No host read."""
+    f32[2L-1, 8] over L = T / cluster_size leaves, clusters f32[T/8,
+    128], nodes4 f32[max(L-1, 1), 128], n_wide and wide depth as device
+    scalars). No host read."""
     t = verts.shape[0]
     if t % ROW_TRIS:
         raise ValueError("pad the triangle count to a cluster-row "
                          "multiple (pad_to_cluster_multiple)")
     dev = verts.device
-    l = t // CLUSTER_SIZE
+    cs = cluster_size
+    l = t // cs
 
     lo = verts.amin(1)
     hi = verts.amax(1)
@@ -264,9 +278,9 @@ def device_tables(verts: torch.Tensor, mats: torch.Tensor):
 
     order = torch.argsort(codes, stable=True)
     lo_s, hi_s = lo[order], hi[order]
-    cl_lo = lo_s.reshape(l, CLUSTER_SIZE, 3).amin(1)
-    cl_hi = hi_s.reshape(l, CLUSTER_SIZE, 3).amax(1)
-    cl_code = codes[order].reshape(l, CLUSTER_SIZE)[:, 0]
+    cl_lo = lo_s.reshape(l, cs, 3).amin(1)
+    cl_hi = hi_s.reshape(l, cs, 3).amax(1)
+    cl_code = codes[order].reshape(l, cs)[:, 0]
 
     i32 = dict(dtype=torch.int32, device=dev)
     if l == 1:
@@ -277,7 +291,7 @@ def device_tables(verts: torch.Tensor, mats: torch.Tensor):
                               torch.zeros((1, 1), **i32)], 1)
         nodes_wide = torch.cat([
             cl_lo[0], cl_hi[0],
-            torch.full((1,), float(-_FULL - 1), device=dev),
+            torch.full((1,), float(-_full(cs) - 1), device=dev),
             torch.zeros(121, device=dev)])[None]
         n_wide = torch.ones((), dtype=torch.int64, device=dev)
         wide_depth = torch.zeros((), dtype=torch.int64, device=dev)
@@ -311,7 +325,7 @@ def device_tables(verts: torch.Tensor, mats: torch.Tensor):
                               escape[:, None].to(torch.int32),
                               leaf_col[:, None].to(torch.int32)], 1)
         nodes_wide, n_wide, depth = emit_wide_device(
-            left, right, parent, all_lo, all_hi, l)
+            left, right, parent, all_lo, all_hi, l, cluster_size=cs)
         wide_depth = torch.where(depth[:l - 1] % 3 == 0,
                                  depth[:l - 1], 0).amax() // 3
 
@@ -329,19 +343,25 @@ def device_tables(verts: torch.Tensor, mats: torch.Tensor):
 def build_fast_scene_device(verts: torch.Tensor,
                             mats: torch.Tensor) -> FastScene:
     """[T,3,3] verts + [T,4] mats on a device (T a multiple of ROW_TRIS:
-    ``pad_to_cluster_multiple``) -> FastScene on that device. One host
-    read (the wide node count and depth); refuses a wide tree whose walk
-    could need more than STACK_CAP stack slots."""
+    ``pad_to_cluster_multiple``) -> FastScene on that device, in the
+    layout of ``knobs.layout()``. One host read (the wide node count and
+    depth; none under ``RAYTPU_WIDE=16``, where the scene has no wide
+    table); refuses a wide tree whose walk could need more than STACK_CAP
+    stack slots."""
+    cs, ww = knobs.layout()
     nodes8, clusters, nodes4, n_wide, wide_depth = device_tables(verts,
-                                                                 mats)
+                                                                 mats, cs)
+    scene = dict(nodes8=nodes8, clusters=clusters, num_nodes=nodes8.shape[0],
+                 num_triangles=verts.shape[0], cluster_size=cs,
+                 wide_width=ww)
+    if ww != WIDTH:
+        return FastScene(**scene)
     n4, depth = torch.stack([n_wide, wide_depth]).tolist()
-    need = stack_need(depth)
+    need = stack_need(depth, WIDTH)
     if need > STACK_CAP:
         raise ValueError(f"LBVH wide depth {depth + 1} would need {need} "
                          f"stack slots > STACK_CAP {STACK_CAP}")
-    return FastScene(nodes8=nodes8, clusters=clusters, nodes4=nodes4,
-                     num_nodes=nodes8.shape[0],
-                     num_triangles=verts.shape[0], num_nodes4=int(n4))
+    return FastScene(nodes4=nodes4, num_nodes4=int(n4), **scene)
 
 
 def pad_to_cluster_multiple(verts: np.ndarray, mats: np.ndarray):

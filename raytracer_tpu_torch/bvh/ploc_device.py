@@ -47,12 +47,17 @@ from __future__ import annotations
 
 import torch
 
+from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.bvh.build import AABB_EPS
 from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP, stack_need
 from raytracer_tpu_torch.bvh.lbvh import _as_i32, morton30, tri_normals
-from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, CLUSTER_SIZE,
-                                                 LEAF_CID_BITS, ROW_TRIS,
-                                                 WIDE_WIDTH, FastScene)
+from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, LEAF_CID_BITS,
+                                                 ROW_TRIS, FastScene)
+
+# The one layout the device PLOC builds: 8-slot leaves, 8-wide nodes (the
+# JAX build asserts both, ploc_device.py:121-122).
+CLUSTER_SIZE = 8
+WIDE_WIDTH = 8
 
 _BIG = 3.0e38
 _INF = float("inf")
@@ -416,11 +421,19 @@ def build_fast_scene_device_ploc(verts: torch.Tensor,
     ``lbvh.pad_to_cluster_multiple``) -> FastScene with variable-fill
     leaves on that device. One host read (the leaf and wide node counts
     and the wide depth); refuses a wide tree whose walk could need more
-    than STACK_CAP stack slots."""
+    than STACK_CAP stack slots, and any table layout but the default
+    (``NotImplementedError`` naming the knob, as the JAX build asserts
+    it)."""
+    layout = knobs.layout()
+    if layout != (CLUSTER_SIZE, WIDE_WIDTH):
+        raise NotImplementedError(
+            f"RAYTPU_DEVICE_TREE=ploc builds {CLUSTER_SIZE}-triangle leaves "
+            f"and {WIDE_WIDTH}-wide nodes only: unset RAYTPU_CLUSTER="
+            f"{layout[0]} / RAYTPU_WIDE={layout[1]}")
     nodes8, clusters, nodes4, lc, n_wide, wide_depth = device_tables_ploc(
         verts, mats)
     lc, n4, depth = torch.stack([lc, n_wide, wide_depth]).tolist()
-    need = stack_need(depth)
+    need = stack_need(depth, WIDE_WIDTH)
     if need > STACK_CAP:
         raise ValueError(f"PLOC wide depth {depth + 1} would need {need} "
                          f"stack slots > STACK_CAP {STACK_CAP}")

@@ -283,6 +283,12 @@ extern "C" int rt_bounce12_om9_attrs(int* out) {
 extern "C" int rt_bounce12_unordered_attrs(int* out) {
   return attrs_of(builds_or_none(0, 0).b12, out);
 }
+extern "C" int rt_bounce12_pd5_unordered_attrs(int* out) {
+  return attrs_of(builds_or_none(1, 0).b12, out);
+}
+extern "C" int rt_bounce12_om9_unordered_attrs(int* out) {
+  return attrs_of(builds_or_none(2, 0).b12, out);
+}
 extern "C" int rt_bounce12_pl_attrs(int* out) {
   return attrs_of(&rtb::bounce_kernel<false, Key::kCid, true, true>, out);
 }
@@ -297,6 +303,12 @@ extern "C" int rt_bounce15_om9_attrs(int* out) {
 }
 extern "C" int rt_bounce15_unordered_attrs(int* out) {
   return attrs_of(builds_or_none(0, 0).b15, out);
+}
+extern "C" int rt_bounce15_pd5_unordered_attrs(int* out) {
+  return attrs_of(builds_or_none(1, 0).b15, out);
+}
+extern "C" int rt_bounce15_om9_unordered_attrs(int* out) {
+  return attrs_of(builds_or_none(2, 0).b15, out);
 }
 extern "C" int rt_bounce15_pmega_attrs(int* out) {
   return attrs_of(builds_or_none(0, 1).pmega, out);

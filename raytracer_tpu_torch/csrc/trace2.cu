@@ -22,8 +22,9 @@
 //   packet_traverse of RAYTPU_B0=packet): one node id per warp, the
 //   union walk of the TPU tile. A node is descended when any lane's ray
 //   hits it, its row read once as a broadcast; at a leaf the warp stages
-//   the 512-byte cluster row in shared memory with one coalesced load and
-//   every lane whose ray hit it tests the live triangles from there.
+//   the leaf's kClusterSize records (512, 256 or 128 bytes, walk.cuh) in
+//   shared memory with one coalesced load and every lane whose ray hit it
+//   tests the live triangles from there.
 //
 // What bounds it on an H100 (PERF.md, flagship, 307,200 rays): issued
 // instructions and divergence, not bytes (tables stay in the 50 MB L2).
@@ -49,6 +50,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLeafF4 = rt::kLeafFloats / 4;  // 16-byte parts of a leaf
 
 struct Args {
   const float4* nodes;  // nodes8 rows as pairs of 16-byte parts
@@ -96,7 +98,7 @@ __global__ void __launch_bounds__(kThreads) trace2_ray_kernel(Args a) {
 }
 
 __global__ void __launch_bounds__(kThreads) trace2_warp_kernel(Args a) {
-  __shared__ float4 stage[kThreads];  // one cluster row per warp
+  __shared__ float4 stage[kThreads];  // one leaf per warp
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   float4* row = stage + (threadIdx.x - lane);
@@ -120,8 +122,9 @@ __global__ void __launch_bounds__(kThreads) trace2_warp_kernel(Args a) {
     }
     if (any) {
       __syncwarp();
-      row[lane] = __ldg(reinterpret_cast<const float4*>(a.clusters) +
-                        (size_t)col7 * 32 + lane);
+      if (lane < kLeafF4)
+        row[lane] = __ldg(reinterpret_cast<const float4*>(a.clusters) +
+                          (size_t)col7 * kLeafF4 + lane);
       __syncwarp();
       if (hit) {
         rt::mt_tris<false>(reinterpret_cast<const float*>(row), 0,

@@ -1,20 +1,26 @@
-// Per-ray closest-hit walk of the 8-wide BVH, shared by kernel A
+// Per-ray closest-hit walk of the wide BVH, shared by kernel A
 // (trace4.cu) and kernel B (bounce12.cu); the triangle test and the
 // normal flip are shared with the binary walk (trace2.cu) too.
 //
-// Tables (core/fast_types.py): nodes4 f32[R, 128], one wide node per row,
-// 8 children x [min xyz, max xyz, meta, pad x9]; clusters f32[L, 128], one
-// leaf per row, 8 triangles x [v0, e1, e2, albedo rgb, type, unit normal].
+// Tables (core/fast_types.py), in the layout the library is built for
+// (RT_CLUSTER, RT_WIDE; kernels/cuda_build.py builds one library a
+// layout): nodes4 f32[R, 128], one wide node of kWide children every
+// kWide / 8 rows (node i at rows 2i, 2i + 1 at width 16), each child
+// [min xyz, max xyz, meta, pad x9]; clusters f32[R, 128], leaves of
+// kClusterSize triangles x [v0, e1, e2, albedo rgb, type, unit normal]
+// packed consecutively in cid order, so leaf cid starts at float
+// cid * kClusterSize * 16 (128 / (kClusterSize * 16) leaves a row).
 // meta > 0: internal child, wide id + 1; meta < 0: leaf,
 // -((cid | (count - 1) << 20) + 1); meta == 0: empty slot.
 //
 // Semantics of raytracer_tpu/kernels/pallas_trace.py _trace4_kernel, per
-// ray instead of per tile: 8 slab tests against the closest t at visit
-// start, hit internal children pushed far-first by the 19-comparator
-// network on (min + max) . d with the ray's own direction, leaf children in
-// child order with Moller-Trumbore on the precomputed edges (det_eps,
-// strict t < closest), the second half-cluster only when count > 4, and
-// the winner's normal flipped against the ray at the end when asked (the
+// ray instead of per tile: kWide slab tests against the closest t at
+// visit start, hit internal children pushed far-first by the comparator
+// network on (min + max) . d with the ray's own direction (19 comparators
+// at width 8, the JAX _HIST8; 63 at width 16, batcher_network(16)), leaf
+// children in child order with Moller-Trumbore on the precomputed edges
+// (det_eps, strict t < closest) over the leaf's live triangles, and the
+// winner's normal flipped against the ray at the end when asked (the
 // path-shading rule; the fixed-light tier keeps the raw normal).
 //
 // What bounds it on an H100 (PERF.md, measured on the flagship): issued
@@ -44,8 +50,25 @@
 
 namespace rt {
 
+// The table layout of this build: triangles a leaf and children a wide
+// node. The default build passes neither.
+#ifndef RT_CLUSTER
+#define RT_CLUSTER 8
+#endif
+#ifndef RT_WIDE
+#define RT_WIDE 8
+#endif
+constexpr int kClusterSize = RT_CLUSTER;
+constexpr int kWide = RT_WIDE;
+constexpr int kLeafFloats = kClusterSize * 16;
+constexpr int kNodeFloats = kWide * 16;
+static_assert(kClusterSize == 2 || kClusterSize == 4 || kClusterSize == 8,
+              "leaves of 2, 4 or 8 triangles");
+static_assert(kWide == 8 || kWide == 16, "wide nodes of 8 or 16 children");
+
 // The walk's stack, in local memory: bvh/bvh4.py STACK_CAP. collapse4 and
-// fast_scene_from_numpy refuse a tree whose walk could push more.
+// fast_scene_from_numpy refuse a tree whose walk could push more
+// ((kWide - 1) * (depth + 1) + 1 slots).
 constexpr int kStackCap = 256;
 constexpr int kLeafCidBits = 20;
 constexpr int kLeafCidMask = (1 << kLeafCidBits) - 1;
@@ -89,8 +112,8 @@ __device__ __forceinline__ float4 ld4(const float4* p) {
   }
 }
 
-// Moller-Trumbore against triangles [k0, k1) of one cluster row, each
-// record four 16-byte loads: (v0, e1.x), (e1.yz, e2.xy), (e2.z, albedo),
+// Moller-Trumbore against triangles [k0, k1) of one leaf, each record four
+// 16-byte loads: (v0, e1.x), (e1.yz, e2.xy), (e2.z, albedo),
 // and, for a win only, (type, normal).
 template <bool kGlobal = true>
 __device__ __forceinline__ void mt_tris(const float* __restrict__ cr, int k0,
@@ -203,6 +226,36 @@ __device__ __forceinline__ void walk_start(Walk& w, const Ray& r,
     push[j] = tm;                      \
   }
 
+// The push order of a visit: the comparator network on (key, push) pairs,
+// descending key; its order decides equal keys.
+__device__ __forceinline__ void sort_pushes(float (&key)[kWide],
+                                            int (&push)[kWide]) {
+#if RT_WIDE == 8
+  RT_CSWAP(0, 1) RT_CSWAP(2, 3) RT_CSWAP(4, 5) RT_CSWAP(6, 7)
+  RT_CSWAP(0, 2) RT_CSWAP(1, 3) RT_CSWAP(4, 6) RT_CSWAP(5, 7)
+  RT_CSWAP(1, 2) RT_CSWAP(5, 6) RT_CSWAP(0, 4) RT_CSWAP(3, 7)
+  RT_CSWAP(1, 5) RT_CSWAP(2, 6) RT_CSWAP(1, 4) RT_CSWAP(3, 6)
+  RT_CSWAP(2, 4) RT_CSWAP(3, 5) RT_CSWAP(3, 4)
+#else
+  RT_CSWAP(0, 1) RT_CSWAP(2, 3) RT_CSWAP(4, 5) RT_CSWAP(6, 7)
+  RT_CSWAP(8, 9) RT_CSWAP(10, 11) RT_CSWAP(12, 13) RT_CSWAP(14, 15)
+  RT_CSWAP(0, 2) RT_CSWAP(1, 3) RT_CSWAP(4, 6) RT_CSWAP(5, 7)
+  RT_CSWAP(8, 10) RT_CSWAP(9, 11) RT_CSWAP(12, 14) RT_CSWAP(13, 15)
+  RT_CSWAP(1, 2) RT_CSWAP(5, 6) RT_CSWAP(9, 10) RT_CSWAP(13, 14)
+  RT_CSWAP(0, 4) RT_CSWAP(1, 5) RT_CSWAP(2, 6) RT_CSWAP(3, 7)
+  RT_CSWAP(8, 12) RT_CSWAP(9, 13) RT_CSWAP(10, 14) RT_CSWAP(11, 15)
+  RT_CSWAP(2, 4) RT_CSWAP(3, 5) RT_CSWAP(10, 12) RT_CSWAP(11, 13)
+  RT_CSWAP(1, 2) RT_CSWAP(3, 4) RT_CSWAP(5, 6) RT_CSWAP(9, 10)
+  RT_CSWAP(11, 12) RT_CSWAP(13, 14) RT_CSWAP(0, 8) RT_CSWAP(1, 9)
+  RT_CSWAP(2, 10) RT_CSWAP(3, 11) RT_CSWAP(4, 12) RT_CSWAP(5, 13)
+  RT_CSWAP(6, 14) RT_CSWAP(7, 15) RT_CSWAP(4, 8) RT_CSWAP(5, 9)
+  RT_CSWAP(6, 10) RT_CSWAP(7, 11) RT_CSWAP(2, 4) RT_CSWAP(3, 5)
+  RT_CSWAP(6, 8) RT_CSWAP(7, 9) RT_CSWAP(10, 12) RT_CSWAP(11, 13)
+  RT_CSWAP(1, 2) RT_CSWAP(3, 4) RT_CSWAP(5, 6) RT_CSWAP(7, 8)
+  RT_CSWAP(9, 10) RT_CSWAP(11, 12) RT_CSWAP(13, 14)
+#endif
+}
+
 // Visit node w.nid against the closest t so far: push its hit internal
 // children far-first (kOrdered) or in slot order, and set w.leaves to its
 // hit leaf slots.
@@ -230,14 +283,14 @@ __device__ __forceinline__ void visit(Walk& w, int* stack,
                                       float t_min) {
   const Ray& r = w.r;
   const float4* __restrict__ row =
-      reinterpret_cast<const float4*>(nodes4) + (size_t)w.nid * 32;
+      reinterpret_cast<const float4*>(nodes4) + (size_t)w.nid * (kWide * 4);
   const float closest = w.h.t;
-  float key[8];
-  int push[8];
+  float key[kWide];
+  int push[kWide];
   int npush = 0;
   unsigned int leaves = 0;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < kWide; ++c) {
     const float4 a = __ldg(row + 4 * c);
     const float4 b = __ldg(row + 4 * c + 1);
     const int meta = (int)b.z;
@@ -264,15 +317,9 @@ __device__ __forceinline__ void visit(Walk& w, int* stack,
       if (hit && meta < 0) leaves |= 1u << c;
     }
   }
-  if (kOrdered && npush > 1) {
-    RT_CSWAP(0, 1) RT_CSWAP(2, 3) RT_CSWAP(4, 5) RT_CSWAP(6, 7)
-    RT_CSWAP(0, 2) RT_CSWAP(1, 3) RT_CSWAP(4, 6) RT_CSWAP(5, 7)
-    RT_CSWAP(1, 2) RT_CSWAP(5, 6) RT_CSWAP(0, 4) RT_CSWAP(3, 7)
-    RT_CSWAP(1, 5) RT_CSWAP(2, 6) RT_CSWAP(1, 4) RT_CSWAP(3, 6)
-    RT_CSWAP(2, 4) RT_CSWAP(3, 5) RT_CSWAP(3, 4)
-  }
+  if (kOrdered && npush > 1) sort_pushes(key, push);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < kWide; ++c) {
     if (push[c]) stack[w.sp++] = push[c] - 1;
   }
   w.leaves = leaves;
@@ -281,10 +328,12 @@ __device__ __forceinline__ void visit(Walk& w, int* stack,
 // Test node w.nid's hit leaves, then clear them.
 // - The hit leaves are a bit mask, taken lowest child first, so the lanes
 //   of a warp test their k-th hit leaves together, whatever slots those
-//   sit in (a loop over the 8 slots runs every slot any lane hits).
-// - A leaf tests its count live triangles. The slots past the count are
-//   all zero (the packers pad so), which no ray hits (det 0), so this
-//   keeps the result of testing whole half-clusters.
+//   sit in (a loop over the kWide slots runs every slot any lane hits).
+// - A leaf tests its count live triangles, where the JAX kernel tests
+//   whole half-leaves (pallas_trace.py:476-487: the second half only when
+//   count - 1 >= kClusterSize / 2). The records past the count are all
+//   zero (the packers pad so), which no ray hits (det 0), so both give
+//   the same result.
 template <class C>
 __device__ __forceinline__ void test_leaves(Walk& w,
                                             const float* __restrict__ nodes4,
@@ -296,10 +345,10 @@ __device__ __forceinline__ void test_leaves(Walk& w,
     const int c = __ffs(w.leaves) - 1;
     w.leaves &= w.leaves - 1;
     const int lid =
-        -(int)__ldg(nodes4 + (size_t)w.nid * 128 + 16 * c + 6) - 1;
+        -(int)__ldg(nodes4 + (size_t)w.nid * kNodeFloats + 16 * c + 6) - 1;
     const int cid = lid & kLeafCidMask;
-    mt_tris(clusters + (size_t)cid * 128, 0, (lid >> kLeafCidBits) + 1, w.r,
-            t_min, det_eps, cid, w.h);
+    mt_tris(clusters + (size_t)cid * kLeafFloats, 0,
+            (lid >> kLeafCidBits) + 1, w.r, t_min, det_eps, cid, w.h);
   }
 }
 

@@ -7,9 +7,10 @@
 // i32 bits (read with __float_as_int, never as values): the skip link, and
 // col7 = cluster id >= 0 for a leaf or -(left + 1) for an internal node.
 // Rows >= num_nodes are padding; the walk ends when the node id reaches
-// num_nodes. counts i32[L]: each cluster's live triangles
-// (FastScene.cluster_counts); the records past them are all zero and
-// never hit.
+// num_nodes. clusters: leaves of kClusterSize records in cid order (the
+// build's layout, walk.cuh), leaf cid at float cid * kLeafFloats.
+// counts i32[L]: each leaf's live triangles (FastScene.cluster_counts);
+// the records past them are all zero and never hit.
 //
 // The walk is the GLSL reference's pre-order, and that of the JAX
 // package's XLA walks (kernels/packet.py ray_traverse_fast, packet_traverse
@@ -66,8 +67,8 @@ __device__ __forceinline__ Hit walk2(const float4* __restrict__ nodes,
       node = (hit && col7 < 0) ? -col7 - 1 : __float_as_int(hi.z);
     }
     if (leaf < 0) break;
-    mt_tris(clusters + (size_t)leaf * 128, 0, __ldg(counts + leaf), r, t_min,
-            det_eps, leaf, h);
+    mt_tris(clusters + (size_t)leaf * kLeafFloats, 0, __ldg(counts + leaf), r,
+            t_min, det_eps, leaf, h);
     leaf = -1;
   }
   return h;

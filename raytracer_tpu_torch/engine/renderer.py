@@ -21,12 +21,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.fast_types import FastScene
 from raytracer_tpu_torch.core.types import (CameraUniforms, RenderConfig,
                                             to_device)
 from raytracer_tpu_torch.kernels.bounce import ROW_PIX
 from raytracer_tpu_torch.kernels.packet import (render_linear_fast,
+                                                tail_merge_active,
                                                 tail_merge_widths)
 from raytracer_tpu_torch.kernels.tonemap import tonemap_accumulate
 from raytracer_tpu_torch.kernels.tracer import render_linear
@@ -80,7 +80,7 @@ def _sample_terms(scene, cam: CameraUniforms, cfg: RenderConfig, *,
     band_cfg = dataclasses.replace(cfg, height=band_h)
     hw = cfg.height * cfg.width
     tm = (tail_merge_widths(cfg, band_h, nb)
-          if packet and knobs.tail_merge_active(cfg) else None)
+          if packet and tail_merge_active(scene, cfg) else None)
 
     for i in range(sample_offset, sample_offset + spp):
         bands, survivors = [], []

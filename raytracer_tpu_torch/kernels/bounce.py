@@ -27,8 +27,9 @@ Each wrapper takes ``key_mode``, the key it emits (``keys.KERNEL_KEYS``:
 the dead flag at bit 30), and ``ordered`` (``bounce12`` and ``bounce15``
 only): False walks without the near-first push order (``walk_plain``), as
 ``RAYTPU_ORDER_MINW`` levels do. Each (key, order) pair is a build of its
-own on the card (``csrc/bounce.cuh``), booked in ``launches`` under
-``build_name``.
+own on the card (``csrc/bounce.cuh``), in the kernel library of the
+scene's table layout (``cuda_build.library``), booked in ``launches``
+under ``build_name`` with the layout's tag.
 
 Round state is one i32 tensor, one row per field: f32 bits of origin,
 direction, [colour,] atten, then the PCG seed bits, the alive flag, the
@@ -48,7 +49,7 @@ from __future__ import annotations
 
 import torch
 
-from raytracer_tpu_torch.core.fast_types import FastScene
+from raytracer_tpu_torch.core.fast_types import DEFAULT_LAYOUT, FastScene
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.kernels import cuda_build, launches
 from raytracer_tpu_torch.kernels.keys import KERNEL_KEYS, sort_key
@@ -63,16 +64,18 @@ SF_ROWS = 13               # packed floats (bounce_packed)
 UNIFORM_BUDGET = 1 << 30   # never gates: the bounce cap alone does
 
 
-def build_name(kernel: str, key_mode: str = "cid",
-               ordered: bool = True) -> str:
+def build_name(kernel: str, key_mode: str = "cid", ordered: bool = True,
+               layout=DEFAULT_LAYOUT) -> str:
     """The name a build of ``kernel`` books its launches under: the
-    kernel's own for the cid key and the ordered walk, else suffixed
-    ("bounce12_pd5", "bounce15_unordered", "bounce12_om9_unordered")."""
+    kernel's own for the cid key, the ordered walk and the default table
+    layout, else suffixed ("bounce12_pd5", "bounce15_unordered",
+    "bounce12_om9_unordered", "bounce12_c4", "bounce15_pd5_w16")."""
     if key_mode not in KERNEL_KEYS:
         raise ValueError(f"kernel B emits no {key_mode!r} key "
                          f"(builds: {', '.join(KERNEL_KEYS)})")
-    return (kernel + ("" if key_mode == "cid" else f"_{key_mode}")
-            + ("" if ordered else "_unordered"))
+    return cuda_build.kernel_name(
+        kernel + ("" if key_mode == "cid" else f"_{key_mode}")
+        + ("" if ordered else "_unordered"), layout)
 
 
 def pack_state(ray_o, ray_d, atten, seed, alive, budget, pix, color=None):
@@ -238,8 +241,8 @@ def _rounds_plain(scene: FastScene, state: torch.Tensor, bcap: int,
             break   # nothing alive: further iterations change nothing
         entered = act
         rays = rays + entered.sum()
-        hit_out, cid_new = walk_plain(scene.nodes4, scene.clusters, o, d,
-                                      entered, cfg.t_min, cfg.t_max,
+        hit_out, cid_new = walk_plain(scene.node_rows, scene.leaf_rows, o,
+                                      d, entered, cfg.t_min, cfg.t_max,
                                       cfg.det_eps, ordered=ordered)
         cid = torch.where(entered, cid_new, cid)
         o, d, c, a, seed, act = _shade(hit_out, o, d, c, a, seed, entered,
@@ -268,7 +271,8 @@ def bounce12_plain(scene: FastScene, state: torch.Tensor, bcap: int,
     """Plain version of kernel B -> (state' i32[13, w], key i32[w],
     counts int64[2] = (rays traced, live at the end))."""
     _check_state(scene, state, STATE_ROWS)
-    launches.plain[build_name("bounce12", key_mode, ordered)] += 1
+    launches.plain[build_name("bounce12", key_mode, ordered,
+                              scene.layout)] += 1
     return _rounds_plain(scene, state, bcap, sky_on, cfg, key_mode, ordered)
 
 
@@ -278,7 +282,8 @@ def bounce15_plain(scene: FastScene, state: torch.Tensor, bcap: int,
     """Plain version of the colour-carrying kernel -> (state' i32[16, w],
     key i32[w], counts int64[2])."""
     _check_state(scene, state, COLOR_ROWS)
-    launches.plain[build_name("bounce15", key_mode, ordered)] += 1
+    launches.plain[build_name("bounce15", key_mode, ordered,
+                              scene.layout)] += 1
     return _rounds_plain(scene, state, bcap, sky_on, cfg, key_mode, ordered)
 
 
@@ -288,7 +293,8 @@ def bounce_packed_plain(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
     """Plain version of the packed kernel: sf f32[13, w], si i32[k, w] ->
     (sf', si', key i32[w], counts int64[2]); si rows >= 1 pass through."""
     _check_packed(scene, sf, si)
-    launches.plain[build_name("bounce_packed", key_mode)] += 1
+    launches.plain[build_name("bounce_packed", key_mode,
+                              layout=scene.layout)] += 1
     state = packed_to_state(sf, si, UNIFORM_BUDGET, 0)
     out, key, counts = _rounds_plain(scene, state, bcap, sky_on, cfg,
                                      key_mode)
@@ -328,7 +334,7 @@ def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
     # (rays, live), then the ray counter of the pmega call's persistent
     # warps (bounce15 at bcap > 1).
     counts = torch.zeros(3, dtype=torch.int64, device=state.device)
-    lib = cuda_build.library()
+    lib = cuda_build.library(scene.layout)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     cuda_build.check(getattr(lib, f"rt_{name}")(
         scene.nodes4.data_ptr(), scene.clusters.data_ptr(),
@@ -337,7 +343,7 @@ def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
         cfg.fuzz, int(cfg.emissive_emits), cfg.t_min, cfg.t_max, cfg.det_eps,
         KERNEL_KEYS.index(key_mode), int(bool(ordered)), stream),
         f"rt_{name}")
-    launches.kernel[build_name(name, key_mode, ordered)] += 1
+    launches.kernel[build_name(name, key_mode, ordered, scene.layout)] += 1
     return out, key, counts[:2]
 
 
@@ -382,7 +388,7 @@ def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
     si_out = torch.empty_like(si)
     key = torch.empty(w, dtype=torch.int32, device=sf.device)
     counts = torch.zeros(2, dtype=torch.int64, device=sf.device)
-    lib = cuda_build.library()
+    lib = cuda_build.library(scene.layout)
     stream = torch.cuda.current_stream(sf.device).cuda_stream
     # The counting build has the cid key only and takes no key code.
     code = () if extra else (KERNEL_KEYS.index(key_mode),)
@@ -393,7 +399,7 @@ def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
         counts.data_ptr(), *(t.data_ptr() for t in extra), w, si.shape[0],
         int(bcap), int(bool(sky_on)), cfg.fuzz, int(cfg.emissive_emits),
         cfg.t_min, cfg.t_max, cfg.det_eps, *code, stream), f"rt_{name}")
-    launches.kernel[build_name(name, key_mode)] += 1
+    launches.kernel[build_name(name, key_mode, layout=scene.layout)] += 1
     return sf_out, si_out, key, counts
 
 

@@ -7,6 +7,15 @@ the sources and flags, and loaded with ctypes. Nothing here runs at
 import. ``-fmad=false`` and no fast math keep every multiply-add, divide
 and square root IEEE, so the kernels agree bit for bit with their plain
 PyTorch versions.
+
+One library a table layout (``FastScene.layout``: cluster size, wide
+width): the default (8, 8) is built with no layout flags; any other with
+``-DRT_CLUSTER=<cs> -DRT_WIDE=<w>``, which ``walk.cuh`` reads at compile
+time, into ``libraytracer_kernels-c<cs>w<w>-<hash>.so``. Each is built
+the first time a scene of its layout is walked on the card (or by
+``build``, which starts several at once). A launch books under
+``kernel_name``: the kernel's own name at the default layout, else with
+the layout's tag ("trace4_c4", "bounce12_pd5_w16", "trace2_c2w16").
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ import hashlib
 import os
 import subprocess
 import threading
+
+from raytracer_tpu_torch.core.fast_types import DEFAULT_LAYOUT
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,13 +40,52 @@ KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce12_pl",
            "bounce15", "bounce15_pmega", "bounce_packed", "tonemap", "mega",
            "bounce12_pd5", "bounce12_om9", "bounce12_unordered",
            "bounce15_pd5", "bounce15_om9", "bounce15_unordered",
-           "bounce_packed_pd5", "bounce_packed_om9")
+           "bounce_packed_pd5", "bounce_packed_om9", "bounce12_pd5_unordered",
+           "bounce12_om9_unordered", "bounce15_pd5_unordered",
+           "bounce15_om9_unordered")
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Every layout of the JAX package's knobs: (cluster size, wide width).
+LAYOUTS = ((8, 8), (2, 8), (4, 8), (8, 16), (2, 16), (4, 16))
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
+
+
+def layout_tag(layout) -> str:
+    """"" for the default layout, else "_c<cs>", "_w<w>" or
+    "_c<cs>w<w>" (the parts off their default)."""
+    cs, w = layout
+    tag = (f"c{cs}" if cs != 8 else "") + (f"w{w}" if w != 8 else "")
+    return f"_{tag}" if tag else ""
+
+
+def kernel_name(name: str, layout) -> str:
+    """The name a launch of kernel ``name`` on tables of ``layout``
+    books under (``launches``)."""
+    return name + layout_tag(tuple(layout))
+
+
+def leaf_layout(layout) -> tuple:
+    """The library of a kernel that reads leaves and no wide node (the
+    binary walks ``trace2`` / ``trace2_warp`` and ``mega``): the layout
+    with the default width, so a 16-wide scene's binary walks run the
+    same build as an 8-wide one's."""
+    return (layout[0], DEFAULT_LAYOUT[1])
+
+
+def leaf_kernel_name(name: str, layout) -> str:
+    """``kernel_name`` of a kernel that reads no wide node, on tables of
+    ``layout`` ("trace2_c2"; "trace2" at width 16)."""
+    return kernel_name(name, leaf_layout(layout))
+
+
+def _flags(layout) -> tuple:
+    cs, w = layout
+    if tuple(layout) == DEFAULT_LAYOUT:
+        return NVCC_FLAGS
+    return NVCC_FLAGS + (f"-DRT_CLUSTER={cs}", f"-DRT_WIDE={w}")
 
 
 def _nvcc() -> str:
@@ -46,8 +96,8 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(layout) -> str:
+    h = hashlib.sha256(" ".join(_flags(layout)).encode())
     for name in HEADERS + SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -85,20 +135,42 @@ def _declare(lib) -> None:
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
 
 
-def library():
-    """The loaded kernel library, building it first if needed."""
-    global _lib
+def _path(layout) -> str:
+    tag = layout_tag(layout).lstrip("_")
+    return os.path.join(BUILD_DIR, f"libraytracer_kernels-"
+                        f"{tag + '-' if tag else ''}{_digest(layout)}.so")
+
+
+def library(layout=DEFAULT_LAYOUT):
+    """The loaded kernel library of a table layout (cluster size, wide
+    width), building it first if needed. A layout outside ``LAYOUTS``
+    raises, and so does a build that fails."""
+    layout = tuple(layout)
+    if layout not in LAYOUTS:
+        raise ValueError(f"no kernel library for layout {layout} "
+                         f"(layouts: {LAYOUTS})")
     with _lock:
-        if _lib is not None:
-            return _lib
-        so = os.path.join(BUILD_DIR, f"libraytracer_kernels-{_digest()}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            _build(so)
-        lib = ctypes.CDLL(so)
-        _declare(lib)
-        _lib = lib
-        return _lib
+        lib = _libs.get(layout)
+        if lib is None:
+            so = _path(layout)
+            if not os.path.exists(so):
+                _build({layout: so})
+            lib = ctypes.CDLL(so)
+            _declare(lib)
+            _libs[layout] = lib
+        return lib
+
+
+def build(layouts) -> None:
+    """Build the libraries of ``layouts`` that are not built yet, every
+    nvcc of every one of them started at once, then load them."""
+    with _lock:
+        todo = {tuple(l): _path(tuple(l)) for l in layouts}
+        todo = {l: so for l, so in todo.items() if not os.path.exists(so)}
+        if todo:
+            _build(todo)
+    for layout in layouts:
+        library(layout)
 
 
 def _run(cmds, log_path: str) -> None:
@@ -116,26 +188,35 @@ def _run(cmds, log_path: str) -> None:
                                f"{out[-4000:]}")
 
 
-def _build(so: str) -> None:
-    """One nvcc per source, all at once, then one link into ``so``."""
-    tag = f"{so[:-3]}.{os.getpid()}"
-    log = so[:-3] + ".log"
-    objs = [f"{tag}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
-    _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
-          for o, s in zip(objs, SOURCES)], log)
-    _run([[_nvcc(), "-shared", "-o", f"{tag}.tmp", *objs]], log)
-    os.replace(f"{tag}.tmp", so)
-    for o in objs:
-        os.remove(o)
+def _build(targets: dict) -> None:
+    """For each layout -> .so path of ``targets``: one nvcc per source,
+    every one of every layout at once, then one link a library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    compiles, links = [], []
+    for layout, so in targets.items():
+        tag = f"{so[:-3]}.{os.getpid()}"
+        objs = [f"{tag}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+        compiles += [[_nvcc(), *_flags(layout), "-c", "-o", o,
+                      os.path.join(CSRC, s)] for o, s in zip(objs, SOURCES)]
+        links.append((so, tag, objs))
+    log = os.path.join(BUILD_DIR, "nvcc.log")
+    _run(compiles, log)
+    _run([[_nvcc(), "-shared", "-o", f"{tag}.tmp", *objs]
+          for _, tag, objs in links], log)
+    for so, tag, objs in links:
+        os.replace(f"{tag}.tmp", so)
+        for o in objs:
+            os.remove(o)
 
 
-def kernel_attrs(name: str) -> dict:
-    """What a launch of kernel ``name`` (one of KERNELS) gets, from
-    ``cudaFuncGetAttributes`` and the occupancy calculator: registers and
-    local memory bytes a thread, shared memory bytes a block, resident
-    blocks per SM, threads a block."""
+def kernel_attrs(name: str, layout=DEFAULT_LAYOUT) -> dict:
+    """What a launch of kernel ``name`` (one of KERNELS) of the library of
+    ``layout`` gets, from ``cudaFuncGetAttributes`` and the occupancy
+    calculator: registers and local memory bytes a thread, shared memory
+    bytes a block, resident blocks per SM, threads a block."""
     out = (ctypes.c_int * len(ATTRS))()
-    check(getattr(library(), f"rt_{name}_attrs")(out), f"rt_{name}_attrs")
+    check(getattr(library(layout), f"rt_{name}_attrs")(out),
+          f"rt_{name}_attrs")
     return dict(zip(ATTRS, out))
 
 

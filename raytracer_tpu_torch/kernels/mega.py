@@ -69,7 +69,8 @@ def mega(scene: FastScene, ray_o, ray_d, color, atten, seed, alive,
     act = alive.to(torch.uint8)
     out = torch.zeros((3, n_out), dtype=torch.float32, device=alive.device)
     rays = torch.zeros(1, dtype=torch.int64, device=alive.device)
-    lib = cuda_build.library()
+    layout = cuda_build.leaf_layout(scene.layout)
+    lib = cuda_build.library(layout)
     stream = torch.cuda.current_stream(alive.device).cuda_stream
     cuda_build.check(lib.rt_mega(
         scene.nodes8.data_ptr(), scene.clusters.data_ptr(),
@@ -78,5 +79,5 @@ def mega(scene: FastScene, ray_o, ray_d, color, atten, seed, alive,
         rays.data_ptr(), p, n_out, scene.num_nodes, start_bounce,
         cfg.max_bounces, int(bool(sky_on)), int(bool(cfg.emissive_emits)),
         cfg.fuzz, cfg.t_min, cfg.t_max, cfg.det_eps, stream), "rt_mega")
-    launches.kernel["mega"] += 1
+    launches.kernel[cuda_build.kernel_name("mega", layout)] += 1
     return out, rays[0]

@@ -17,8 +17,9 @@ path of the JAX package's ``render_linear_fast``
   ``RAYTPU_B0=pallas``, else the per-ray XLA walk on raster primaries.
 
 The JAX package's XLA walks and megakernel are here as plain PyTorch under
-their JAX names: ``_cluster_mt`` (the 8-slot Moller-Trumbore, argmin to
-the lowest slot on a tie, the winner selected by a one-hot sum),
+their JAX names: ``_cluster_mt`` (the Moller-Trumbore over a leaf's
+``cluster_size`` slots, argmin to the lowest slot on a tie, the winner
+selected by a one-hot sum),
 ``ray_traverse_fast``, ``packet_traverse`` and ``megakernel_bounces`` /
 ``_mega_level`` (width levels, cumsum compaction, the clone-slot kill,
 deposits at each level boundary). They are the plain versions of kernels:
@@ -30,8 +31,15 @@ included) and the ``mega`` kernel (``kernels/mega.py``) for
 condition is read on the host every ``TRAVERSE_UNROLL`` steps, as the JAX
 loop tests it.
 
-Plus ``tail_merge_widths``; the knob half of the JAX ``tail_merge_active``
-is ``knobs.tail_merge_active`` (the wide table is always built).
+A scene without a wide table (the device LBVH under ``RAYTPU_WIDE=16``)
+takes the JAX package's routes for it (``packet.py:509``, ``:650``,
+``:677``): bounce 0 walks the binary table, ``RAYTPU_BOUNCE=pmega`` runs
+the sorted rounds instead, ``RAYTPU_B0=pwave`` the bounce-0 kernel and
+then the rounds, which are ``split`` (``kernels/wavefront.py``), and the
+tail merge is off.
+
+Plus ``tail_merge_widths``; ``tail_merge_active`` is the JAX rule: the
+knobs (``knobs.tail_merge_active``) and a wide table.
 """
 
 from __future__ import annotations
@@ -39,10 +47,10 @@ from __future__ import annotations
 import torch
 
 from raytracer_tpu_torch import knobs
-from raytracer_tpu_torch.core.fast_types import (CLUSTER_SIZE, FastScene,
-                                                 TRI_STRIDE)
+from raytracer_tpu_torch.core.fast_types import FastScene, TRI_STRIDE
 from raytracer_tpu_torch.core.types import CameraUniforms, RenderConfig
-from raytracer_tpu_torch.kernels import launches, mega, trace, wavefront
+from raytracer_tpu_torch.kernels import (cuda_build, launches, mega, trace,
+                                         wavefront)
 from raytracer_tpu_torch.kernels.bounce import (UNIFORM_BUDGET, bounce15,
                                                 pack_state)
 from raytracer_tpu_torch.kernels.trace import BBLOCK, BLOCK, pick_tile
@@ -79,6 +87,13 @@ def tail_merge_widths(cfg: RenderConfig, band_h: int, nb: int):
     return cands[0], nb * cands[0]
 
 
+def tail_merge_active(scene: FastScene, cfg: RenderConfig) -> bool:
+    """The JAX ``packet.tail_merge_active``: the knobs' rule and a wide
+    table (a scene without one runs the split rounds, which hand off no
+    tail)."""
+    return scene.nodes4 is not None and knobs.tail_merge_active(cfg)
+
+
 def _tile_major_pixels(h: int, w: int, p_pad: int, device):
     """Ray i -> (xx, yy_local, alive) in tile-major order: consecutive
     BLOCK rays form one compact pixel tile; the pad tail wraps to valid
@@ -102,15 +117,16 @@ def _tile_major_pixels(h: int, w: int, p_pad: int, device):
 
 def _cluster_mt(crow, ray_o, ray_d, closest_t, gate, state,
                 cfg: RenderConfig):
-    """Dense Moller-Trumbore of rays against one cluster row each (the JAX
-    ``_cluster_mt``): crow f32[N, 128]; ray comps and ``closest_t`` /
+    """Dense Moller-Trumbore of rays against one leaf each (the JAX
+    ``_cluster_mt``): crow f32[N, cs * 16] (rows of
+    ``FastScene.leaf_rows``); ray comps and ``closest_t`` /
     ``gate`` shaped [..., N] (flat [P] with N = P, or grouped [G, NG] with
     N = NG); ``state`` = (nx, ny, nz, ar, ag, ab, mt) shaped like the rays.
-    The closest of the 8 slots by argmin (the lowest slot on a tie), its
+    The closest of the cs slots by argmin (the lowest slot on a tie), its
     normal, albedo and type selected by a one-hot sum; the normal faces the
     ray except in the fixed-light tier. -> (closest_t, state)."""
-    tris = crow.view(crow.shape[0], CLUSTER_SIZE, TRI_STRIDE)
-    c = lambda j: tris[..., j]                              # [N, 8]
+    tris = crow.view(crow.shape[0], -1, TRI_STRIDE)
+    c = lambda j: tris[..., j]                              # [N, cs]
     rox, roy, roz = (a.unsqueeze(-1) for a in ray_o)       # [..., N, 1]
     rdx, rdy, rdz = (a.unsqueeze(-1) for a in ray_d)
     v0x, v0y, v0z = c(0), c(1), c(2)
@@ -138,7 +154,7 @@ def _cluster_mt(crow, ray_o, ray_d, closest_t, gate, state,
     best = t_masked.argmin(-1, keepdim=True)
     best_t = t_masked.gather(-1, best).squeeze(-1)
     upd = torch.isfinite(best_t)
-    onehot = torch.arange(CLUSTER_SIZE, device=crow.device) == best
+    onehot = torch.arange(tris.shape[1], device=crow.device) == best
 
     def sel(j):
         return torch.where(onehot, c(j), 0.0).sum(-1)
@@ -192,7 +208,8 @@ def packet_traverse(scene: FastScene, ray_o, ray_d, active,
     node one of its rays hits; fully inactive groups start at the end.
     Returns flat [G * NG] results. On the card the frame runs
     ``trace2_warp`` instead (one node id a warp)."""
-    launches.plain["trace2_warp"] += 1
+    launches.plain[cuda_build.leaf_kernel_name("trace2_warp",
+                                               scene.layout)] += 1
     g, ng = active.shape
     num_nodes = scene.num_nodes
     dev = active.device
@@ -216,7 +233,7 @@ def packet_traverse(scene: FastScene, ray_o, ray_d, active,
             cid = torch.where(do_leaf, col7, 0)
             launches.work["tris"] += int(
                 (scene.cluster_counts[cid] * do_leaf).sum())
-            crow = scene.clusters.index_select(0, cid)
+            crow = scene.leaf_rows.index_select(0, cid)
             closest_t, state = _cluster_mt(crow, ray_o, ray_d, closest_t,
                                            do_leaf & active, state, cfg)
             descend = group_hit & ~is_leaf
@@ -231,7 +248,7 @@ def ray_traverse_fast(scene: FastScene, ray_o, ray_d, active,
     """Per-ray closest hit over the packed tables (the JAX
     ``ray_traverse_fast``), plain torch: flat f32[P] comps, every ray one
     node a step. On the card the frame runs ``trace2`` instead."""
-    launches.plain["trace2"] += 1
+    launches.plain[cuda_build.leaf_kernel_name("trace2", scene.layout)] += 1
     p = active.shape[0]
     num_nodes = scene.num_nodes
     dev = active.device
@@ -265,7 +282,7 @@ def _walk_step(scene: FastScene, links, node, closest_t, state, ray_o,
     do_leaf = ray_hit & is_leaf
     cid = torch.where(do_leaf, col7, 0)
     launches.work["tris"] += int((scene.cluster_counts[cid] * do_leaf).sum())
-    crow = scene.clusters.index_select(0, cid)
+    crow = scene.leaf_rows.index_select(0, cid)
     closest_t, state = _cluster_mt(crow, ray_o, ray_d, closest_t, do_leaf,
                                    state, cfg)
     descend = ray_hit & ~is_leaf
@@ -298,7 +315,7 @@ def megakernel_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
     ``n_out`` (default P) are dropped. Returns (color f32[3, n_out], rays
     traced: the live rays plus every respawn, int64 tensor), and with
     ``walks`` also i64[P], each ray's walks (its bounces run)."""
-    launches.plain["mega"] += 1
+    launches.plain[cuda_build.leaf_kernel_name("mega", scene.layout)] += 1
     p = alive.shape[0]
     dev = alive.device
     n_out = p if n_out is None else n_out
@@ -550,7 +567,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
     """One band (cfg.height rows starting at global row ``y_offset``) ->
     (color f32[3, h*w] in raster order, rays traced (int64 tensor),
     survivors). With ``tail_handoff`` (the sorted rounds after
-    ``RAYTPU_B0=pallas`` only: ``knobs.tail_merge_active``), the wavefront
+    ``RAYTPU_B0=pallas`` only: ``tail_merge_active``), the wavefront
     stops at that width and ``survivors`` is the band's live tail (round
     state with global pixel ids, pads at global_height * w) for
     ``wavefront_tail``; otherwise it is None."""
@@ -592,7 +609,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
     one = torch.ones(p_pad, dtype=torch.float32, device=dev)
     sky_on = cam.sky_host
 
-    if b0 == "pwave" and cfg.max_bounces > 1:
+    if b0 == "pwave" and cfg.max_bounces > 1 and scene.nodes4 is not None:
         # Bounce 0 inside the sorted rounds: kernel B traces and shades
         # the primaries (the first round's key from the unshaded rays).
         col, rays, _ = wavefront.wavefront_bounces(
@@ -607,6 +624,8 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
     if cfg.max_bounces == 1:
         return by_pixel(color)
     path = knobs.bounce_path()
+    if path == "pmega" and scene.nodes4 is None:
+        path = "wave"   # the pmega call walks the wide table
     if path == "pmega":
         col, rays = _pmega(scene, ray_o, ray_d, color, atten, seed, alive,
                            sky_on, cfg, pix_local)

@@ -30,6 +30,16 @@ unfinished ray by one node visit per step and is bit-equal to the CUDA
 walk: the same comparator network orders the pushes, and the leaf phase
 picks, per ray, the first strict minimum in (child, triangle) order, which
 is what the kernel's sequential ``t < closest`` updates keep.
+
+Every walk takes the table layout from the scene (``FastScene.layout``):
+it reads nodes through ``node_rows`` (one ``wide_width``-wide node a row,
+two table rows at width 16) and leaves through ``leaf_rows`` (one leaf of
+``cluster_size`` records a row), and its kernel comes from the library
+built for that layout (``cuda_build.library``; the binary walks, which
+read no wide node, the library of ``cuda_build.leaf_layout``), booked
+under the layout's name (``cuda_build.kernel_name``: "trace4_c4",
+"trace2_c2", ...). A scene with no wide table (``nodes4`` None) walks
+the binary one.
 """
 
 from __future__ import annotations
@@ -38,9 +48,8 @@ import torch
 
 from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP
-from raytracer_tpu_torch.core.fast_types import (CLUSTER_SIZE, FastScene,
-                                                 LEAF_CID_BITS,
-                                                 LEAF_CID_MASK, WIDE_WIDTH)
+from raytracer_tpu_torch.core.fast_types import (FastScene, LEAF_CID_BITS,
+                                                 LEAF_CID_MASK)
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.kernels import cuda_build, launches
 from raytracer_tpu_torch.kernels.tracer import TraversalResult
@@ -49,11 +58,31 @@ BLOCK_LANES = 128
 BLOCK = 8 * BLOCK_LANES    # primary tile: rays per compact pixel tile
 BBLOCK = 16 * BLOCK_LANES  # bounce-round grain: every width is a multiple
 
-# Push-ordering comparator network (19 comparators), the JAX package's
-# ``pallas_trace._HIST8``: sorts (key, meta, push) by descending key.
+# Push-ordering comparator network of an 8-wide node (19 comparators),
+# the JAX package's ``pallas_trace._HIST8``: sorts (key, meta, push) by
+# descending key.
 NET8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
         (1, 2), (5, 6), (0, 4), (3, 7), (1, 5), (2, 6), (1, 4), (3, 6),
         (2, 4), (3, 5), (3, 4))
+
+
+def batcher_network(n: int) -> tuple[tuple[int, int], ...]:
+    """Batcher odd-even mergesort comparators for n a power of two (63
+    at n = 16), in the order of the JAX package's
+    ``pallas_trace.batcher_network``, which orders a 16-wide node's
+    pushes: the order decides equal-key ties."""
+    net = []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        net.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return tuple(net)
 
 
 def pick_tile(h: int, w: int, block: int = BLOCK):
@@ -71,9 +100,10 @@ def pick_tile(h: int, w: int, block: int = BLOCK):
 
 
 def _mt_candidates(tri, o, d, closest, full, t_min, det_eps):
-    """Möller–Trumbore of q rays against their q clusters of 8 triangles
-    (tri f32[q, 8, 16]; o, d 3 x f32[q]) -> t f32[q, 8], inf where the
-    triangle is not a hit closer than ``closest``."""
+    """Möller–Trumbore of q rays against their q clusters of cs
+    triangles (tri f32[q, cs, 16]; o, d 3 x f32[q]) -> t f32[q, cs], inf
+    where the triangle is not a hit closer than ``closest``; the second
+    half of the cluster only where ``full``."""
     c = lambda j: tri[:, :, j]
     v0x, v0y, v0z = c(0), c(1), c(2)
     e1x, e1y, e1z = c(3), c(4), c(5)
@@ -95,8 +125,9 @@ def _mt_candidates(tri, o, d, closest, full, t_min, det_eps):
     tt = invd * (e2x * qx + e2y * qy + e2z * qz)
     ok &= (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
     ok &= (tt > t_min) & (tt < closest[:, None])
-    # The second half-cluster only counts when the leaf holds > 4 tris.
-    half = torch.arange(CLUSTER_SIZE, device=tri.device) < CLUSTER_SIZE // 2
+    # The second half-cluster only counts when the leaf holds > cs / 2.
+    cs = tri.shape[1]
+    half = torch.arange(cs, device=tri.device) < cs // 2
     ok &= half[None, :] | full[:, None]
     return torch.where(ok, tt, torch.inf)
 
@@ -109,22 +140,31 @@ def _face_ray(out: torch.Tensor, ray_d, flip: bool) -> None:
         out[1:4] = torch.where(dot > 0.0, -1.0, 1.0) * out[1:4]
 
 
-def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
-               active: torch.Tensor, t_min: float, t_max: float,
+def walk_plain(node_rows: torch.Tensor, leaf_rows: torch.Tensor, ray_o,
+               ray_d, active: torch.Tensor, t_min: float, t_max: float,
                det_eps: float, flip: bool = True, ordered: bool = True):
-    """Per-ray stack walk, plain torch. Returns (out f32[8, P] = t, normal
-    xyz, albedo rgb, material type; cid i32[P] = winner cluster id, 0 on a
-    miss or for inactive rays). ``ordered=False`` pushes a visit's hit
-    internal children in slot order, without the near-first network (the
-    JAX kernel's ``ordered=False``, ``pallas_mega.py:264-266``). Counts in
+    """Per-ray stack walk, plain torch, over the wide table as one node a
+    row (``FastScene.node_rows``, f32[N, W * 16], W = 8 or 16) and the
+    cluster table as one leaf a row (``FastScene.leaf_rows``, f32[L, cs *
+    16]). Returns (out f32[8, P] = t, normal xyz, albedo rgb, material
+    type; cid i32[P] = winner cluster id, 0 on a miss or for inactive
+    rays). ``ordered=False`` pushes a visit's hit internal children in
+    slot order, without the near-first network (the JAX kernel's
+    ``ordered=False``, ``pallas_mega.py:264-266``). Counts in
     ``launches.work`` the work the walk needs: node visits (``visits4``),
     slab tests and keys of live child slots (``slots4``), visits that push
-    two children or more and so need the sorting network (``nets4``, the
-    ordered walk only), and tests of live triangles (``tris``, each hit
-    leaf's count); keeps the largest stack depth reached as
-    ``stack4_max``."""
+    two children or more and so need the sorting network (``nets4`` at
+    width 8, ``nets16`` at 16; the ordered walk only), and tests of live
+    triangles (``tris``, each hit leaf's count); keeps the largest stack
+    depth reached as ``stack4_max``."""
     dev = active.device
     p = active.shape[0]
+    width = node_rows.shape[1] // 16
+    cs = leaf_rows.shape[1] // 16
+    # The push order: NET8 at width 8, batcher_network(16) at 16 (the JAX
+    # package's pallas_trace._NET8), each run counted under its own key.
+    net, net_key = ((NET8, "nets4") if width == 8
+                    else (batcher_network(width), "nets16"))
     out = torch.zeros((8, p), dtype=torch.float32, device=dev)
     out[0] = t_max
     cid_out = torch.zeros(p, dtype=torch.int32, device=dev)
@@ -148,7 +188,7 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
             m = li.numel()
             launches.work["visits4"] += m
             oo, dd, ii = o[:, li], d[:, li], iv[:, li]
-            node = nodes4.index_select(0, nid[li]).view(m, WIDE_WIDTH, 16)
+            node = node_rows.index_select(0, nid[li]).view(m, width, 16)
             lo = (node[:, :, 0:3] - oo.T[:, None, :]) * ii.T[:, None, :]
             hi = (node[:, :, 3:6] - oo.T[:, None, :]) * ii.T[:, None, :]
             mn, mx = torch.minimum(lo, hi), torch.maximum(lo, hi)
@@ -158,7 +198,7 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
                                                            mx[..., 2]))
             closest = best[0, li]
             hit = ((t_ex > t_en) & (t_ex > t_min)
-                   & (t_en < closest[:, None]))            # [m, 8]
+                   & (t_en < closest[:, None]))            # [m, W]
             meta = node[:, :, 6].to(torch.int32)
             launches.work["slots4"] += int((meta != 0).sum())
             key = ((node[:, :, 0] + node[:, :, 3]) * dd[0][:, None]
@@ -167,19 +207,19 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
 
             # Far-first push order (or slot order), then push the hit
             # internal children.
-            ks = [key[:, c] for c in range(WIDE_WIDTH)]
-            ms = [meta[:, c] for c in range(WIDE_WIDTH)]
+            ks = [key[:, c] for c in range(width)]
+            ms = [meta[:, c] for c in range(width)]
             push = hit & (meta > 0)
-            ps = [push[:, c] for c in range(WIDE_WIDTH)]
+            ps = [push[:, c] for c in range(width)]
             if ordered:
-                launches.work["nets4"] += int((push.sum(1) >= 2).sum())
-                for i, j in NET8:
+                launches.work[net_key] += int((push.sum(1) >= 2).sum())
+                for i, j in net:
                     sw = ks[j] > ks[i]
                     for f in (ks, ms, ps):
                         f[i], f[j] = (torch.where(sw, f[j], f[i]),
                                       torch.where(sw, f[i], f[j]))
             lsp = sp[li]
-            for c in range(WIDE_WIDTH):
+            for c in range(width):
                 stack[li, lsp] = ms[c] - 1
                 lsp = lsp + ps[c]
             launches.work["stack4_max"] = max(launches.work["stack4_max"],
@@ -190,16 +230,16 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
             if pr.numel():
                 lid = -meta[pr, pc] - 1
                 cidp = lid & LEAF_CID_MASK
-                full = (lid >> LEAF_CID_BITS) >= CLUSTER_SIZE // 2
+                full = (lid >> LEAF_CID_BITS) >= cs // 2
                 launches.work["tris"] += int((lid >> LEAF_CID_BITS).sum()
                                              + pr.numel())
-                tri = clusters.index_select(0, cidp.to(torch.int64)).view(
-                    -1, CLUSTER_SIZE, 16)
+                tri = leaf_rows.index_select(0, cidp.to(torch.int64)).view(
+                    -1, cs, 16)
                 cand = _mt_candidates(
                     tri, [oo[a, pr] for a in range(3)],
                     [dd[a, pr] for a in range(3)], closest[pr], full,
                     t_min, det_eps).reshape(-1)
-                owner = pr.repeat_interleave(CLUSTER_SIZE)
+                owner = pr.repeat_interleave(cs)
                 mins = torch.full((m,), torch.inf, device=dev).scatter_reduce(
                     0, owner, cand, "amin")
                 pos = torch.arange(cand.numel(), device=dev)
@@ -209,7 +249,7 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
                     0, owner[win], pos[win], "amin")
                 has = first < cand.numel()
                 wpos = first[has]
-                row, k = wpos // CLUSTER_SIZE, wpos % CLUSTER_SIZE
+                row, k = wpos // cs, wpos % cs
                 rec = tri[row, k]                         # [h, 16]
                 upd = li[has]
                 best[0, upd] = cand[wpos]
@@ -230,17 +270,19 @@ def walk_plain(nodes4: torch.Tensor, clusters: torch.Tensor, ray_o, ray_d,
 
 
 def walk2_plain(nodes8: torch.Tensor, num_nodes: int,
-                clusters: torch.Tensor, counts: torch.Tensor, ray_o, ray_d,
-                active: torch.Tensor, t_min: float, t_max: float,
+                leaf_rows: torch.Tensor, counts: torch.Tensor, ray_o,
+                ray_d, active: torch.Tensor, t_min: float, t_max: float,
                 det_eps: float, flip: bool):
     """Per-ray skip-link walk of the binary table, plain torch -> out
     f32[8, P] (t, normal xyz, albedo rgb, type). Every unfinished ray
-    visits one node per step; a leaf it hits tests all 8 triangles of its
-    cluster in order (strict ``t < closest``: the first strict minimum
-    wins). Counts node visits and the tests of live triangles (``counts``,
-    i32[L] per cluster; the rest never hit) in ``launches.work``."""
+    visits one node per step; a leaf it hits tests all cs triangles of its
+    cluster (``leaf_rows`` f32[L, cs * 16], one leaf a row) in order
+    (strict ``t < closest``: the first strict minimum wins). Counts node
+    visits and the tests of live triangles (``counts``, i32[L] per leaf;
+    the rest never hit) in ``launches.work``."""
     dev = active.device
     p = active.shape[0]
+    cs = leaf_rows.shape[1] // 16
     out = torch.zeros((8, p), dtype=torch.float32, device=dev)
     out[0] = t_max
     ids = torch.nonzero(active).squeeze(1)
@@ -274,8 +316,7 @@ def walk2_plain(nodes8: torch.Tensor, num_nodes: int,
             if q:
                 cids = col7[leaf].to(torch.int64)
                 launches.work["tris"] += int(counts[cids].sum())
-                tri = clusters.index_select(0, cids).view(-1, CLUSTER_SIZE,
-                                                          16)
+                tri = leaf_rows.index_select(0, cids).view(-1, cs, 16)
                 cand = _mt_candidates(
                     tri, list(oo[leaf].T), list(dd[leaf].T), closest[leaf],
                     torch.ones(q, dtype=torch.bool, device=dev), t_min,
@@ -308,6 +349,9 @@ def _check_table(scene: FastScene, name: str, cols: int,
 
 
 def _check_scene(scene: FastScene, device: torch.device) -> None:
+    if scene.nodes4 is None:
+        raise ValueError("the scene has no wide table (nodes4 is None): "
+                         "walk the binary one")
     _check_table(scene, "nodes4", 128, device)
     _check_table(scene, "clusters", 128, device)
 
@@ -332,9 +376,9 @@ def trace4_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     xyz), active bool[P] -> f32[8, P] (t, normal xyz, albedo rgb, type)."""
     _check_scene(scene, rays.device)
     _check_rays(rays, active)
-    launches.plain["trace4"] += 1
-    out, _ = walk_plain(scene.nodes4, scene.clusters, rays[0:3], rays[3:6],
-                        active, cfg.t_min, cfg.t_max, cfg.det_eps,
+    launches.plain[cuda_build.kernel_name("trace4", scene.layout)] += 1
+    out, _ = walk_plain(scene.node_rows, scene.leaf_rows, rays[0:3],
+                        rays[3:6], active, cfg.t_min, cfg.t_max, cfg.det_eps,
                         _flip(cfg))
     return out
 
@@ -352,13 +396,13 @@ def trace4(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     p = rays.shape[1]
     out = torch.empty((8, p), dtype=torch.float32, device=rays.device)
     act = active.to(torch.uint8)
-    lib = cuda_build.library()
+    lib = cuda_build.library(scene.layout)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     cuda_build.check(lib.rt_trace4(
         scene.nodes4.data_ptr(), scene.clusters.data_ptr(), rays.data_ptr(),
         act.data_ptr(), out.data_ptr(), p, cfg.t_min, cfg.t_max,
         cfg.det_eps, int(_flip(cfg)), stream), "rt_trace4")
-    launches.kernel["trace4"] += 1
+    launches.kernel[cuda_build.kernel_name("trace4", scene.layout)] += 1
     return out
 
 
@@ -369,9 +413,10 @@ def _check_scene2(scene: FastScene, device: torch.device) -> None:
         raise ValueError("scene.num_nodes out of range")
     c = scene.cluster_counts
     if (c.device != device or c.dtype != torch.int32
-            or c.shape != scene.clusters.shape[:1] or not c.is_contiguous()):
-        raise ValueError("scene.cluster_counts must be contiguous i32[L] "
-                         "beside scene.clusters")
+            or c.shape != scene.leaf_rows.shape[:1]
+            or not c.is_contiguous()):
+        raise ValueError("scene.cluster_counts must be contiguous i32[L], "
+                         "one count a leaf of scene.clusters")
 
 
 def trace2_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
@@ -381,8 +426,8 @@ def trace2_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     ``trace4_plain``."""
     _check_scene2(scene, rays.device)
     _check_rays(rays, active)
-    launches.plain["trace2"] += 1
-    return walk2_plain(scene.nodes8, scene.num_nodes, scene.clusters,
+    launches.plain[cuda_build.leaf_kernel_name("trace2", scene.layout)] += 1
+    return walk2_plain(scene.nodes8, scene.num_nodes, scene.leaf_rows,
                        scene.cluster_counts, rays[0:3], rays[3:6], active,
                        cfg.t_min, cfg.t_max, cfg.det_eps, _flip(cfg))
 
@@ -404,24 +449,26 @@ def trace2(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     out = torch.empty((8, p), dtype=torch.float32, device=rays.device)
     act = active.to(torch.uint8)
     name = "trace2_warp" if coherent else "trace2"
-    lib = cuda_build.library()
+    layout = cuda_build.leaf_layout(scene.layout)
+    lib = cuda_build.library(layout)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     cuda_build.check(getattr(lib, f"rt_{name}")(
         scene.nodes8.data_ptr(), scene.clusters.data_ptr(),
         scene.cluster_counts.data_ptr(), rays.data_ptr(), act.data_ptr(),
         out.data_ptr(), p, scene.num_nodes, cfg.t_min, cfg.t_max,
         cfg.det_eps, int(_flip(cfg)), stream), f"rt_{name}")
-    launches.kernel[name] += 1
+    launches.kernel[cuda_build.kernel_name(name, layout)] += 1
     return out
 
 
 def traverse(scene: FastScene, ray_o, ray_d, active, cfg: RenderConfig,
              coherent: bool = False) -> TraversalResult:
-    """Closest hit for flat [P] SoA rays: kernel A over the 8-wide table,
-    or kernel 5 over the binary table when the knobs ask for it (its warp
-    design for ``coherent`` rays: tile-major primaries)."""
+    """Closest hit for flat [P] SoA rays: kernel A over the wide table, or
+    kernel 5 over the binary table when the knobs ask for it or the scene
+    has no wide table (JAX ``pallas_traverse``; its warp design for
+    ``coherent`` rays: tile-major primaries)."""
     rays = torch.stack([*ray_o, *ray_d])
-    if knobs.binary_traverse():
+    if knobs.binary_traverse() or scene.nodes4 is None:
         out = trace2(scene, rays, active, cfg, coherent)
     else:
         out = trace4(scene, rays, active, cfg)

@@ -18,7 +18,9 @@ The round engine is ``RAYTPU_WAVE`` (``raytracer_tpu_torch/knobs.py``):
   survivors hand off as colour-carrying i32[16, w] state;
 * ``split``: ``trace.traverse`` (kernel A or 5 by the knobs) and the plain
   ``tracer.shade`` each round, colour carried, ``rays`` counted before the
-  round and the key recomputed on the host.
+  round and the key recomputed on the host; also the engine of every
+  scene without a wide table, whatever the knob (JAX ``has4``,
+  ``wavefront.py:347``).
 
 The A/B knobs of the rounds, each read at call time (``knobs.py``):
 
@@ -329,7 +331,7 @@ def wavefront_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
     p = alive.shape[0]
     if p % BBLOCK:
         raise ValueError(f"ray count {p} not a multiple of {BBLOCK}")
-    engine = knobs.wave_engine()
+    engine = knobs.wave_engine() if scene.nodes4 is not None else "split"
     mode = knobs.sort_key_mode()
     packed = engine == "fused_packed"
     glue = "one" if packed else knobs.glue(engine)

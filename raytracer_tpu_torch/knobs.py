@@ -86,10 +86,20 @@ Counts read at call time where the JAX package reads them (``count``):
 ``RAYTPU_PIPELINE`` (frames in flight in ``engine/loop.py``),
 ``RAYTPU_LADDER`` and ``RAYTPU_LADDER_SCALE`` (the resolution ladder).
 
-The JAX package's other result-bearing knobs select A/B variants that the
-port has not ported (``FIXED``: the table layout). Each is read where the
-JAX package reads it, and any value but its JAX default raises
-``NotImplementedError``.
+The table layout, read when a table is built (``layout``: the host
+builders, the device builders and ``fast_scene_from_numpy``), where the
+JAX package reads it at import (``raytracer_tpu/core/fast_types.py:40``,
+``:67``); the scene keeps it (``FastScene.cluster_size`` /
+``wide_width``), and every walk and kernel library takes it from there:
+
+* ``RAYTPU_CLUSTER``: triangles a leaf, ``8`` (default), ``4`` or ``2``
+  (thin leaves: subclusters of the 128-float cluster rows);
+* ``RAYTPU_WIDE``: children a wide node, ``8`` (default) or ``16`` (a
+  node is two 128-float rows; the device LBVH then builds no wide table
+  and its scenes walk the binary one).
+
+Every result-bearing knob of the JAX package runs its JAX values: the
+port refuses none (``FIXED`` is empty).
 
 The JAX package's TPU tile-shape knobs change no result and do not apply
 to the port, which does not read them: ``RAYTPU_PALLAS_SUBLANES``,
@@ -106,6 +116,8 @@ from __future__ import annotations
 
 import os
 
+from raytracer_tpu_torch.core.fast_types import CLUSTER_SIZES, WIDE_WIDTHS
+
 BOUNCE0 = ("pallas", "pwave", "mega", "packet")
 BOUNCE_PATHS = ("wave", "pmega", "mega")
 BVH_METHODS = ("sah", "median", "sbvh", "ploc")
@@ -114,12 +126,9 @@ DEVICE_TREES = ("karras", "ploc")
 WAVE_ENGINES = ("fused12", "fused", "fused_packed", "split")
 NODE_SOURCES = ("pack", "extract")
 
-# Knob -> its JAX default, the only value the port accepts. Read where
-# ``FastScene`` tables are built (the JAX package's fast_types.py:40, :67).
-FIXED = {
-    "RAYTPU_CLUSTER": "8",
-    "RAYTPU_WIDE": "8",
-}
+# Knob -> its JAX default, for knobs whose other values the port refuses.
+# Every knob runs its JAX values now.
+FIXED: dict = {}
 
 
 def _read(name: str, default: str, allowed) -> str:
@@ -131,11 +140,11 @@ def _read(name: str, default: str, allowed) -> str:
     return value
 
 
-def fixed(*names: str) -> None:
-    """Read each knob of ``FIXED`` named; raise unless it is unset or at
-    its JAX default."""
-    for name in names:
-        _read(name, FIXED[name], (FIXED[name],))
+def layout() -> tuple[int, int]:
+    """(cluster size, wide width) for a table built now:
+    ``RAYTPU_CLUSTER`` (8, 4 or 2) and ``RAYTPU_WIDE`` (8 or 16)."""
+    return (int(_read("RAYTPU_CLUSTER", "8", tuple(map(str, CLUSTER_SIZES)))),
+            int(_read("RAYTPU_WIDE", "8", tuple(map(str, WIDE_WIDTHS)))))
 
 
 def bounce0() -> str:
@@ -156,7 +165,7 @@ def wave_engine() -> str:
 
 def binary_traverse() -> bool:
     """True when traversal walks the binary ``nodes8`` table (kernel
-    ``trace2``) instead of the 8-wide ``nodes4`` table (``trace4``)."""
+    ``trace2``) instead of the wide ``nodes4`` table (``trace4``)."""
     node_src = _read("RAYTPU_NODE_SRC", "pack", NODE_SOURCES)
     return (node_src == "extract"
             or os.environ.get("RAYTPU_TRAVERSE", "bvh4") != "bvh4")

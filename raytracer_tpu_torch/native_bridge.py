@@ -1,8 +1,11 @@
 """ctypes bridge to the framework-neutral C++ runtime in ``native/``.
 
 Shares ``native/raytpu_native.so`` with the JAX package: the library is
-built with ``make -C native`` when it is missing or older than its source,
-as ``raytracer_tpu/native_bridge.py`` does. This bridge exposes only what
+built with the Makefile of ``native/`` when it is missing or older than its
+source, as ``raytracer_tpu/native_bridge.py`` does (``ensure_built``), but
+under a lock file and into a private copy of the directory, then renamed
+into place: processes that build at once (test workers, JAX reference
+children) never load a half-written library. This bridge exposes only what
 the port's scene build needs — the median, binned-SAH, SBVH and PLOC BVH
 builds, cluster packing and the .obj parser — and raises when the library
 cannot be built or loaded, or a build fails (the JAX package logs such a
@@ -13,8 +16,11 @@ failure and builds a median tree in NumPy instead; the port does not:
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -27,16 +33,37 @@ _lock = threading.Lock()
 _lib = None
 
 
+def _stale() -> bool:
+    src = os.path.join(_NATIVE_DIR, "raytpu_native.cpp")
+    return (not os.path.exists(_SO_PATH)
+            or os.path.getmtime(src) > os.path.getmtime(_SO_PATH))
+
+
+def ensure_built() -> None:
+    """Build the library if it is missing or older than its source: one
+    process at a time (an exclusive lock on ``native/.build.lock``), with
+    ``make`` in a temporary copy of ``native/``, the result renamed over
+    the library."""
+    if not _stale():
+        return
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale():
+            return
+        with tempfile.TemporaryDirectory(dir=_NATIVE_DIR) as tmp:
+            for name in ("Makefile", "raytpu_native.cpp"):
+                shutil.copy2(os.path.join(_NATIVE_DIR, name), tmp)
+            subprocess.run(["make", "-C", tmp], check=True,
+                           capture_output=True, timeout=300)
+            os.replace(os.path.join(tmp, "raytpu_native.so"), _SO_PATH)
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        src = os.path.join(_NATIVE_DIR, "raytpu_native.cpp")
-        if (not os.path.exists(_SO_PATH)
-                or os.path.getmtime(src) > os.path.getmtime(_SO_PATH)):
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=300)
+        ensure_built()
         lib = ctypes.CDLL(_SO_PATH)
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

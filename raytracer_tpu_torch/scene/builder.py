@@ -9,7 +9,9 @@ tables, with the same capacity buckets and padding, as
 or, with ``RAYTPU_NATIVE=0``, in NumPy, and the 8-wide collapse with
 each leaf's live count or, with ``RAYTPU_LEAF_COUNTS=0``, full counts;
 leaf size 1 for the per-ray scene. Everything is NumPy or the native
-library until the final ``torch.from_numpy(...).to(device)``.
+library until the final ``torch.from_numpy(...).to(device)``. The table
+layout is ``knobs.layout()`` (``RAYTPU_CLUSTER`` / ``RAYTPU_WIDE``), read
+once a build and kept in the scene.
 
 Also carries state across from the JAX package: ``fast_scene_from_numpy``,
 ``gpu_scene_from_numpy`` and ``camera_uniforms_from_numpy`` rebuild the
@@ -29,7 +31,7 @@ from raytracer_tpu_torch import knobs, native_bridge
 from raytracer_tpu_torch.bvh.build import build_bvh
 from raytracer_tpu_torch.bvh.bvh4 import (STACK_CAP, collapse4,
                                           nodes4_stack_need)
-from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, CLUSTER_SIZE,
+from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, ROW_TRIS,
                                                  TRI_STRIDE, FastScene)
 from raytracer_tpu_torch.core.types import CameraUniforms, FlatBVH, GpuScene
 from raytracer_tpu_torch.scene.objloader import load_obj
@@ -179,8 +181,10 @@ def pack_tri_records(v9: np.ndarray, m4: np.ndarray) -> np.ndarray:
         axis=1).astype(np.float32)
 
 
-def _host_tables(verts: np.ndarray, mats: np.ndarray):
-    """NumPy tables (nodes8, clusters, nodes4, num_nodes, num_nodes4)."""
+def _host_tables(verts: np.ndarray, mats: np.ndarray, cluster_size: int,
+                 wide_width: int):
+    """NumPy tables (nodes8, clusters, nodes4, num_nodes, num_nodes4) of
+    the layout (``cluster_size``, ``wide_width``)."""
     n = verts.shape[0]
     if n == 0:
         mcap = _MIN_CAPACITY
@@ -189,11 +193,13 @@ def _host_tables(verts: np.ndarray, mats: np.ndarray):
         nodes8[:, 3:6] = -_BIG
         nodes8[:, 6] = np.full((), 1, np.int32).view(np.float32)  # skip
         nodes8[:, 7] = np.full((), 0, np.int32).view(np.float32)  # leaf 0
-        clusters = np.zeros((_MIN_CAPACITY, CLUSTER_ROW), np.float32)
+        # The minimum bucket's table shape: _MIN_CAPACITY leaves.
+        clusters = np.zeros((_MIN_CAPACITY * cluster_size // ROW_TRIS,
+                             CLUSTER_ROW), np.float32)
         num_nodes = 1
         counts = np.ones(1, np.int32)
     else:
-        bvh = build_bvh(verts, leaf_size=CLUSTER_SIZE)
+        bvh = build_bvh(verts, leaf_size=cluster_size)
         m = bvh.num_nodes
         mcap = bucket(m)
         leaf_mask = bvh.node_tri >= 0
@@ -219,25 +225,30 @@ def _host_tables(verts: np.ndarray, mats: np.ndarray):
         lids[:m] = leaf_ids
         nodes8[:, 7] = lids.view(np.float32)
 
-        # Padding triangles stay all-zero (det == 0, never hit).
-        clusters = np.zeros((lcap, CLUSTER_SIZE * TRI_STRIDE), np.float32)
+        # One leaf of cluster_size records a row, regrouped below into
+        # 128-float table rows (8 / cluster_size leaves a row; lcap is a
+        # power of two >= 64, so it divides). Padding triangles stay
+        # all-zero (det == 0, never hit).
+        clusters = np.zeros((lcap, cluster_size * TRI_STRIDE), np.float32)
         if knobs.native():
             native_bridge.pack_clusters(verts, mats, bvh.order,
                                         bvh.node_tri, bvh.node_ntri,
-                                        clusters, CLUSTER_SIZE, TRI_STRIDE)
+                                        clusters, cluster_size, TRI_STRIDE)
         else:
             records = pack_tri_records(verts[bvh.order].reshape(-1, 9),
                                        mats[bvh.order])
             for li, node in enumerate(np.nonzero(leaf_mask)[0]):
                 start = int(bvh.node_tri[node])
                 count = int(bvh.node_ntri[node])
-                row = clusters[li].reshape(CLUSTER_SIZE, TRI_STRIDE)
+                row = clusters[li].reshape(cluster_size, TRI_STRIDE)
                 row[:count] = records[start:start + count]
+        clusters = clusters.reshape(-1, CLUSTER_ROW)
         num_nodes = m
         counts = bvh.node_ntri[leaf_mask].astype(np.int32)
 
     nodes4, n4 = collapse4(nodes8, num_nodes, cluster_counts=(
-        counts if knobs.leaf_counts() else None))
+        counts if knobs.leaf_counts() else None), cluster_size=cluster_size,
+        width=wide_width)
     r4cap = bucket(nodes4.shape[0])
     if nodes4.shape[0] < r4cap:
         nodes4 = np.concatenate(
@@ -256,36 +267,49 @@ def build_fast_scene(instances: Sequence[ModelInstance],
 def build_fast_scene_from_arrays(verts: np.ndarray, mats: np.ndarray,
                                  device="cuda") -> FastScene:
     """Pack a triangle soup (f32[T,3,3] verts, f32[T,4] rgb+type mats)
-    into a FastScene on ``device``."""
+    into a FastScene on ``device``, in the layout of ``knobs.layout()``."""
     t0 = time.perf_counter()
     verts = np.asarray(verts, np.float32)
     mats = np.asarray(mats, np.float32)
-    nodes8, clusters, nodes4, num_nodes, n4 = _host_tables(verts, mats)
+    cs, ww = knobs.layout()
+    nodes8, clusters, nodes4, num_nodes, n4 = _host_tables(verts, mats, cs,
+                                                           ww)
     put = _put(device)
     fs = FastScene(nodes8=put(nodes8), clusters=put(clusters),
                    nodes4=put(nodes4), num_nodes=int(num_nodes),
-                   num_triangles=int(verts.shape[0]), num_nodes4=int(n4))
+                   num_triangles=int(verts.shape[0]), num_nodes4=int(n4),
+                   cluster_size=cs, wide_width=ww)
     _log.info("fast scene packed: %d tris, %d nodes in %.1f ms",
               verts.shape[0], num_nodes, (time.perf_counter() - t0) * 1e3)
     return fs
 
 
-def fast_scene_from_numpy(leaves: dict, device="cuda") -> FastScene:
-    """The JAX package's FastScene leaves (name -> np.asarray(leaf)) ->
-    the port's FastScene on ``device``. Refuses a ``nodes4`` whose walk
-    could push more than the kernels' STACK_CAP stack slots (a depth pass,
-    as ``collapse4`` checks the trees it builds)."""
-    need = nodes4_stack_need(np.asarray(leaves["nodes4"]))
-    if need > STACK_CAP:
-        raise ValueError(f"nodes4 would need {need} stack slots > "
-                         f"STACK_CAP {STACK_CAP}")
+def fast_scene_from_numpy(leaves: dict, device="cuda",
+                          layout: tuple[int, int] | None = None
+                          ) -> FastScene:
+    """The JAX package's FastScene leaves (name -> np.asarray(leaf); no
+    ``nodes4`` / ``num_nodes4`` where that scene has no wide table) ->
+    the port's FastScene on ``device``, in ``layout`` (cluster size, wide
+    width; default ``knobs.layout()``, the knobs the tables were built
+    under). Refuses a ``nodes4`` whose walk could push more than the
+    kernels' STACK_CAP stack slots (a depth pass, as ``collapse4`` checks
+    the trees it builds)."""
+    cs, ww = knobs.layout() if layout is None else layout
+    nodes4 = leaves.get("nodes4")
+    if nodes4 is not None:
+        need = nodes4_stack_need(np.asarray(nodes4), ww)
+        if need > STACK_CAP:
+            raise ValueError(f"nodes4 would need {need} stack slots > "
+                             f"STACK_CAP {STACK_CAP}")
     put = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
     return FastScene(nodes8=put(leaves["nodes8"]),
                      clusters=put(leaves["clusters"]),
-                     nodes4=put(leaves["nodes4"]),
+                     nodes4=None if nodes4 is None else put(nodes4),
                      num_nodes=int(leaves["num_nodes"]),
                      num_triangles=int(leaves["num_triangles"]),
-                     num_nodes4=int(leaves["num_nodes4"]))
+                     num_nodes4=(None if nodes4 is None
+                                 else int(leaves["num_nodes4"])),
+                     cluster_size=cs, wide_width=ww)
 
 
 def camera_uniforms_from_numpy(leaves: dict,

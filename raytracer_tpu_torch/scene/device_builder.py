@@ -21,6 +21,13 @@ As in the JAX package, a strategy that fails falls back to the next one
 (``NotImplementedError``) and a CUDA error pass through, and
 ``last_mode`` records which strategy built the last scene. An empty
 scene goes through the host builder.
+
+Each strategy builds in the layout of ``knobs.layout()`` and takes the
+same turns as the JAX package under it: at ``RAYTPU_CLUSTER=2|4`` all
+three run; at ``RAYTPU_WIDE=16`` the refit capture refuses (it emits
+8-wide tables only), so ``refit`` falls back to ``lbvh``, whose scenes
+have no wide table and walk the binary one; the device PLOC tree refuses
+any layout but the default.
 """
 
 from __future__ import annotations

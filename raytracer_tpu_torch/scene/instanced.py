@@ -17,10 +17,14 @@ Both table layouts are emitted, as in the JAX package:
   its right child T_{j+1}), so T_j's left child is the next row and
   every local skip, the past-the-end sentinel M_j included, maps to
   global as ``skip + off_j``;
-* wide ``nodes4``: the instance tables behind one top row (K <= 8) or a
-  root row and ceil(K/8) group rows (K <= 64), slot metas offset per
-  instance (internal ids by the row offset, leaf cluster ids by the
-  cluster offset).
+* wide ``nodes4``: the instance tables behind one top node (K <= W, the
+  wide width) or a root node and ceil(K/W) group nodes (K <= 64), slot
+  metas offset per instance (internal ids by the node offset, leaf
+  cluster ids by the cluster offset).
+
+The layout is the BLASes' (``knobs.layout()`` when ``prep_mesh_blas``
+built them): W-wide nodes of W / 8 table rows each, and leaves of
+``cluster_size`` records regrouped into 128-float cluster rows.
 
 Link columns are offset in i32 and viewed as f32 once; wide metas are
 float-encoded exact ints (|meta| < 2^23), converted (not bitcast) to i32,
@@ -38,16 +42,16 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.bvh.build import build_bvh
-from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP, collapse4
+from raytracer_tpu_torch import knobs
+from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP, collapse4, stack_need
 from raytracer_tpu_torch.bvh.lbvh import tri_normals
-from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, CLUSTER_SIZE,
-                                                 LEAF_CID_BITS, LEAF_CID_MASK,
-                                                 TRI_STRIDE, WIDE_WIDTH,
+from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, LEAF_CID_BITS,
+                                                 LEAF_CID_MASK, TRI_STRIDE,
                                                  FastScene)
 from raytracer_tpu_torch.core.types import to_device
 from raytracer_tpu_torch.scene.builder import bucket
 
-MAX_INSTANCES = 64  # 2 TLAS levels of 8; beyond this use another build
+MAX_INSTANCES = 64  # 2 TLAS levels; beyond this use another build
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +62,8 @@ class MeshBLAS:
     bin_hi: torch.Tensor     # f32[M, 3]
     bin_skip: torch.Tensor   # i32[M] local skip (sentinel M = leave mesh)
     bin_col7: torch.Tensor   # i32[M] local leaf cid >= 0 / -(left+1)
-    wide: torch.Tensor       # f32[W, 8, 16] mesh-space wide table
-    rec: torch.Tensor        # f32[L, 8, 9] per-cluster v0|e1|e2 records
+    wide: torch.Tensor       # f32[W, width, 16] mesh-space wide table
+    rec: torch.Tensor        # f32[L, cluster_size, 9] v0|e1|e2 records
     num_nodes: int           # M
     num_wide: int            # W
     num_clusters: int        # L
@@ -70,13 +74,20 @@ class MeshBLAS:
     COUNTS = ("num_nodes", "num_wide", "num_clusters", "num_triangles",
               "wide_depth")
 
+    @property
+    def layout(self) -> tuple[int, int]:
+        """(cluster_size, wide_width) of the tables."""
+        return self.rec.shape[1], self.wide.shape[1]
+
 
 def prep_mesh_blas(verts: np.ndarray, device="cuda") -> MeshBLAS:
-    """One host SAH build of a mesh-space BLAS, put on ``device``."""
+    """One host SAH build of a mesh-space BLAS, put on ``device``, in the
+    layout of ``knobs.layout()``."""
     verts = np.asarray(verts, np.float32)
     if verts.shape[0] == 0:
         raise ValueError("prep_mesh_blas needs a non-empty mesh")
-    bvh = build_bvh(verts, leaf_size=CLUSTER_SIZE)
+    cs, ww = knobs.layout()
+    bvh = build_bvh(verts, leaf_size=cs)
     m = bvh.num_nodes
 
     leaf_mask = bvh.node_tri >= 0
@@ -93,13 +104,14 @@ def prep_mesh_blas(verts: np.ndarray, device="cuda") -> MeshBLAS:
     nodes8[:, 7] = leaf_ids.view(np.float32)
     counts = bvh.node_ntri[leaf_mask].astype(np.int32)
     wide, n_wide, depth = collapse4(nodes8, m, cluster_counts=counts,
+                                    cluster_size=cs, width=ww,
                                     return_depth=True)
 
-    # Mesh-space records v0 | e1 | e2 in leaf order, padded to 8 a
-    # cluster with zero (degenerate, never hit) rows; the combine bakes
-    # the instance material and the normals.
+    # Mesh-space records v0 | e1 | e2 in leaf order, padded to
+    # cluster_size a cluster with zero (degenerate, never hit) rows; the
+    # combine bakes the instance material and the normals.
     ordered = verts[bvh.order].reshape(-1, 9)
-    rec = np.zeros((num_leaves, CLUSTER_SIZE, 9), np.float32)
+    rec = np.zeros((num_leaves, cs, 9), np.float32)
     for li, node in enumerate(np.nonzero(leaf_mask)[0]):
         start = int(bvh.node_tri[node])
         v9 = ordered[start:start + int(bvh.node_ntri[node])]
@@ -109,7 +121,7 @@ def prep_mesh_blas(verts: np.ndarray, device="cuda") -> MeshBLAS:
     return mesh_blas_from_numpy(dict(
         bin_lo=bvh.node_min, bin_hi=bvh.node_max,
         bin_skip=bvh.node_skip.astype(np.int32), bin_col7=leaf_ids,
-        wide=wide.reshape(-1, WIDE_WIDTH, 16)[:n_wide], rec=rec,
+        wide=wide.reshape(-1, ww, 16)[:n_wide], rec=rec,
         num_nodes=m, num_wide=n_wide, num_clusters=num_leaves,
         num_triangles=verts.shape[0], wide_depth=depth), device)
 
@@ -123,15 +135,16 @@ def mesh_blas_from_numpy(leaves: dict, device="cuda") -> MeshBLAS:
         **{k: int(leaves[k]) for k in MeshBLAS.COUNTS})
 
 
-def _tlas_plan(k: int):
-    """Static wide-TLAS shape -> (n_top_rows, groups): one top row whose
-    slots are the instance roots (k <= 8), or a root row over ceil(k/8)
-    group rows (k <= 64); groups[g] lists instance indices."""
-    if k <= WIDE_WIDTH:
+def _tlas_plan(k: int, width: int):
+    """Static wide-TLAS shape -> (n_top_nodes, groups): one top node
+    whose slots are the instance roots (k <= width), or a root node over
+    ceil(k/width) group nodes (k <= 64); groups[g] lists instance
+    indices."""
+    if k <= width:
         return 1, [list(range(k))]
-    groups = [list(range(g, min(g + WIDE_WIDTH, k)))
-              for g in range(0, k, WIDE_WIDTH)]
-    if len(groups) > WIDE_WIDTH:
+    groups = [list(range(g, min(g + width, k)))
+              for g in range(0, k, width)]
+    if len(groups) > width:
         raise ValueError(f"{k} instances > MAX_INSTANCES {MAX_INSTANCES}")
     return 1 + len(groups), groups
 
@@ -145,9 +158,9 @@ def _transform_bounds(lo, hi, scale, pos):
 
 def _instance_tables(blas: MeshBLAS, p, boff, woff, cloff):
     """One instance's transformed pieces: (binary lo, hi, skip, col7,
-    wide rows f32[W, 128], cluster rows f32[L, 128]). ``p`` f32[10] =
-    scale3 pos3 color3 mtype; ``boff`` / ``woff`` / ``cloff`` its binary
-    row, wide row and cluster offsets."""
+    wide rows f32[W * width / 8, 128], leaf records f32[L, cluster_size
+    * 16]). ``p`` f32[10] = scale3 pos3 color3 mtype; ``boff`` / ``woff``
+    / ``cloff`` its binary row, wide node and cluster offsets."""
     scale, pos, color, mtype = p[0:3], p[3:6], p[6:9], p[9:10]
     lo, hi = _transform_bounds(blas.bin_lo, blas.bin_hi, scale, pos)
     # Local skip -> global: + block offset (the sentinel M_j lands on
@@ -158,7 +171,7 @@ def _instance_tables(blas: MeshBLAS, p, boff, woff, cloff):
                        blas.bin_col7 - boff)
 
     wide = blas.wide
-    w = wide.shape[0]
+    w, width = wide.shape[0], wide.shape[1]
     wlo, whi = _transform_bounds(wide[:, :, 0:3], wide[:, :, 3:6], scale,
                                  pos)
     meta = wide[:, :, 6].to(torch.int32)
@@ -169,12 +182,13 @@ def _instance_tables(blas: MeshBLAS, p, boff, woff, cloff):
                          torch.where(meta < 0, leaf_meta, 0))
     wide_rows = torch.cat([
         wlo, whi, meta_g.to(torch.float32)[:, :, None],
-        torch.zeros((w, WIDE_WIDTH, 9), device=wide.device)], 2
-    ).reshape(w, 128)
+        torch.zeros((w, width, 9), device=wide.device)], 2
+    ).reshape(-1, CLUSTER_ROW)
 
     # Records v0*s+p | e1*s | e2*s | albedo | type | normal; padding rows
     # have e1 == e2 == 0 and stay degenerate.
-    n = blas.rec.shape[0] * CLUSTER_SIZE
+    cs = blas.rec.shape[1]
+    n = blas.rec.shape[0] * cs
     flat = blas.rec.reshape(n, 9)
     v0 = flat[:, 0:3] * scale + pos
     e1 = flat[:, 3:6] * scale
@@ -182,32 +196,38 @@ def _instance_tables(blas: MeshBLAS, p, boff, woff, cloff):
     row16 = torch.cat([v0, e1, e2, color.expand(n, 3), mtype.expand(n, 1),
                        tri_normals(e1, e2)], 1)
     return (lo, hi, skip, col7, wide_rows,
-            row16.reshape(-1, CLUSTER_SIZE * TRI_STRIDE))
+            row16.reshape(-1, cs * TRI_STRIDE))
 
 
 def _wide_row(child_lo, child_hi, metas):
-    """One top row: up to 8 child boxes (zero-padded) and metas f32[8]."""
-    pad = torch.zeros((WIDE_WIDTH - child_lo.shape[0], 3),
+    """One top node: up to ``width`` child boxes (zero-padded) and metas
+    f32[width] -> f32[width / 8, 128]."""
+    width = metas.shape[0]
+    pad = torch.zeros((width - child_lo.shape[0], 3),
                       device=child_lo.device)
     return torch.cat([
         torch.cat([child_lo, pad]), torch.cat([child_hi, pad]),
-        metas[:, None], torch.zeros((WIDE_WIDTH, 9), device=pad.device)],
-        1).reshape(1, 128)
+        metas[:, None], torch.zeros((width, 9), device=pad.device)],
+        1).reshape(-1, CLUSTER_ROW)
 
 
 def combine_instanced(blases: Sequence[MeshBLAS],
                       params: torch.Tensor) -> FastScene:
     """BLASes + per-instance params f32[K, 10] (scale3 pos3 color3 mtype,
-    on the BLASes' device) -> FastScene, tables padded to power-of-two
-    capacities as the JAX combine pads them."""
+    on the BLASes' device) -> FastScene in the BLASes' layout, tables
+    padded to power-of-two capacities as the JAX combine pads them."""
     k = len(blases)
     if not 1 <= k <= MAX_INSTANCES:
         raise ValueError(f"combine_instanced takes 1..{MAX_INSTANCES} "
                          f"instances, got {k}")
-    n_top_wide, groups = _tlas_plan(k)
+    layouts = {b.layout for b in blases}
+    if len(layouts) != 1:
+        raise ValueError(f"BLASes of different layouts {sorted(layouts)}")
+    cs, width = layouts.pop()
+    n_top_wide, groups = _tlas_plan(k, width)
     # Stack bound: the TLAS adds 1-2 wide levels above every BLAS.
-    worst = (WIDE_WIDTH - 1) * (max(b.wide_depth for b in blases)
-                                + n_top_wide) + 1
+    worst = stack_need(max(b.wide_depth for b in blases) + n_top_wide - 1,
+                       width)
     if worst > STACK_CAP:
         raise ValueError(f"instanced wide depth needs {worst} stack slots "
                          f"> STACK_CAP {STACK_CAP}")
@@ -261,7 +281,7 @@ def combine_instanced(blases: Sequence[MeshBLAS],
     nodes8 = torch.cat(rows8).view(torch.float32)
 
     # Wide TLAS rows; their metas are static, one copy to the device.
-    top_meta = np.zeros((n_top_wide, WIDE_WIDTH), np.float32)
+    top_meta = np.zeros((n_top_wide, width), np.float32)
     if n_top_wide == 1:
         top_meta[0, :k] = [woffs[j] + 1 for j in range(k)]
     else:
@@ -281,18 +301,20 @@ def combine_instanced(blases: Sequence[MeshBLAS],
         top_rows += [_wide_row(root_lo[a:b], root_hi[a:b], top_meta[1 + g])
                      for g, (a, b) in enumerate(spans)]
     wpad = bucket(w_total) - w_total
-    nodes4 = torch.cat(top_rows + [p[4] for p in parts]
-                       + [torch.zeros((wpad, 128), device=dev)])
+    nodes4 = torch.cat(top_rows + [p[4] for p in parts] + [torch.zeros(
+        (wpad * width * 16 // CLUSTER_ROW, CLUSTER_ROW), device=dev)])
 
+    # Leaf records in global cid order, regrouped into 128-float rows
+    # (the cluster capacity is a power of two >= 64, so they divide).
     cpad = bucket(l_total) - l_total
     clusters = torch.cat(
         [p[5] for p in parts]
-        + [torch.zeros((cpad, CLUSTER_SIZE * TRI_STRIDE), device=dev)]
+        + [torch.zeros((cpad, cs * TRI_STRIDE), device=dev)]
     ).reshape(-1, CLUSTER_ROW)
     return FastScene(nodes8=nodes8, clusters=clusters, nodes4=nodes4,
                      num_nodes=m_total,
                      num_triangles=sum(b.num_triangles for b in blases),
-                     num_nodes4=w_total)
+                     num_nodes4=w_total, cluster_size=cs, wide_width=width)
 
 
 def pack_params(params) -> np.ndarray:

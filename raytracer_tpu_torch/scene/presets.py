@@ -21,7 +21,7 @@ import torch
 from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP, nodes4_stack_need
 from raytracer_tpu_torch.core.camera import Camera
 from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, LEAF_CID_BITS,
-                                                 WIDE_WIDTH, FastScene)
+                                                 FastScene)
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.scene.builder import build_fast_scene_from_arrays
 from raytracer_tpu_torch.scene.objloader import load_obj
@@ -256,9 +256,10 @@ def c12_camera(width: int = 640, height: int = 480) -> Camera:
                   vfov_deg=40.0, aspect_ratio=width / height)
 
 
-# The chain of ``stack_limit_scene``: 36 levels, the deepest tree whose
-# need (7 * 36 + 1 = 253) stays under STACK_CAP.
-CHAIN_LEVELS = 36
+# Chain levels of ``stack_limit_scene`` at each wide width: the deepest
+# chain node's depth (levels - 1) gives a stack need of 253 at width 8
+# and 256 at width 16.
+CHAIN_LEVELS = {8: 36, 16: 17}
 
 
 def _wide_child(row, slot, zoff, meta):
@@ -268,31 +269,35 @@ def _wide_child(row, slot, zoff, meta):
     row[16 * slot + 6] = meta
 
 
-def stack_limit_scene(n_rays: int, device="cuda", seed: int = 0):
-    """A hand-built wide tree that drives the walk's stack to its limit ->
-    (FastScene, rays f32[6, n_rays]).
+def stack_limit_scene(n_rays: int, device="cuda", seed: int = 0,
+                      width: int = 8):
+    """A hand-built ``width``-wide tree (8 or 16) that drives the walk's
+    stack to its limit -> (FastScene, rays f32[6, n_rays]).
 
-    Levels 0-34 of a chain each hold 8 internal children whose boxes
-    contain every ray that is meant to hit: the next chain node, whose box
-    centre has the smallest key ``(min + max) . d`` for the rays' +z
-    directions (so it is pushed last and popped first), and 7 small
-    nodes, each with two leaf children over a 2-cluster table. Each level
-    leaves 7 entries on the stack, so a walk reaches 7 * 34 + 8 = 246
-    slots; level 35 holds the two leaves. Depth 35 gives a stack need of
-    253 (``bvh4.nodes4_stack_need``). One ray in eight starts beside the
-    boxes and misses them all."""
+    At width 8, levels 0-34 of a chain each hold 8 internal children whose
+    boxes contain every ray that is meant to hit: the next chain node,
+    whose box centre has the smallest key ``(min + max) . d`` for the
+    rays' +z directions (so it is pushed last and popped first), and 7
+    small nodes, each with two leaf children over a 2-cluster table. Each
+    level leaves 7 entries on the stack, so a walk reaches 7 * 34 + 8 =
+    246 slots; level 35 holds the two leaves. Depth 35 gives a stack need
+    of 253 (``bvh4.nodes4_stack_need``). At width 16 the chain has levels
+    0-16 of 16 children each (15 small nodes a level): a walk reaches 15
+    * 15 + 16 = 241 slots, and depth 16 gives a need of 256, the whole
+    stack. One ray in eight starts beside the boxes and misses them
+    all."""
     leaf = lambda cid, count: -((cid | ((count - 1) << LEAF_CID_BITS)) + 1)
     rows = []
 
     def node():
-        rows.append(np.zeros(WIDE_WIDTH * 16, np.float32))
+        rows.append(np.zeros(width * 16, np.float32))
         return len(rows) - 1
 
-    chain = [node() for _ in range(CHAIN_LEVELS)]
+    chain = [node() for _ in range(CHAIN_LEVELS[width])]
     for lvl, nid in enumerate(chain[:-1]):
-        chain_slot = lvl % WIDE_WIDTH
+        chain_slot = lvl % width
         rank = 1
-        for slot in range(WIDE_WIDTH):
+        for slot in range(width):
             if slot == chain_slot:
                 _wide_child(rows[nid], slot, 0.0, chain[lvl + 1] + 1)
                 continue
@@ -303,7 +308,7 @@ def stack_limit_scene(n_rays: int, device="cuda", seed: int = 0):
             rank += 1
     _wide_child(rows[chain[-1]], 0, 0.0, leaf(1, 6))
     _wide_child(rows[chain[-1]], 1, 0.0, leaf(0, 1))
-    nodes4 = np.stack(rows)
+    nodes4 = np.stack(rows).reshape(-1, CLUSTER_ROW)
 
     # Cluster 0: one triangle across the boxes at z = 15. Cluster 1: six
     # triangles; the closest (z = 12) sits in the second half, beside a
@@ -328,8 +333,8 @@ def stack_limit_scene(n_rays: int, device="cuda", seed: int = 0):
     for k, rec in enumerate(recs):
         clusters[1, 16 * k:16 * k + 16] = rec
 
-    need = nodes4_stack_need(nodes4)
-    assert need == 253 and need <= STACK_CAP, need
+    need = nodes4_stack_need(nodes4, width)
+    assert need == {8: 253, 16: 256}[width] and need <= STACK_CAP, need
     nodes8 = np.zeros((64, 8), np.float32)      # the all-miss binary table
     nodes8[:, 0:3], nodes8[:, 3:6] = 1e30, -1e30
     nodes8[:, 6] = np.full((), 1, np.int32).view(np.float32)
@@ -346,5 +351,5 @@ def stack_limit_scene(n_rays: int, device="cuda", seed: int = 0):
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     scene = FastScene(nodes8=put(nodes8), clusters=put(clusters),
                       nodes4=put(nodes4), num_nodes=1, num_triangles=7,
-                      num_nodes4=nodes4.shape[0])
+                      num_nodes4=len(rows), wide_width=width)
     return scene, put(np.concatenate([o, d]).astype(np.float32))

@@ -20,6 +20,12 @@ node row i's subtree at rows [i, skip[i]), whose leaves are contiguous in
 leaf-rank order. Every count is a host int fixed at capture, so a refit
 reads nothing back from the card; its params go up in one non-blocking
 copy.
+
+The capture reads the table layout (``knobs.layout()``): leaves of
+``RAYTPU_CLUSTER`` records, and 8-wide nodes only. Under
+``RAYTPU_WIDE=16`` it refuses with a ``ValueError`` (the JAX capture
+asserts width 8, ``raytracer_tpu/scene/refit.py:282``), which the device
+builder takes as "no capture" and builds an LBVH instead.
 """
 
 from __future__ import annotations
@@ -35,8 +41,7 @@ from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.bvh.build import AABB_EPS, build_bvh
 from raytracer_tpu_torch.bvh.bvh4 import collapse4
 from raytracer_tpu_torch.bvh.lbvh import _range_minmax, tri_normals
-from raytracer_tpu_torch.core.fast_types import (CLUSTER_ROW, CLUSTER_SIZE,
-                                                 WIDE_WIDTH, FastScene)
+from raytracer_tpu_torch.core.fast_types import CLUSTER_ROW, FastScene
 from raytracer_tpu_torch.core.types import to_device
 from raytracer_tpu_torch.scene.builder import bucket
 from raytracer_tpu_torch.scene.instanced import pack_params
@@ -50,19 +55,22 @@ _BIG = np.float32(1e30)
 TABLES = ("v_base", "inst_slot", "slot_valid", "skip_col", "col7_col",
           "first", "last", "row_valid", "wide_rows", "wide_meta")
 COUNTS = ("num_nodes", "n_wide", "num_tris")
+WIDTH = 8   # the wide tables a capture emits
 
 
 def _refit_program(v_base, inst_slot, slot_valid, skip_col, col7_col,
                    first, last, row_valid, wide_rows, wide_meta, params,
-                   num_nodes: int, n_wide: int, num_tris: int) -> FastScene:
+                   num_nodes: int, n_wide: int, num_tris: int,
+                   cluster_size: int) -> FastScene:
     """One edit -> FastScene. Static tables (uploaded once per capture):
-    v_base f32[S, 9] base-space slot vertices (S = lcap * 8), inst_slot
+    v_base f32[S, 9] base-space slot vertices (S = lcap * cluster_size),
+    inst_slot
     i64[S], slot_valid f32[S], skip / col7 i32[mcap], first / last
     i64[mcap] leaf-rank ranges, row_valid f32[mcap], wide_rows
     i64[R4, 8], wide_meta f32[R4, 8]; ``params`` f32[I, 10] = scale3
     pos3 color3 mtype."""
     s = v_base.shape[0]
-    lcap = s // CLUSTER_SIZE
+    lcap = s // cluster_size
     mcap = skip_col.shape[0]
 
     p = params[inst_slot]
@@ -79,8 +87,8 @@ def _refit_program(v_base, inst_slot, slot_valid, skip_col, col7_col,
     live = slot_valid[:, None] > 0.0
     lo_t = torch.where(live, lo_t, float(_BIG))
     hi_t = torch.where(live, hi_t, float(-_BIG))
-    leaf_lo = lo_t.reshape(lcap, CLUSTER_SIZE, 3).amin(1)
-    leaf_hi = hi_t.reshape(lcap, CLUSTER_SIZE, 3).amax(1)
+    leaf_lo = lo_t.reshape(lcap, cluster_size, 3).amin(1)
+    leaf_hi = hi_t.reshape(lcap, cluster_size, 3).amax(1)
 
     # Every node row's box is a range min / max over leaf ranks (a leaf
     # row covers its own rank).
@@ -102,8 +110,8 @@ def _refit_program(v_base, inst_slot, slot_valid, skip_col, col7_col,
     wv = (wide_rows >= 0).to(torch.float32)[:, :, None]
     nodes4 = torch.cat([
         row_lo[wr] * wv, row_hi[wr] * wv, wide_meta[:, :, None],
-        torch.zeros((r4, WIDE_WIDTH, 9), device=v_base.device)], 2
-    ).reshape(r4, 128)
+        torch.zeros((r4, WIDTH, 9), device=v_base.device)], 2
+    ).reshape(r4, CLUSTER_ROW)
 
     v0 = v[:, 0]
     e1 = v[:, 1] - v0
@@ -112,7 +120,8 @@ def _refit_program(v_base, inst_slot, slot_valid, skip_col, col7_col,
                       1) * slot_valid[:, None]
     return FastScene(nodes8=nodes8, clusters=row16.reshape(-1, CLUSTER_ROW),
                      nodes4=nodes4, num_nodes=num_nodes,
-                     num_triangles=num_tris, num_nodes4=n_wide)
+                     num_triangles=num_tris, num_nodes4=n_wide,
+                     cluster_size=cluster_size, wide_width=WIDTH)
 
 
 @dataclasses.dataclass
@@ -123,6 +132,7 @@ class RefitScene:
     counts: dict             # COUNTS -> host ints
     n_instances: int
     num_triangles: int
+    cluster_size: int        # the leaves' records (the table layout)
     edits: int = 0           # refits served since capture (refresh)
 
     @property
@@ -139,13 +149,16 @@ class RefitScene:
                              f"captured {self.n_instances}")
         self.edits += 1
         return _refit_program(*(self.tables[k] for k in TABLES), params,
-                              *(self.counts[k] for k in COUNTS))
+                              *(self.counts[k] for k in COUNTS),
+                              self.cluster_size)
 
 
 def refit_scene_from_numpy(leaves: dict, device="cuda") -> RefitScene:
-    """A RefitScene from NumPy leaves (TABLES, COUNTS, ``n_instances``;
-    the port's capture or the JAX package's taken with ``np.asarray``),
-    on ``device``. Index tables become int64 (torch's index dtype)."""
+    """A RefitScene from NumPy leaves (TABLES, COUNTS, ``n_instances``
+    and ``cluster_size``; the port's capture, or the JAX package's taken
+    with ``np.asarray``, whose cluster size is ``knobs.layout()``'s when
+    the leaves carry none), on ``device``. Index tables become int64
+    (torch's index dtype)."""
     idx = ("inst_slot", "first", "last", "wide_rows")
     tables = {}
     for k in TABLES:
@@ -153,9 +166,11 @@ def refit_scene_from_numpy(leaves: dict, device="cuda") -> RefitScene:
         tables[k] = torch.from_numpy(
             a.astype(np.int64) if k in idx else a).to(device)
     counts = {k: int(leaves[k]) for k in COUNTS}
+    cs = (int(leaves["cluster_size"]) if "cluster_size" in leaves
+          else knobs.layout()[0])
     return RefitScene(tables=tables, counts=counts,
                       n_instances=int(leaves["n_instances"]),
-                      num_triangles=counts["num_tris"])
+                      num_triangles=counts["num_tris"], cluster_size=cs)
 
 
 def capture_tables(meshes: Sequence[np.ndarray], params,
@@ -167,9 +182,14 @@ def capture_tables(meshes: Sequence[np.ndarray], params,
     (scale3, pos3, color3, mtype) at capture time (tree quality is
     anchored to this pose); method: the host tree, default
     ``RAYTPU_REFIT_TOPO`` ("ploc"; "sah" costs more to capture and walks
-    best). Raises ValueError for an empty scene or one under 2 leaves."""
+    best). Raises ValueError for an empty scene, one under 2 leaves, or
+    the 16-wide layout."""
     if method is None:
         method = knobs.refit_topo()
+    cs, ww = knobs.layout()
+    if ww != WIDTH:
+        raise ValueError(f"RAYTPU_WIDE={ww}: the refit capture emits "
+                         f"{WIDTH}-wide tables only")
     counts = [int(m.shape[0]) for m in meshes]
     n = int(sum(counts))
     if n == 0:
@@ -181,7 +201,7 @@ def capture_tables(meshes: Sequence[np.ndarray], params,
     verts0 = (base * p[tri_inst, 0:3][:, None, :]
               + p[tri_inst, 3:6][:, None, :]).astype(np.float32)
 
-    bvh = build_bvh(verts0, leaf_size=CLUSTER_SIZE, method=method)
+    bvh = build_bvh(verts0, leaf_size=cs, method=method)
     m = bvh.num_nodes
     leaf_mask = bvh.node_tri >= 0
     num_leaves = int(leaf_mask.sum())
@@ -213,13 +233,13 @@ def capture_tables(meshes: Sequence[np.ndarray], params,
 
     # Triangle -> leaf slot (cluster rows in leaf-rank order, the host
     # packers' cid order).
-    slot_tri = np.full(lcap * CLUSTER_SIZE, -1, np.int64)
+    slot_tri = np.full(lcap * cs, -1, np.int64)
     leaf_rows = np.nonzero(leaf_mask)[0]
     starts = bvh.node_tri[leaf_rows].astype(np.int64)
     ntris = bvh.node_ntri[leaf_rows].astype(np.int64)
-    for t in range(CLUSTER_SIZE):
+    for t in range(cs):
         has = ntris > t
-        slot_tri[np.arange(num_leaves) * CLUSTER_SIZE + t] = np.where(
+        slot_tri[np.arange(num_leaves) * cs + t] = np.where(
             has, bvh.order[np.where(has, starts + t, 0)], -1)
     valid = slot_tri >= 0
     safe = np.where(valid, slot_tri, 0)
@@ -235,12 +255,12 @@ def capture_tables(meshes: Sequence[np.ndarray], params,
     nodes4, n4, slot_rows = collapse4(
         nodes8, m, cluster_counts=(bvh.node_ntri[leaf_mask].astype(np.int32)
                                    if knobs.leaf_counts() else None),
-        return_slots=True)
+        cluster_size=cs, width=WIDTH, return_slots=True)
     r4cap = bucket(nodes4.shape[0])
-    wide_rows = np.full((r4cap, WIDE_WIDTH), -1, np.int32)
+    wide_rows = np.full((r4cap, WIDTH), -1, np.int32)
     wide_rows[:n4] = slot_rows
-    wide_meta = np.zeros((r4cap, WIDE_WIDTH), np.float32)
-    wide_meta[:nodes4.shape[0]] = nodes4.reshape(-1, WIDE_WIDTH, 16)[:, :, 6]
+    wide_meta = np.zeros((r4cap, WIDTH), np.float32)
+    wide_meta[:nodes4.shape[0]] = nodes4.reshape(-1, WIDTH, 16)[:, :, 6]
     return dict(
         v_base=(base.reshape(-1, 9)[safe] * valid[:, None]).astype(
             np.float32),
@@ -248,7 +268,7 @@ def capture_tables(meshes: Sequence[np.ndarray], params,
         slot_valid=valid.astype(np.float32), skip_col=skip_col,
         col7_col=col7_col, first=first, last=last, row_valid=row_valid,
         wide_rows=wide_rows, wide_meta=wide_meta, num_nodes=m, n_wide=n4,
-        num_tris=n, n_instances=len(meshes))
+        num_tris=n, n_instances=len(meshes), cluster_size=cs)
 
 
 def capture_refit(meshes: Sequence[np.ndarray], params,

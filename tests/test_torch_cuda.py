@@ -318,7 +318,7 @@ def test_walk_kernels_at_the_stack_limit(scene):
 
     n = 4096
     deep, rays = presets.stack_limit_scene(n, device="cuda")
-    assert nodes4_stack_need(deep.nodes4.cpu().numpy()) == 253
+    assert nodes4_stack_need(deep.nodes4.cpu().numpy(), 8) == 253
     for name in ("trace4", "bounce12"):
         assert cuda_build.kernel_attrs(name)["local_bytes"] >= 4 * 256
     cfg = RenderConfig()
@@ -719,3 +719,159 @@ def test_knob_frame_matches_plain(scene, monkeypatch, knob):
         assert torch.equal(acc_k.view(torch.int32),
                            acc_d.view(torch.int32))
 
+
+
+# The table layouts off the default -> the knobs a scene is built under.
+LAYOUTS = {"c2": {"RAYTPU_CLUSTER": "2"}, "c4": {"RAYTPU_CLUSTER": "4"},
+           "w16": {"RAYTPU_WIDE": "16"},
+           "c2w16": {"RAYTPU_CLUSTER": "2", "RAYTPU_WIDE": "16"},
+           "c4w16": {"RAYTPU_CLUSTER": "4", "RAYTPU_WIDE": "16"}}
+# Every build of kernel B: (wrapper, key, ordered).
+ALL_BUILDS = [(k, key, True) for k in ("bounce12", "bounce15",
+                                        "bounce_packed")
+              for key in ("cid", "pd5", "om9")] + [
+    (k, key, False) for k in ("bounce12", "bounce15")
+    for key in ("cid", "pd5", "om9")]
+
+
+@pytest.fixture(scope="module")
+def layout_scenes(scene):
+    """The ``scene`` fixture's terrain built under each layout's knobs."""
+    from raytracer_tpu_torch.scene.builder import \
+        build_fast_scene_from_arrays
+    from raytracer_tpu_torch.utils import assets
+
+    verts = assets.make_terrain(n=48, extent=30.0)
+    r = np.random.default_rng(5)
+    mats = np.zeros((verts.shape[0], 4), np.float32)
+    mats[:, 0:3] = r.uniform(0.2, 0.9, (verts.shape[0], 3))
+    mats[:, 3] = r.integers(0, 4, verts.shape[0])
+    out = {}
+    for name, env in LAYOUTS.items():
+        with pytest.MonkeyPatch.context() as mp:
+            for k, v in env.items():
+                mp.setenv(k, v)
+            out[name] = build_fast_scene_from_arrays(verts, mats,
+                                                     device="cuda")
+    return out
+
+
+def _equal(got, want) -> bool:
+    as_i = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+    return all(torch.equal(as_i(k), as_i(p)) for k, p in zip(got, want))
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_layout_kernels_match_plain(layout_scenes, layout):
+    """Every kernel of a layout's library against its plain version on a
+    scene of that layout: kernel A, both binary walks and ``mega`` (the
+    cluster size only: their library is the 8-wide one of the same
+    leaves), and all 15 builds of kernel B at bcap 1 and 3: 0 differing
+    bytes, each launch booked under the layout's name."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import bounce, cuda_build, launches
+    from raytracer_tpu_torch.kernels.mega import mega, mega_plain
+    from raytracer_tpu_torch.kernels.trace import (trace2, trace2_plain,
+                                                   trace4, trace4_plain)
+
+    scene = layout_scenes[layout]
+    assert cuda_build.layout_tag(scene.layout) == f"_{layout}"
+    leaf_tag = cuda_build.layout_tag(cuda_build.leaf_layout(scene.layout))
+    cfg = RenderConfig()
+    o, d = _rays(8192, 11)
+    rays = torch.cat([o, d]).contiguous()
+    active = torch.arange(8192, device="cuda") % 7 != 0
+    launches.reset()
+    got = trace4(scene, rays, active, cfg)
+    assert torch.equal(got, trace4_plain(scene, rays, active, cfg))
+    assert (got[0] < cfg.t_max).float().mean() > 0.2
+    for coherent in (False, True):
+        got = trace2(scene, rays, active, cfg, coherent)
+        assert torch.equal(got, trace2_plain(scene, rays, active, cfg))
+    st = _mega_state(4097, 12, False)
+    got = mega(scene, *st[:6], True, cfg, 0, st[6])
+    want = mega_plain(scene, *st[:6], True, cfg, 0, st[6])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert dict(launches.kernel) == {
+        f"trace4_{layout}": 1, f"trace2{leaf_tag}": 1,
+        f"trace2_warp{leaf_tag}": 1, f"mega{leaf_tag}": 1}
+    for kernel, key_mode, ordered in ALL_BUILDS:
+        state = _round_state(8192, 30, kernel != "bounce12")
+        name = bounce.build_name(kernel, key_mode, ordered, scene.layout)
+        for bcap in (1, 3):
+            launches.reset()
+            if kernel == "bounce_packed":
+                sf = torch.cat([state[0:12].view(torch.float32),
+                                (state[-3] != 0).to(torch.float32)[None]])
+                si = state[[-4, -1]].contiguous()
+                got = bounce.bounce_packed(scene, sf, si, bcap, True, cfg,
+                                           key_mode)
+                want = bounce.bounce_packed_plain(scene, sf, si, bcap, True,
+                                                  cfg, key_mode)
+            else:
+                got = getattr(bounce, kernel)(scene, state, bcap, True, cfg,
+                                              key_mode, ordered)
+                want = getattr(bounce, f"{kernel}_plain")(
+                    scene, state, bcap, True, cfg, key_mode, ordered)
+            assert dict(launches.kernel) == {name: 1}
+            assert _equal(got, want), (name, bcap)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_layout_frame_matches_plain(layout_scenes, monkeypatch, layout):
+    """A 256x192 frame (three bands, the tail merge live) of a layout's
+    scene through its kernels and through the plain versions: 0
+    differing bytes."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+
+    scene = layout_scenes[layout]
+    cfg = RenderConfig(width=256, height=192, band_rays=16384)
+    uni = default_camera(cfg.width, cfg.height).uniforms()
+    launches.reset()
+    acc_k, img_k, _ = Renderer(cfg).render(scene, uni)
+    assert set(launches.kernel) == {f"trace4_{layout}", f"bounce12_{layout}",
+                                    "tonemap"}
+    assert not launches.plain
+    with monkeypatch.context() as mp:
+        _plain_versions(mp)
+        acc_p, img_p, _ = Renderer(cfg).render(scene, uni)
+    assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
+    assert torch.equal(img_k, img_p)
+
+
+def test_walk_kernels_at_the_16_wide_stack_limit(scene):
+    """The 16-wide tree whose walk needs all 256 stack slots (it pushes
+    241): kernels A and B of the width-16 library stay bit-equal to their
+    plain versions and find the 8-wide tree's hits."""
+    from raytracer_tpu_torch.bvh.bvh4 import nodes4_stack_need
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import cuda_build
+    from raytracer_tpu_torch.kernels.bounce import (bounce12,
+                                                    bounce12_plain,
+                                                    pack_state)
+    from raytracer_tpu_torch.kernels.trace import trace4, trace4_plain
+    from raytracer_tpu_torch.scene import presets
+
+    n = 4096
+    deep, rays = presets.stack_limit_scene(n, device="cuda", width=16)
+    assert nodes4_stack_need(deep.nodes4.cpu().numpy(), 16) == 256
+    for name in ("trace4", "bounce12"):
+        assert cuda_build.kernel_attrs(name, (8, 16))["local_bytes"] >= \
+            4 * 256
+    cfg = RenderConfig()
+    active = torch.arange(n, device="cuda") % 5 != 0
+    got = trace4(deep, rays, active, cfg)
+    assert torch.equal(got, trace4_plain(deep, rays, active, cfg))
+    deep8, _ = presets.stack_limit_scene(n, device="cuda")
+    assert torch.equal(got, trace4(deep8, rays, active, cfg))
+    g = torch.Generator(device="cuda").manual_seed(21)
+    seed = torch.randint(0, 2 ** 32, (n,), generator=g, device="cuda")
+    state = pack_state(tuple(rays[0:3]), tuple(rays[3:6]),
+                       (torch.ones(n, device="cuda"),) * 3, seed, active, 3,
+                       torch.arange(n, device="cuda"))
+    for bcap in (1, 2):
+        assert _equal(bounce12(deep, state, bcap, True, cfg),
+                      bounce12_plain(deep, state, bcap, True, cfg))

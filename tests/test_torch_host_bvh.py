@@ -27,10 +27,12 @@ from torch_jax_refs import assert_scene_tables, run_jobs
 
 from raytracer_tpu_torch import knobs, native_bridge
 from raytracer_tpu_torch.bvh.build import HostBVH, build_bvh
-from raytracer_tpu_torch.core.fast_types import CLUSTER_SIZE, WIDE_WIDTH
+from raytracer_tpu_torch.core.fast_types import DEFAULT_LAYOUT
 from raytracer_tpu_torch.scene.builder import build_fast_scene_from_arrays
 from raytracer_tpu_torch.scene.objloader import load_obj
 from raytracer_tpu_torch.utils import assets
+
+CLUSTER_SIZE, WIDE_WIDTH = DEFAULT_LAYOUT
 
 torch.set_num_threads(2)
 

@@ -1,15 +1,13 @@
-"""Every result-bearing knob of the JAX package that selects a variant
-the port has not ported (``knobs.FIXED``: the table layout) is read where
-the JAX package reads it: a non-default value raises
-``NotImplementedError`` naming the knob, and the knob set to its JAX
-default runs as before. The knobs the port has ported since (``PORTED``:
-the XLA path's and host builds' knobs, and the sorted rounds' A/B knobs)
-run their JAX A/B value instead.
+"""Every result-bearing knob of the JAX package runs its JAX A/B value
+in the port (``PORTED``: the XLA path's and host builds' knobs, the
+sorted rounds' A/B knobs and the table layout); ``knobs.FIXED``, the
+knobs the port would refuse off their default, is empty.
 
 Each knob is exercised through the entry point that reads it: a tiny
 frame (16x8, three bounces, one band: bounce 0, the sorted rounds, the
 tail-merge decision), the same frame on the ``fused_packed`` engine or
-the pmega path, a scene build, or an .obj load."""
+the pmega path, a scene build, or an .obj load; the layout knobs also
+through the device builders, as the JAX package takes them."""
 
 import numpy as np
 import pytest
@@ -21,7 +19,9 @@ from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.engine.renderer import Renderer
 from raytracer_tpu_torch.kernels import launches, wavefront
 from raytracer_tpu_torch.scene.builder import build_fast_scene_from_arrays
+from raytracer_tpu_torch.scene.device_builder import DeviceSceneBuilder
 from raytracer_tpu_torch.scene.objloader import load_obj
+from raytracer_tpu_torch.scene.scene import ModelInstance
 from raytracer_tpu_torch.utils import assets
 
 torch.set_num_threads(2)
@@ -54,10 +54,6 @@ def _frame(scene, env=None):
     return run
 
 
-def _build(mp):
-    build_fast_scene_from_arrays(*_arrays(), device="cpu")
-
-
 def _load(tmp_path):
     path = tmp_path / "cube.obj"
     assets.write_obj(str(path), assets.make_cube())
@@ -67,15 +63,13 @@ def _load(tmp_path):
     return run
 
 
-ENTRY = {"RAYTPU_CLUSTER": "build", "RAYTPU_WIDE": "build"}
-# Values the JAX package accepts for each knob (each selects another path
-# there).
-OTHER = {"RAYTPU_CLUSTER": "4", "RAYTPU_WIDE": "16"}
 # The knobs the port has taken out of FIXED, each with the value the JAX
 # package's A/B path takes (``test_ported_knob_runs_its_jax_value``).
 PORTED = {"RAYTPU_COMPACT_FLOOR": "512", "RAYTPU_COMPACT_RATIO": "4",
           "RAYTPU_BVH": "median", "RAYTPU_NATIVE": "0",
           "RAYTPU_LEAF_COUNTS": "0",
+          # The table layout: the scene keeps the layout it was built in.
+          "RAYTPU_CLUSTER": "4", "RAYTPU_WIDE": "16",
           # The sorted rounds' knobs (the frame's kernels walk and shade
           # every ray as before, so the frame keeps its bytes).
           "RAYTPU_TAIL_MERGE": "0", "RAYTPU_SORT_KEY": "om9",
@@ -103,21 +97,10 @@ ROUND_KNOBS = {
 
 
 def test_every_fixed_knob_has_a_case():
-    assert set(ENTRY) == set(knobs.FIXED) == set(OTHER)
-    assert not set(PORTED) & set(knobs.FIXED)
-
-
-@pytest.mark.parametrize("knob", list(knobs.FIXED))
-def test_fixed_knob_raises_off_its_default(knob, scene, tmp_path,
-                                           monkeypatch):
-    entry = {"frame": _frame(scene),
-             "packed": _frame(scene, {"RAYTPU_WAVE": "fused_packed"}),
-             "build": _build, "load": _load(tmp_path)}[ENTRY[knob]]
-    monkeypatch.setenv(knob, knobs.FIXED[knob])
-    entry(monkeypatch)
-    monkeypatch.setenv(knob, OTHER[knob])
-    with pytest.raises(NotImplementedError, match=knob):
-        entry(monkeypatch)
+    """No knob is left in FIXED: the layout knobs, its last two, run
+    their JAX values (``PORTED``)."""
+    assert knobs.FIXED == {}
+    assert {"RAYTPU_CLUSTER", "RAYTPU_WIDE"} <= set(PORTED)
 
 
 def _accum(scene, env):
@@ -140,8 +123,10 @@ def test_ported_knob_runs_its_jax_value(knob, scene, tmp_path,
     the compaction knobs on the ``RAYTPU_BOUNCE=mega`` frame (another
     level schedule, the same bytes), the host-build knobs on a scene built
     under them (another tree renders the default frame except on bounce-0
-    tie pixels; full leaf counts the same bytes), the sorted rounds' knobs
-    on the frame through the build they select (the same bytes).
+    tie pixels; full leaf counts the same bytes; a scene built in another
+    layout keeps it, renders with the knob unset and walks the same
+    binary tree at width 16), the sorted rounds' knobs on the frame
+    through the build they select (the same bytes).
     ``RAYTPU_NATIVE=0`` also parses an .obj in Python, as the native
     parser does."""
     from test_torch_renderer import _bounce0_tie_pixels
@@ -163,10 +148,27 @@ def test_ported_knob_runs_its_jax_value(knob, scene, tmp_path,
     built = build_fast_scene_from_arrays(*_arrays(), device="cpu")
     monkeypatch.delenv(knob)
     got, cfg, uni = _accum(built, {})
+    got_plain = dict(launches.plain)
     want = _accum(scene, {})[0]
     if knob == "RAYTPU_LEAF_COUNTS":
         assert not torch.equal(built.nodes4, scene.nodes4)
         assert got.tobytes() == want.tobytes()
+    elif knob in ("RAYTPU_CLUSTER", "RAYTPU_WIDE"):
+        layout = {"RAYTPU_CLUSTER": (4, 8), "RAYTPU_WIDE": (8, 16)}[knob]
+        assert built.layout == layout != scene.layout
+        tag = "c4" if layout[0] == 4 else "w16"
+        assert got_plain[f"trace4_{tag}"] and got_plain[f"bounce12_{tag}"]
+        if knob == "RAYTPU_WIDE":
+            # The same binary tree; its one wide node is 16 slots wide
+            # (the 3 leaves in its first row).
+            assert torch.equal(built.nodes8.view(torch.int32),
+                               scene.nodes8.view(torch.int32))
+            assert built.node_rows.shape[1] == 256
+        else:
+            assert not torch.equal(built.nodes8, scene.nodes8)
+        ties = _bounce0_tie_pixels(scene, cfg, uni)
+        differ = (got != want).any(-1)
+        assert not (differ & ~ties).any()
     else:
         assert not torch.equal(built.nodes8, scene.nodes8)
         ties = _bounce0_tie_pixels(scene, cfg, uni)
@@ -239,3 +241,41 @@ def test_tile_shape_knobs_do_not_apply(knob, scene, monkeypatch):
     monkeypatch.setenv(knob, "7")
     _frame(scene)(monkeypatch)
     assert knob in knobs.__doc__
+
+
+def _two_cubes(tmp_path):
+    path = str(tmp_path / "cube.obj")
+    assets.write_obj(path, assets.make_cube())
+    return [ModelInstance(path, "a", position=(0, -2, 0), scale=(4, 4, 4)),
+            ModelInstance(path, "b", position=(6, 0, 2), scale=(2, 2, 2))]
+
+
+@pytest.mark.parametrize("knob,value", [("RAYTPU_CLUSTER", "4"),
+                                        ("RAYTPU_WIDE", "16")])
+def test_device_ploc_refuses_other_layouts(knob, value, tmp_path,
+                                           monkeypatch):
+    """The device PLOC tree builds the default layout only (the JAX build
+    asserts it): under another it raises, naming the knob, through the
+    device builder's fallbacks."""
+    monkeypatch.setenv("RAYTPU_DEVICE_BUILD", "lbvh")
+    monkeypatch.setenv("RAYTPU_DEVICE_TREE", "ploc")
+    monkeypatch.setenv(knob, value)
+    with pytest.raises(NotImplementedError, match=knob):
+        DeviceSceneBuilder("cpu").build(_two_cubes(tmp_path))
+
+
+def test_wide16_refit_falls_back_to_the_lbvh(tmp_path, monkeypatch):
+    """At ``RAYTPU_WIDE=16`` the refit capture refuses (8-wide only), so
+    ``DeviceSceneBuilder`` in ``refit`` mode builds the LBVH, which has no
+    wide table at that width, as the JAX package ends; ``instanced``
+    builds its 16-wide TLAS."""
+    monkeypatch.setenv("RAYTPU_WIDE", "16")
+    monkeypatch.setenv("RAYTPU_DEVICE_BUILD", "refit")
+    b = DeviceSceneBuilder("cpu")
+    scene = b.build(_two_cubes(tmp_path))
+    assert b.last_mode == "lbvh" and scene.nodes4 is None
+    assert scene.layout == (8, 16) and scene.num_nodes4 is None
+    monkeypatch.setenv("RAYTPU_DEVICE_BUILD", "instanced")
+    scene = b.build(_two_cubes(tmp_path))
+    assert b.last_mode == "instanced" and scene.layout == (8, 16)
+    assert scene.nodes4.shape[0] == 2 * 64  # bucket(1 + 2 BLAS nodes)

@@ -106,7 +106,8 @@ def test_emit_wide_device_matches_jax(ref):
                            for k in ("left", "right", "parent"))
     table, n_wide, depth = lbvh.emit_wide_device(
         left, right, parent, torch.from_numpy(inp["all_lo"]),
-        torch.from_numpy(inp["all_hi"]), len(inp["codes_random"]))
+        torch.from_numpy(inp["all_hi"]), len(inp["codes_random"]),
+        cluster_size=8)
     assert table.numpy().tobytes() == out["wide_table"].tobytes()
     assert int(n_wide) == int(out["wide_n"])
     assert int(depth[0]) == 0 and int(depth.max()) < 128
@@ -133,6 +134,6 @@ def test_device_tables_need_a_row_multiple():
     verts, mats = _soup()
     with pytest.raises(ValueError, match="cluster-row"):
         lbvh.device_tables(torch.from_numpy(verts[:9]),
-                           torch.from_numpy(mats[:9]))
+                           torch.from_numpy(mats[:9]), 8)
     v, m = lbvh.pad_to_cluster_multiple(verts[:9], mats[:9])
     assert v.shape[0] == 16 and not v[9:].any() and not m[9:].any()

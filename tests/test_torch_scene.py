@@ -111,13 +111,13 @@ def test_cluster_counts_are_the_builders_leaf_sizes(make):
     order), 0 on padding rows and on the empty scene's all-zero row; a
     scene made from the JAX package's leaves derives the same counts."""
     from raytracer_tpu_torch.bvh.build import build_bvh
-    from raytracer_tpu_torch.core.fast_types import CLUSTER_SIZE
+    from raytracer_tpu_torch.core.fast_types import DEFAULT_LAYOUT
 
     verts, mats = make()
     fs = build_fast_scene_from_arrays(verts, mats, device="cpu")
     want = np.zeros(fs.clusters.shape[0], np.int32)
     if verts.shape[0]:
-        bvh = build_bvh(verts, leaf_size=CLUSTER_SIZE)
+        bvh = build_bvh(verts, leaf_size=DEFAULT_LAYOUT[0])
         ntri = bvh.node_ntri[bvh.node_tri >= 0]
         want[:ntri.size] = ntri
         assert want.sum() == verts.shape[0]

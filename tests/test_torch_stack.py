@@ -2,19 +2,21 @@
 
 Kernels A and B give each thread ``STACK_CAP`` (256) stack slots in local
 memory, so every table they walk must need no more: the need is
-``7 * (max depth + 1) + 1`` for the wide tree, ``collapse4`` refuses the
-trees it would build deeper and ``fast_scene_from_numpy`` the tables it
-is handed, and the plain walk (``trace.walk_plain``, which reports its
-deepest stack as ``launches.work["stack4_max"]``) never goes past the
-need, on random rays and on a hand-built tree deep enough to come within
-7 slots of it. No JAX: the tables are the port's own.
+``(W - 1) * (max depth + 1) + 1`` for a W-wide tree (7 a level at width
+8, 15 at width 16), ``collapse4`` refuses the trees it would build deeper
+and ``fast_scene_from_numpy`` the tables it is handed, and the plain walk
+(``trace.walk_plain``, which reports its deepest stack as
+``launches.work["stack4_max"]``) never goes past the need, on random rays
+and on hand-built trees deep enough to come within 7 slots of it (width
+8) or to need all 256 (width 16). No JAX: the tables are the port's own.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu_torch.bvh.bvh4 import STACK_CAP, nodes4_stack_need
+from raytracer_tpu_torch.bvh.bvh4 import (STACK_CAP, collapse4,
+                                          nodes4_stack_need)
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.kernels import launches
 from raytracer_tpu_torch.kernels.bounce import bounce12, pack_state
@@ -79,7 +81,7 @@ def _random_rays(scene, n, seed):
                          ids=["terrain32", "cube_plane"])
 def test_need_is_seven_per_level_and_both_builders_agree(make):
     scene = build_fast_scene_from_arrays(*make(), device="cpu")
-    need = nodes4_stack_need(scene.nodes4.numpy())
+    need = nodes4_stack_need(scene.nodes4.numpy(), 8)
     assert need == 7 * (_max_depth(scene.nodes4) + 1) + 1 <= STACK_CAP
     again = fast_scene_from_numpy(_leaves(scene), device="cpu")
     for name in ("nodes8", "clusters", "nodes4"):
@@ -91,7 +93,7 @@ def test_empty_scene_needs_one_level():
     scene = build_fast_scene_from_arrays(np.zeros((0, 3, 3), np.float32),
                                          np.zeros((0, 4), np.float32),
                                          device="cpu")
-    assert nodes4_stack_need(scene.nodes4.numpy()) == 8
+    assert nodes4_stack_need(scene.nodes4.numpy(), 8) == 8
 
 
 def test_walk_stays_inside_the_need_on_random_rays():
@@ -102,7 +104,7 @@ def test_walk_stays_inside_the_need_on_random_rays():
                  RenderConfig())
     deepest = launches.work["stack4_max"]
     assert (out[0] < RenderConfig().t_max).float().mean() > 0.2
-    assert 1 <= deepest <= nodes4_stack_need(scene.nodes4.numpy())
+    assert 1 <= deepest <= nodes4_stack_need(scene.nodes4.numpy(), 8)
 
 
 def test_deep_tree_reaches_close_to_its_need():
@@ -110,7 +112,7 @@ def test_deep_tree_reaches_close_to_its_need():
     slots (the deepest level pushes no internal child)."""
     scene, rays = presets.stack_limit_scene(64, device="cpu")
     assert _max_depth(scene.nodes4) == 35
-    assert nodes4_stack_need(scene.nodes4.numpy()) == 253 <= STACK_CAP
+    assert nodes4_stack_need(scene.nodes4.numpy(), 8) == 253 <= STACK_CAP
     cfg = RenderConfig()
     launches.reset()
     out = trace4(scene, rays, torch.ones(64, dtype=torch.bool), cfg)
@@ -158,14 +160,88 @@ def test_tables_deeper_than_the_stack_are_refused():
     leaves = _leaves(scene)
     fast_scene_from_numpy(leaves, device="cpu")
     n4 = leaves["nodes4"]
-    deepest = presets.CHAIN_LEVELS - 1     # the chain's rows come first
+    deepest = presets.CHAIN_LEVELS[8] - 1  # the chain's rows come first
     extra = np.zeros((1, n4.shape[1]), np.float32)
     extra[0, 0:7] = n4[deepest, 0:7]       # its first leaf child
     n4 = np.concatenate([n4, extra])
     n4[deepest, 32:38] = n4[deepest, 0:6]
     n4[deepest, 38] = n4.shape[0]          # internal child: the new row
-    assert nodes4_stack_need(n4) == 260
+    assert nodes4_stack_need(n4, 8) == 260
     for table in (n4, np.where(np.arange(n4.shape[1]) == 38, 1.0, n4)):
         with pytest.raises(ValueError, match="stack slots"):
             fast_scene_from_numpy(dict(leaves, nodes4=table, num_nodes4=
                                        table.shape[0]), device="cpu")
+
+
+def _caterpillar(levels: int) -> np.ndarray:
+    """Binary nodes8 of a caterpillar: ``levels`` internal nodes, each
+    with a leaf left child and the next internal node (the last: a leaf)
+    right, in pre-order with skip links."""
+    m = 2 * levels + 1
+    nodes8 = np.zeros((m, 8), np.float32)
+    nodes8[:, 0:3], nodes8[:, 3:6] = -1.0, 1.0
+    skip = np.full(m, m, np.int32)
+    col7 = np.zeros(m, np.int32)
+    for k in range(levels):
+        col7[2 * k] = -(2 * k + 1) - 1           # left child: the next row
+        skip[2 * k + 1] = 2 * k + 2              # the leaf skips right
+        col7[2 * k + 1] = k
+    col7[m - 1] = levels
+    nodes8[:, 6] = skip.view(np.float32)
+    nodes8[:, 7] = col7.view(np.float32)
+    return nodes8
+
+
+@pytest.mark.parametrize("width,levels,need", [(8, 7 * 36, 253),
+                                               (16, 15 * 17, 256)],
+                         ids=["w8", "w16"])
+def test_collapse_refuses_past_the_stack_at_each_width(width, levels, need):
+    """A caterpillar whose W-wide collapse takes W - 1 binary levels a
+    wide node: at the deepest tree that fits, the need is 253 (width 8)
+    or exactly 256 (width 16) and the table is built; one wide level more
+    is refused."""
+    nodes8 = _caterpillar(levels)
+    table, n4, depth = collapse4(nodes8, nodes8.shape[0], None,
+                                 cluster_size=8, width=width,
+                                 return_depth=True)
+    assert table.shape == (n4 * width // 8, 128)
+    assert nodes4_stack_need(table, width) == need <= STACK_CAP
+    deeper = _caterpillar(levels + width - 1)
+    with pytest.raises(ValueError, match="STACK_CAP"):
+        collapse4(deeper, deeper.shape[0], None, cluster_size=8,
+                  width=width)
+
+
+def test_16_wide_deep_tree_needs_the_whole_stack():
+    """The width-16 stack-limit tree: 17 chain levels of 16 children need
+    all 256 slots; the walk reaches 15 * 15 + 16 = 241 and finds the same
+    winner as the 8-wide tree; ``fast_scene_from_numpy`` takes the table
+    at width 16 and refuses it one level deeper (271 slots)."""
+    scene, rays = presets.stack_limit_scene(64, device="cpu", width=16)
+    assert scene.layout == (8, 16) and scene.nodes4.shape[1] == 128
+    assert nodes4_stack_need(scene.nodes4.numpy(), 16) == 256
+    cfg = RenderConfig()
+    launches.reset()
+    out = trace4(scene, rays, torch.ones(64, dtype=torch.bool), cfg)
+    assert launches.work["stack4_max"] == 241
+    assert launches.work["nets16"] == 56 * 16 and "nets4" not in \
+        launches.work
+    want = trace4(*presets.stack_limit_scene(64, device="cpu")[:1], rays,
+                  torch.ones(64, dtype=torch.bool), cfg)
+    assert torch.equal(out, want)
+
+    leaves = _leaves(scene)
+    fast_scene_from_numpy(leaves, device="cpu", layout=(8, 16))
+    n4 = leaves["nodes4"].reshape(-1, 256)
+    deepest = presets.CHAIN_LEVELS[16] - 1
+    extra = np.zeros((1, 256), np.float32)
+    extra[0, 0:7] = n4[deepest, 0:7]
+    n4 = np.concatenate([n4, extra])
+    n4[deepest, 32:38] = n4[deepest, 0:6]
+    n4[deepest, 38] = n4.shape[0]
+    n4 = n4.reshape(-1, 128)
+    assert nodes4_stack_need(n4, 16) == 271
+    with pytest.raises(ValueError, match="stack slots"):
+        fast_scene_from_numpy(dict(leaves, nodes4=n4,
+                                   num_nodes4=n4.shape[0] // 2),
+                              device="cpu", layout=(8, 16))
