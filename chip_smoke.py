@@ -94,10 +94,13 @@ Phases, one or more lines each (any failure raises and exits non-zero):
     64x32);
 
 18. the XLA render path: the ``mega`` kernel against the plain
-    megakernel (width levels and all) on the middle 720p band from bounce
-    0 (``RAYTPU_B0=mega``'s raster primaries) and from bounce 1
-    (``RAYTPU_BOUNCE=mega``'s state after kernel A), 0 differing colour
-    bytes, with its device time, plain time, bound and lane occupancy;
+    megakernel (width levels and all) on each 720p band (top, middle,
+    bottom) from bounce 0 (``RAYTPU_B0=mega``'s raster primaries) and
+    from bounce 1 (``RAYTPU_BOUNCE=mega``'s state after kernel A), 0
+    differing colour bytes, with its device time, plain time, bound, the
+    walk-level lane occupancy of one ray a thread and its counting
+    build's visit and leaf SIMD efficiency under the kernel's schedule
+    and under one ray a thread;
     ``RAYTPU_BOUNCE=mega``, ``RAYTPU_B0=mega``, ``RAYTPU_B0=packet`` and
     ``RAYTPU_B0=pwave`` at 1280x720, 10 bounces, in turns with the
     default (default, each path, each again in reverse, default; 4
@@ -212,25 +215,30 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
 def device_ms(fn, reps: int, match: str, cold: bool = False) -> float:
     """Mean device time of a kernel named ``*match*`` (fn() launches one),
     from the profiler's kernel durations over reps calls (after one
-    warm-up call; the profiler may drop a few events). ``cold``: a 256 MB
-    memset before each call evicts the 50 MB L2, so the call reads its
-    inputs from device memory."""
+    warm-up call; the profiler may drop a few events, and now and then a
+    whole window's: up to three windows are profiled until one holds at
+    least half the kernels). ``cold``: a 256 MB memset before each call
+    evicts the 50 MB L2, so the call reads its inputs from device
+    memory."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = (torch.empty(64 << 20, dtype=torch.int32, device="cuda")
              if cold else None)
     fn()
     _sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if cold:
-                flush.zero_()
-            fn()
-        _sync()
-    durs = [e.time_range.end - e.time_range.start for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and match in e.name]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush.zero_()
+                fn()
+            _sync()
+        durs = [e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and match in e.name]
+        if len(durs) >= reps // 2:
+            break
     assert reps // 2 <= len(durs) <= reps, (
         f"profiler saw {len(durs)} {match} kernels in {reps} calls")
     return sum(durs) / len(durs) / 1e3
@@ -1703,9 +1711,10 @@ XLA_PATHS = {
 }
 
 
-def band_raster(scene, cfg, cam):
-    """The middle band's primaries as ``RAYTPU_B0=mega`` makes them (raster
-    order, no pad): (ray_o, ray_d, color, atten, seed, alive, pix)."""
+def band_raster(scene, cfg, cam, band=None):
+    """Band ``band``'s primaries (default the middle one) as
+    ``RAYTPU_B0=mega`` makes them (raster order, no pad): (ray_o, ray_d,
+    color, atten, seed, alive, pix)."""
     import dataclasses
 
     from raytracer_tpu_torch.engine.renderer import _num_bands
@@ -1717,7 +1726,8 @@ def band_raster(scene, cfg, cam):
     bcfg = dataclasses.replace(cfg, height=band_h)
     p = band_h * cfg.width
     i = torch.arange(p, device="cuda")
-    xx, yy = i % cfg.width, i // cfg.width + nb // 2 * band_h
+    xx = i % cfg.width
+    yy = i // cfg.width + (nb // 2 if band is None else band) * band_h
     seed = initial_seed(cam, bcfg, yy * cfg.width + xx, 0)
     seed, ray_o, ray_d = make_primary_rays(cam, bcfg, seed, xx, yy,
                                            cfg.height)
@@ -1738,53 +1748,101 @@ def walk_occupancy(walks: torch.Tensor, warp: int = 32) -> dict:
                 max_walks=int(walks.max()))
 
 
+def mega_profile(args, got, rays) -> dict:
+    """The mega kernel's counting build on one call (colours and rays
+    traced checked equal to the kernel's ``got`` and ``rays``), under the
+    kernel's schedule (``kernel``) and under one ray a thread walking a
+    whole bounce at a time (``one_ray_a_thread``): the SIMD efficiency of
+    the walk's visit loop (active lanes / (32 x warp trips)) and of its
+    leaf tests, their trips, the launch's blocks, its span from the first
+    block's start to the last block's end and the share of it after the
+    first block ended (the drain)."""
+    from raytracer_tpu_torch.kernels.mega import mega_count
+
+    out = {}
+    for label, schedule in (("kernel", 1), ("one_ray_a_thread", 0)):
+        c, r, tallies, times = mega_count(*args, schedule=schedule)
+        assert torch.equal(c.view(torch.int32), got.view(torch.int32)) \
+            and int(r) == int(rays), "counting build differs from the kernel"
+        vt, vl, lt, ll = (int(x) for x in tallies)
+        t = times.double()
+        span = float(t[:, 1].max() - t[:, 0].min())
+        out[label] = dict(visit_efficiency=vl / (32 * max(vt, 1)),
+                          leaf_efficiency=ll / (32 * max(lt, 1)),
+                          visit_trips=vt, leaf_trips=lt,
+                          blocks=int(t.shape[0]), span_ms=span / 1e6,
+                          drain_share=float(t[:, 1].max() - t[:, 1].min())
+                          / max(span, 1.0))
+    return out
+
+
 def check_mega(scene, cfg, cam, results):
     """The mega kernel against the plain megakernel (its width levels and
-    all) on the middle 720p band, from bounce 0 (the ``RAYTPU_B0=mega``
-    state: raster primaries) and from bounce 1 (the ``RAYTPU_BOUNCE=mega``
-    state: tile-major, after kernel A and the shade, pads dropped): 0
-    differing colour bytes, rays traced equal; the kernel's device time,
-    a call's time, the plain version's, the bound and the lane
-    occupancy."""
+    all) on each 720p band (top, middle, bottom), from bounce 0 (the
+    ``RAYTPU_B0=mega`` state: raster primaries) and from bounce 1 (the
+    ``RAYTPU_BOUNCE=mega`` state: tile-major, after kernel A and the
+    shade, pads dropped): 0 differing colour bytes, rays traced equal; the
+    kernel's device time, a call's time, the plain version's, the bound,
+    the lane occupancy of one ray a thread at walk level and the visit
+    and leaf SIMD efficiency of its counting build under both schedules
+    (``mega_profile``)."""
     from raytracer_tpu_torch.engine.renderer import _num_bands
     from raytracer_tpu_torch.kernels.mega import mega
     from raytracer_tpu_torch.kernels.packet import megakernel_bounces
 
-    n_out = cfg.height // _num_bands(cfg) * cfg.width
+    nb = _num_bands(cfg)
+    n_out = cfg.height // nb * cfg.width
     tables = nbytes(scene.nodes8, scene.clusters, scene.cluster_counts)
     rows = {}
-    for start, state in ((0, band_raster(scene, cfg, cam)),
-                         (1, band_bounce1(scene, cfg, cam))):
-        o, d, c, a, seed, alive, pix = state
-        args = (scene, o, d, c, a, seed, alive, True, cfg, start, pix,
-                n_out)
-        got, rays = mega(*args)
-        (want, want_rays, walks), work = plain_work(
-            lambda: megakernel_bounces(*args, walks=True))
-        n_diff = int((got.view(torch.int32) != want.view(torch.int32))
-                     .any(0).sum())
-        err = (got - want).abs().max().item()
-        ms = device_ms(lambda: mega(*args), 10, "mega_kernel")
-        call_ms = time_ms(lambda: mega(*args), 10)
-        plain_ms = time_ms(lambda: megakernel_bounces(*args), 1, warm=False)
-        lanes = walk_occupancy(walks)
-        p = alive.shape[0]
-        # The ray state in (12 floats, seed, alive, pixel id), the colours
-        # out, the tables once.
-        b = bound(p * (12 * 4 + 4 + 1 + 4) + 3 * 4 * n_out + tables, work)
-        print(f"check mega from bounce {start}, {p} rays: differing pixels "
-              f"{n_diff}, rays traced {int(rays)} vs {int(want_rays)}; "
-              f"kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a call, "
-              f"plain {plain_ms:.2f} ms; bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}); walks a ray {lanes['mean_walks']:.4f} "
-              f"(max {lanes['max_walks']}), lane occupancy of one ray per "
-              f"thread {lanes['occupancy']:.4f}; work {work}")
-        assert n_diff == 0 and err == 0.0 and int(rays) == int(want_rays)
-        rows[start] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
-                           plain_ms=plain_ms, rays=int(rays), **lanes, **b)
-    # The bounce-0 call (RAYTPU_B0=mega: the whole band in one launch) is
-    # the kernel's row; the bounce-1 call rides beside it.
-    results["mega"] = dict(rows[0], from_bounce1=rows[1])
+    for band, bname in ((nb // 2, "middle"), (0, "top"), (nb - 1, "bottom")):
+        for start, state in ((0, band_raster(scene, cfg, cam, band)),
+                             (1, band_bounce1(scene, cfg, cam, band))):
+            o, d, c, a, seed, alive, pix = state
+            args = (scene, o, d, c, a, seed, alive, True, cfg, start, pix,
+                    n_out)
+            got, rays = mega(*args)
+            # One plain call (seconds), compared and timed.
+            res = []
+            plain_ms = time_ms(lambda: res.append(plain_work(
+                lambda: megakernel_bounces(*args, walks=True))), 1,
+                warm=False)
+            (want, want_rays, walks), work = res[0]
+            n_diff = int((got.view(torch.int32) != want.view(torch.int32))
+                         .any(0).sum())
+            err = (got - want).abs().max().item()
+            ms = device_ms(lambda: mega(*args), 10, "mega_kernel")
+            call_ms = time_ms(lambda: mega(*args), 10)
+            lanes = walk_occupancy(walks)
+            prof = mega_profile(args, got, rays)
+            p = alive.shape[0]
+            # The ray state in (12 floats, seed, alive, pixel id), the
+            # colours out, the tables once.
+            b = bound(p * (12 * 4 + 4 + 1 + 4) + 3 * 4 * n_out + tables,
+                      work)
+            print(f"check mega, {bname} band from bounce {start}, {p} rays:"
+                  f" differing pixels {n_diff}, rays traced {int(rays)} vs "
+                  f"{int(want_rays)}; kernel {ms:.4f} ms on the device, "
+                  f"{call_ms:.4f} ms a call, plain {plain_ms:.2f} ms; bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); walks a ray "
+                  f"{lanes['mean_walks']:.4f} (max {lanes['max_walks']}), "
+                  f"walk-level lane occupancy of one ray a thread "
+                  f"{lanes['occupancy']:.4f}; visit / leaf SIMD efficiency "
+                  + "; ".join(f"{k} {v['visit_efficiency']:.4f} / "
+                              f"{v['leaf_efficiency']:.4f} ({v['visit_trips']}"
+                              f" visit trips, {v['blocks']} blocks, drain "
+                              f"{v['drain_share']:.3f})"
+                              for k, v in prof.items())
+                  + f"; work {work}")
+            assert n_diff == 0 and err == 0.0 and int(rays) == int(want_rays)
+            rows[bname, start] = dict(
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                rays=int(rays), **lanes, lanes=prof, **b)
+    # The middle band's bounce-0 call (RAYTPU_B0=mega: the whole band in
+    # one launch) is the kernel's row; the other calls ride beside it.
+    results["mega"] = dict(rows["middle", 0], from_bounce1=rows["middle", 1],
+                           bands={f"{bname}_b{start}": row
+                                  for (bname, start), row in rows.items()
+                                  if bname != "middle"})
 
 
 def frame_launches(scene, cfg, cam, env) -> int:

@@ -433,45 +433,12 @@ __global__ void __launch_bounds__(kThreads)
   add_counts(counts, s.rays, live);
 }
 
+using rt::count_out;
+using rt::CountOut;
+using rt::globaltimer;
+
 // Packed state: sf f32[13, w], si i32[si_rows, w] (seed, then rows passed
 // through); the budget is the constant 1 << 30.
-// What a counting build (rt_bounce_packed_count) writes: the walk's
-// tallies summed over warps, u64[4] = visit trips, visit lanes, leaf
-// trips, leaf lanes; and each block's first and last %globaltimer
-// reading (ns), u64[2 * blocks].
-struct CountOut {
-  unsigned long long* tallies;
-  unsigned long long* times;
-};
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Every thread of the block reaches this.
-template <class C>
-__device__ __forceinline__ void count_out(const C& count, const CountOut& co,
-                                          unsigned long long t0) {
-  if constexpr (C::kOn) {
-    const unsigned v[4] = {count.visit_trips, count.visit_lanes,
-                           count.leaf_trips, count.leaf_lanes};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned sum = __reduce_add_sync(0xffffffffu, v[j]);
-      if ((threadIdx.x & 31) == 0 && sum) {
-        atomicAdd(&co.tallies[j], (unsigned long long)sum);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      co.times[2 * blockIdx.x] = t0;
-      co.times[2 * blockIdx.x + 1] = globaltimer();
-    }
-  }
-}
-
 // The packed round (RAYTPU_WAVE=fused_packed, bcap 1 on the path): one
 // thread runs one ray, as bounce_kernel does.
 //

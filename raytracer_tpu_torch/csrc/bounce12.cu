@@ -111,30 +111,6 @@ bool find_builds(int key_mode, int ordered, Builds* b) {
   return false;
 }
 
-// Blocks of a pmega call: as many as stay resident on the card, for each
-// build's kernel.
-cudaError_t resident_blocks(const void* kernel, int* blocks) {
-  static const void* kernels[8] = {};
-  static int resident[8] = {};
-  int k = 0;
-  while (k < 8 && kernels[k] && kernels[k] != kernel) ++k;
-  if (k == 8) return cudaErrorInvalidValue;
-  if (!kernels[k]) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, 0);
-    if (err != cudaSuccess) return err;
-    resident[k] = sms * per_sm;
-    kernels[k] = kernel;
-  }
-  *blocks = resident[k];
-  return cudaSuccess;
-}
-
 int launch_round(rtb::RoundFn fn, const Params& q, const void* state_in,
                  void* state_out, void* key, void* counts, void* stream) {
   if (q.w > 0) {
@@ -223,7 +199,8 @@ extern "C" int rt_bounce15(const void* nodes4, const void* clusters,
     return launch_round(b.b15, q, state_in, state_out, key, counts, stream);
   }
   int resident = 0;
-  const cudaError_t err = resident_blocks((const void*)b.pmega, &resident);
+  const cudaError_t err =
+      rt::resident_blocks((const void*)b.pmega, kThreads, &resident);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (w + kThreads - 1) / kThreads;
   b.pmega<<<resident < blocks ? resident : blocks, kThreads, 0,

@@ -47,6 +47,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 namespace rt {
 
@@ -191,6 +192,43 @@ struct LaneCount {
     }
   }
 };
+
+// What a counting build (rt_bounce_packed_count, rt_mega_count) writes:
+// the walk's tallies summed over warps, u64[4] = visit trips, visit
+// lanes, leaf trips, leaf lanes; and each block's first and last
+// %globaltimer reading (ns), u64[2 * blocks].
+struct CountOut {
+  unsigned long long* tallies;
+  unsigned long long* times;
+};
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Every thread of the block reaches this.
+template <class C>
+__device__ __forceinline__ void count_out(const C& count, const CountOut& co,
+                                          unsigned long long t0) {
+  if constexpr (C::kOn) {
+    const unsigned v[4] = {count.visit_trips, count.visit_lanes,
+                           count.leaf_trips, count.leaf_lanes};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned sum = __reduce_add_sync(0xffffffffu, v[j]);
+      if ((threadIdx.x & 31) == 0 && sum) {
+        atomicAdd(&co.tallies[j], (unsigned long long)sum);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      co.times[2 * blockIdx.x] = t0;
+      co.times[2 * blockIdx.x + 1] = globaltimer();
+    }
+  }
+}
 
 // One ray's walk: visit() one node, then test_leaves(), then pop() the
 // next node, until the stack is empty. The stack is an array of its own
@@ -439,6 +477,37 @@ int kernel_attrs(Kernel kernel, int threads, int* out) {
   out[3] = blocks;
   out[4] = threads;
   return 0;
+}
+
+// Blocks of a persistent launch (the pmega call, the mega kernel): as
+// many blocks of `threads` threads of `kernel` as stay resident on the
+// card, from the occupancy calculator, asked once a kernel. Static: each
+// source file of each layout's library keeps a table of its own (an
+// inline function's table would be one for every library loaded).
+static inline cudaError_t resident_blocks(const void* kernel, int threads,
+                                          int* blocks) {
+  constexpr int kKernels = 16;
+  static std::mutex lock;
+  static const void* kernels[kKernels] = {};
+  static int resident[kKernels] = {};
+  std::lock_guard<std::mutex> guard(lock);
+  int k = 0;
+  while (k < kKernels && kernels[k] && kernels[k] != kernel) ++k;
+  if (k == kKernels) return cudaErrorInvalidValue;
+  if (!kernels[k]) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, 0);
+    if (err != cudaSuccess) return err;
+    resident[k] = sms * per_sm;
+    kernels[k] = kernel;
+  }
+  *blocks = resident[k];
+  return cudaSuccess;
 }
 
 }  // namespace rt

@@ -1,6 +1,6 @@
-// Per-ray skip-link walk of the binary BVH, shared by kernel 5 (trace2.cu:
-// its per-ray design and the slab test of its warp design) and the mega
-// kernel (mega.cu).
+// Per-ray skip-link walk of the binary BVH: walk2, kernel 5's per-ray
+// design (trace2.cu, which also takes the slab test for its warp design),
+// and its step form (Walk2, walk2_step), the mega kernel's (mega.cu).
 //
 // Table (core/fast_types.py): nodes8 f32[M, 8], one node per row, read as
 // two 16-byte parts: (min xyz, max x), (max yz, skip, col7), the last two
@@ -72,6 +72,53 @@ __device__ __forceinline__ Hit walk2(const float4* __restrict__ nodes,
     leaf = -1;
   }
   return h;
+}
+
+// The same walk in step form, for a loop that runs one step of each
+// lane's walk a trip (the mega kernel). A step visits nodes until the
+// walk parks a leaf or ends, then tests the parked leaf, so the walk
+// between steps holds no parked leaf; it has ended (closest hit in h)
+// once node >= num_nodes. A walk run step after step to its end visits,
+// tests and keeps its hit exactly as walk2 does.
+struct Walk2 {
+  int node;
+  Hit h;
+  float ivx, ivy, ivz;
+};
+
+__device__ __forceinline__ void walk2_start(Walk2& w, const Ray& r,
+                                            float t_max) {
+  w.node = 0;
+  w.h = {t_max, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
+  w.ivx = 1.0f / r.dx;
+  w.ivy = 1.0f / r.dy;
+  w.ivz = 1.0f / r.dz;
+}
+
+// count: the tallies of a counting build (LaneCount), or NoCount.
+template <class C>
+__device__ __forceinline__ void walk2_step(Walk2& w,
+                                           const float4* __restrict__ nodes,
+                                           const float* __restrict__ clusters,
+                                           const int* __restrict__ counts,
+                                           int num_nodes, const Ray& r,
+                                           float t_min, float det_eps,
+                                           C& count) {
+  int leaf = -1;
+  while (leaf < 0 && w.node < num_nodes) {
+    count.visit();
+    const float4 lo = __ldg(nodes + 2 * w.node);
+    const float4 hi = __ldg(nodes + 2 * w.node + 1);
+    const bool hit = slab_hit(lo, hi, r, w.ivx, w.ivy, w.ivz, t_min, w.h.t);
+    const int col7 = __float_as_int(hi.w);
+    if (hit && col7 >= 0) leaf = col7;
+    w.node = (hit && col7 < 0) ? -col7 - 1 : __float_as_int(hi.z);
+  }
+  if (leaf >= 0) {
+    count.leaf();
+    mt_tris(clusters + (size_t)leaf * kLeafFloats, 0, __ldg(counts + leaf),
+            r, t_min, det_eps, leaf, w.h);
+  }
 }
 
 }  // namespace rt

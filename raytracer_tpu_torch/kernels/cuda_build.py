@@ -129,6 +129,9 @@ def _declare(lib) -> None:
     lib.rt_tonemap.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp]
     lib.rt_mega.restype = i32
     lib.rt_mega.argtypes = [vp] * 9 + [i32] * 7 + [f32] * 4 + [vp]
+    lib.rt_mega_count.restype = i32
+    lib.rt_mega_count.argtypes = ([vp] * 11 + [i32] * 7 + [f32] * 4
+                                  + [i32, vp])
     for name in KERNELS:
         fn = getattr(lib, f"rt_{name}_attrs")
         fn.restype = i32

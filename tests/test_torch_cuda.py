@@ -501,29 +501,90 @@ def _mega_state(n, seed, dead=False):
             pix)
 
 
+def _resident_lanes(layout=(8, 8)) -> int:
+    """The threads of the mega kernel that stay resident on the card (its
+    persistent launch): blocks per SM x SMs x threads a block."""
+    from raytracer_tpu_torch.kernels import cuda_build
+
+    attrs = cuda_build.kernel_attrs("mega", layout)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return attrs["blocks_per_sm"] * sms * attrs["threads"]
+
+
 @pytest.mark.parametrize("start", [0, 1])
-@pytest.mark.parametrize("width", [1, 31, 33, 129, 307200, "dead"])
+@pytest.mark.parametrize("width", [1, 31, 33, 129, 307200, "dead", "sparse",
+                                   "resident-1", "resident", "resident+1",
+                                   "bounces1", "drop"])
 def test_mega_kernel_matches_plain(scene, width, start):
     """The mega kernel against the plain megakernel (width levels and
-    all): 0 differing colour bytes, equal rays traced; ``dead`` is a
-    129-ray state with no live ray (every colour deposited as it came)."""
+    all): 0 differing colour bytes, equal rays traced, and the same bytes
+    from a second call (the rays each lane fetches vary, the result may
+    not). ``dead`` is a 129-ray state with no live ray (every colour
+    deposited as it came); ``sparse`` 8197 rays, one live in every 32;
+    ``resident`` as many rays as the persistent launch has resident
+    threads (``-1``, ``+1``: one fewer, one more); ``bounces1`` 4097 rays
+    at ``max_bounces`` 1 (the rest run the default 10); ``drop`` 8195 rays
+    into ``n_out`` = P - 1000 cells, pixel ids shifted by -500, so the
+    negative ones and those >= ``n_out`` are dropped (the plain version
+    drops ids >= ``n_out``: it gets ``n_out`` for the negative ones)."""
     from raytracer_tpu_torch.core.types import RenderConfig
     from raytracer_tpu_torch.kernels import launches
     from raytracer_tpu_torch.kernels.mega import mega, mega_plain
 
-    n = 129 if width == "dead" else width
+    if isinstance(width, int):
+        n = width
+    elif width.startswith("resident"):
+        n = _resident_lanes() + {"resident-1": -1, "resident": 0,
+                                 "resident+1": 1}[width]
+    else:
+        n = {"dead": 129, "sparse": 8197, "bounces1": 4097,
+             "drop": 8195}[width]
     o, d, c, a, s, alive, pix = _mega_state(n, 7 + n, width == "dead")
-    cfg = RenderConfig()
+    if width == "sparse":
+        alive = torch.arange(n, device="cuda") % 32 == 5
+    cfg = RenderConfig(max_bounces=1 if width == "bounces1" else 10)
+    n_out, pix_plain = None, pix
+    if width == "drop":
+        n_out = n - 1000
+        pix = pix - 500
+        pix_plain = torch.where(pix < 0, n_out, pix)
+        assert (pix < 0).any() and (pix >= n_out).any()
     launches.reset()
-    got, rays = mega(scene, o, d, c, a, s, alive, True, cfg, start, pix)
+    got, rays = mega(scene, o, d, c, a, s, alive, True, cfg, start, pix,
+                     n_out)
     assert launches.kernel["mega"] == 1 and not launches.plain
+    again, rays2 = mega(scene, o, d, c, a, s, alive, True, cfg, start, pix,
+                        n_out)
     want, want_rays = mega_plain(scene, o, d, c, a, s, alive, True, cfg,
-                                 start, pix)
+                                 start, pix_plain, n_out)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert int(rays) == int(want_rays) >= int(alive.sum())
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    assert int(rays) == int(rays2) == int(want_rays) >= int(alive.sum())
     if width == "dead":
         assert int(rays) == 0
         assert torch.equal(got[:, pix], torch.stack(c))
+
+
+def test_mega_count_matches_kernel(scene):
+    """The mega kernel's counting build under both schedules (the
+    kernel's, and one ray a thread walking a whole bounce at a time):
+    the kernel's colour bytes and rays traced, tallies within their
+    bounds, one timer span a launched block."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.mega import mega, mega_count
+
+    n = 20000 + 7
+    o, d, c, a, s, alive, pix = _mega_state(n, 21)
+    args = (scene, o, d, c, a, s, alive, True, RenderConfig(), 0, pix)
+    got, rays = mega(*args)
+    for schedule in (0, 1):
+        out, r, tallies, times = mega_count(*args, schedule=schedule)
+        assert torch.equal(out.view(torch.int32), got.view(torch.int32))
+        assert int(r) == int(rays)
+        vt, vl, lt, ll = (int(x) for x in tallies)
+        assert 0 < vt <= vl <= 32 * vt and 0 < lt <= ll <= 32 * lt
+        assert 0 < times.shape[0] <= -(-n // 128)
+        assert bool((times[:, 1] >= times[:, 0]).all())
 
 
 def _plain_versions(monkeypatch):
