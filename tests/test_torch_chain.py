@@ -80,12 +80,17 @@ def test_chain_of_one_is_a_frame(scene):
         Renderer(cfg).render_chain(scene, uni, None, 0)
 
 
+def chain_inputs() -> dict:
+    """The JAX reference's inputs: ``render_chain`` of 3 frames from frame
+    count 2 at 32x16, 4 bounces, on the per-ray path."""
+    return dict(**dict(zip(("verts", "mats"), _two_cubes())), **CAM, fc=2,
+                k=3, cfg_width=32, cfg_height=16, cfg_max_bounces=4,
+                cfg_kernel="wavefront")
+
+
 @pytest.fixture(scope="module")
 def jax_chain(tmp_path_factory):
-    inp = dict(**dict(zip(("verts", "mats"), _two_cubes())), **CAM, fc=2,
-               k=3, cfg_width=32, cfg_height=16, cfg_max_bounces=4,
-               cfg_kernel="wavefront")
-    return run_job("chain", inp, tmp_path_factory.mktemp("chain"))
+    return run_job("chain", chain_inputs(), tmp_path_factory.mktemp("chain"))
 
 
 def test_chain_matches_jax(jax_chain):

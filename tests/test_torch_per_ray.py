@@ -1,7 +1,7 @@
 """The port's per-ray GLSL-parity path against the JAX package and the
 scalar GLSL oracle.
 
-One JAX child process (``torch_jax_refs.job_per_ray``) builds the
+One JAX child process (``jax_ref_jobs.job_per_ray``) builds the
 GpuScene of a plane and two cubes (every triangle its own albedo, so an
 exact material is an exact triangle id), walks 2048 random rays with
 ``tracer.traverse`` under both shadings, renders a 32x16 progressive

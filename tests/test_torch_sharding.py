@@ -12,7 +12,7 @@ equal the single-device ``Renderer`` in this process: the u8 image
 byte for byte, ``rays_traced`` exactly, and the accumulator byte for byte
 where the case keeps it.
 
-A JAX child (``torch_jax_refs.job_mesh``, started while the ranks render)
+A JAX child (``jax_ref_jobs.job_mesh``, started while the ranks render)
 runs the JAX ``MeshRenderer`` at (2, 1) on two virtual CPU devices, one
 bounce (the Pallas interpret lowering of kernel B would double the
 child's ~25 s; the bounces are held by the bit-equality above and by
