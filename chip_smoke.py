@@ -12,24 +12,27 @@ Phases, one or more lines each (any failure raises and exits non-zero):
    could take for the same work (``bound_ms``): the tonemap on a 1280x720
    band sum at spp 1 and 2 (0 differing bytes in the accumulator and the
    image; its device time from the profiler and its call time); kernel A
-   on the middle 720p band of flagship primaries (307,200
-   rays); kernel B on that band's sorted bounce-1 state and on a
-   merged-tail-width state with mixed bounce budgets (0 included); kernel
-   5 in its two designs, ``trace2_warp`` (one node id per warp) on the
-   same primaries and ``trace2`` (one thread per ray) on the split
-   engine's sorted bounce-1 round of that band, and both and kernel A
-   with the normal flip off on the 640x480 C12 primaries (0 differing
-   lanes required); the colour-carrying kernel (``bounce15``) on the
-   sorted bounce-1 band state at bcap 1 (a ``fused`` round) and on the
+   on the middle 720p band of flagship primaries (307,200 rays); the
+   ray-gen and shade kernels (``csrc/front.cu``) on that band (ray-gen
+   from the camera, the shade on kernel A's record of its primaries: 0
+   differing bytes in every output row; device time from device memory and
+   from L2, a call's time); kernel B on that band's sorted bounce-1 state
+   and on a merged-tail-width state with mixed bounce budgets (0
+   included); kernel 5 in its two designs, ``trace2_warp`` (one node id
+   per warp) on the same primaries and ``trace2`` (one thread per ray) on
+   the split engine's sorted bounce-1 round of that band, and both and
+   kernel A with the normal flip off on the 640x480 C12 primaries (0
+   differing lanes required); the colour-carrying kernel (``bounce15``) on
+   the sorted bounce-1 band state at bcap 1 (a ``fused`` round) and on the
    same state sorted by the pmega host key at bcap 9 (the pmega call,
    persistent warps), with that call's lane occupancy under one ray per
-   thread; the packed kernel on the bounce-1 state as the
-   ``fused_packed`` round sorts it, with its counting build's SIMD
-   efficiency of the walk's visit and leaf loops and its blocks' timer
-   spans (the round's drain and block-slot occupancy);
-   kernel A and kernel B on a hand-built 36-level tree whose walk pushes
-   246 stack entries (``presets.stack_limit_scene``, need 253 of the
-   256-slot stack), bit-equal;
+   thread; the packed kernel on the bounce-1 state as the ``fused_packed``
+   round sorts it, with its counting build's SIMD efficiency of the walk's
+   visit and leaf loops and its blocks' timer spans (the round's drain and
+   block-slot occupancy); kernel A and kernel B on a hand-built 36-level
+   tree whose walk pushes 246 stack entries
+   (``presets.stack_limit_scene``, need 253 of the 256-slot stack),
+   bit-equal;
 4. the main path at full size: the flagship scene, ``Renderer`` with
    ``RenderConfig()`` (1280x720, 10 bounces), one warm frame, then 16
    progressive frames with the launch counts of every kernel; writes
@@ -759,9 +762,13 @@ def plain_versions():
     """Route the render modules to the plain versions."""
     from raytracer_tpu_torch.engine import renderer
     from raytracer_tpu_torch.kernels import (bounce, mega, packet, tonemap,
-                                             trace, wavefront)
+                                             trace, tracer, wavefront)
 
-    slots = [(trace, "trace4", trace.trace4_plain),
+    slots = [(packet, "primary_rays", packet.primary_rays_plain),
+             (packet, "shade", tracer.shade_plain),
+             (wavefront, "shade", tracer.shade_plain),
+             (tracer, "shade", tracer.shade_plain),
+             (trace, "trace4", trace.trace4_plain),
              (trace, "trace2", trace.trace2_plain),
              (wavefront, "bounce12", bounce.bounce12_plain),
              (wavefront, "bounce15", bounce.bounce15_plain),
@@ -1845,6 +1852,82 @@ def check_mega(scene, cfg, cam, results):
                                   if bname != "middle"})
 
 
+def differing_bytes(got, want) -> int:
+    """Bytes that differ between two (nested) tuples of tensors."""
+    n = 0
+    for g, w in zip(got, want, strict=True):
+        if isinstance(g, tuple):
+            n += differing_bytes(g, w)
+        elif g is None or w is None:
+            assert g is None and w is None
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            n += int((g.contiguous().view(torch.uint8)
+                      != w.contiguous().view(torch.uint8)).sum())
+    return n
+
+
+def check_front(scene, cfg, cam, results):
+    """The ray-gen and shade kernels (``csrc/front.cu``) on the middle
+    720p band against their plain versions: ray-gen from the camera, then
+    the shade of bounce 0 on kernel A's record of those primaries, 0
+    differing bytes in every output row; each kernel's device time
+    (profiler, inputs from device memory and from L2), a call's time, the
+    plain version's and the bytes bound."""
+    import dataclasses
+
+    from raytracer_tpu_torch.engine.renderer import _num_bands
+    from raytracer_tpu_torch.kernels import packet, trace, tracer
+
+    nb = _num_bands(cfg)
+    band_h = cfg.height // nb
+    bcfg = dataclasses.replace(cfg, height=band_h)
+    grain = max(trace.BLOCK, trace.BBLOCK)
+    p_pad = -(-band_h * cfg.width // grain) * grain
+    args = (cam, bcfg, p_pad, nb // 2 * band_h, cfg.height, 0, "cuda")
+    got = packet.primary_rays(*args)
+    want = packet.primary_rays_plain(*args)
+    n_raygen = differing_bytes(got, want)
+    rays, seed, alive, _ = got
+    res = trace.traverse_rays(scene, rays, alive, bcfg, coherent=True)
+    zero = torch.zeros(p_pad, device="cuda")
+    one = torch.ones(p_pad, device="cuda")
+    sargs = (res, rays[0:3].unbind(0), rays[3:6].unbind(0),
+             (zero,) * 3, (one,) * 3, seed, alive, True, bcfg)
+    got_s = tracer.shade(*sargs)
+    n_shade = differing_bytes(got_s, tracer.shade_plain(*sargs))
+    # Bytes read and written once: ray-gen writes the rays, seed, alive
+    # and pixel ids (the camera's 52 bytes aside); the shade reads the
+    # record, hit, alive, ray, colour, atten and seed and writes the ray,
+    # colour, atten, seed and scattered flag.
+    moved = {"raygen": nbytes(*got),
+             "shade": nbytes(res.closest_t, *res.normal, *res.mat_albedo,
+                             res.mat_type, res.hit, alive, *sargs[1],
+                             *sargs[2], *sargs[3], *sargs[4], seed)
+             + nbytes(*got_s[0], *got_s[1], *got_s[2], *got_s[3],
+                      got_s[4], got_s[5])}
+    calls = {"raygen": (lambda: packet.primary_rays(*args),
+                        lambda: packet.primary_rays_plain(*args)),
+             "shade": (lambda: tracer.shade(*sargs),
+                       lambda: tracer.shade_plain(*sargs))}
+    for name, n_diff in (("raygen", n_raygen), ("shade", n_shade)):
+        kern, plain = calls[name]
+        ms = device_ms(kern, 50, f"{name}_kernel", cold=True)
+        warm_ms = device_ms(kern, 50, f"{name}_kernel")
+        call_ms = time_ms(kern, 50)
+        plain_ms = time_ms(plain, 5)
+        b = bound(moved[name])
+        print(f"check {name}, middle 720p band, {p_pad} rays: differing "
+              f"bytes {n_diff}; kernel {ms:.4f} ms on the device from "
+              f"device memory, {warm_ms:.4f} ms from L2, {call_ms:.4f} ms a "
+              f"call; plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}, {moved[name]} bytes)")
+        assert n_diff == 0
+        results[name] = dict(max_abs_err=0.0, ms=ms, warm_ms=warm_ms,
+                             call_ms=call_ms, plain_ms=plain_ms,
+                             differing_bytes=n_diff, **b)
+
+
 def frame_launches(scene, cfg, cam, env) -> int:
     """Device activities (kernels, copies, memsets) of one frame under the
     knobs ``env``, from the profiler."""
@@ -2578,6 +2661,7 @@ def main() -> None:
 
     check_tonemap(results)
     check_trace(scene, cfg, uni, results)
+    check_front(scene, cfg, uni, results)
     check_bounce(scene, cfg, uni, results)
     check_trace2(scene, cfg, uni, (scene12, cfg12, cam12.uniforms()),
                  results)
@@ -2588,7 +2672,7 @@ def main() -> None:
 
     # Phase 4: the main path at full size.
     main_run = run_path("main path", scene, cfg, cam, 16, {},
-                        ("trace4", "bounce12", "tonemap"))
+                        ("raygen", "trace4", "shade", "bounce12", "tonemap"))
     os.makedirs(os.path.join(REPO, "out"), exist_ok=True)
     write_png(os.path.join(REPO, "out", "chip_smoke.png"), main_run["image"])
 
@@ -2759,7 +2843,9 @@ def main() -> None:
         "trace2_warp": split_run["counts"]["trace2_warp"],
         "bounce15": pmega_run["counts"]["bounce15"],
         "bounce_packed": packed_run["counts"]["bounce_packed"],
-        "mega": xla_runs["b0_mega"]["counts"]["mega"]}
+        "mega": xla_runs["b0_mega"]["counts"]["mega"],
+        "raygen": main_run["counts"]["raygen"],
+        "shade": main_run["counts"]["shade"]}
     launches_on_path.update({k: knob_runs[run]["counts"][k]
                              for k, run in BUILD_RUNS.items()})
     srcs = {"tonemap": ("cuda", "raytracer_tpu_torch/csrc/tonemap.cu",
@@ -2777,7 +2863,13 @@ def main() -> None:
             "bounce_packed": ("cuda", "raytracer_tpu_torch/csrc/bounce12.cu",
                               "raytracer_tpu/kernels/pallas_mega.py:645"),
             "mega": ("cuda", "raytracer_tpu_torch/csrc/mega.cu",
-                     "raytracer_tpu/kernels/packet.py:281")}
+                     "raytracer_tpu/kernels/packet.py:281"),
+            "raygen": ("cuda", "raytracer_tpu_torch/csrc/front.cu",
+                       "none: raytracer_tpu/kernels/tracer.py "
+                       "initial_seed, make_primary_rays (plain ops)"),
+            "shade": ("cuda", "raytracer_tpu_torch/csrc/front.cu",
+                      "none: raytracer_tpu/kernels/tracer.py shade "
+                      "(plain ops)")}
     srcs.update({k: ("cuda", src, rep)
                  for k, (_, _, _, src, rep) in KEY_BUILDS.items()})
     for k in srcs:

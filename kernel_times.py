@@ -41,8 +41,11 @@ walk level and, where the checkout has the counting build, the visit
 and leaf SIMD efficiency of both schedules (``mega_lanes``), and the
 720p frames of ``RAYTPU_B0=mega`` and ``RAYTPU_BOUNCE=mega``
 (``frame_b0_mega``, ``frame_bounce_mega``: wall and device busy ms a
-frame, idle share, device activities and ``mega``'s ms a frame); with each
-pmega state's lane
+frame, idle share, device activities and ``mega``'s ms a frame), and,
+where the checkout has them, the ray-gen and shade kernels on the middle
+band (``raygen``, ``shade``: ``chip_smoke.check_front``, device ms from
+device memory, ``warm_ms`` from L2, ``call_ms``, ``plain_ms`` and the
+bytes bound); with each pmega state's lane
 occupancy (``chip_smoke.lane_occupancy``) and, where the checkout has the
 packed kernel's counting build, each packed round's walk efficiency
 (``chip_smoke.packed_round_profile``). The inputs come from this
@@ -82,7 +85,7 @@ KERNELS = ("trace4", "bounce12", "bounce12_pl", "bounce15", "bounce15_top",
            "bounce12_pd5", "bounce12_om9", "bounce12_unordered",
            "bounce15_pd5", "bounce15_om9", "bounce15_unordered",
            "bounce_packed_pd5", "bounce_packed_om9", *MEGA_ROWS,
-           *FRAME_ROWS)
+           *FRAME_ROWS, "raygen", "shade")
 # Row -> the kernel whose attributes it reports, where the checkout's
 # cuda_build knows that kernel (else the row's name, or bounce15 for the
 # pmega rows).
@@ -228,6 +231,7 @@ def run_one(tree: str, reps: int, bcaps=(), rows=None,
         if name in bands and hasattr(bounce, "bounce_packed_count"):
             packed_walk[name] = cs.packed_round_profile(
                 scene, *packed(bands[name]), cfg, got)
+    front_rows(scene, cfg, cam, rows, res)
     mega_lanes = mega_rows(scene, cfg, cam, reps, rows, plain_dir, res)
     for name, env in FRAME_ROWS.items():
         if not rows or name in rows:
@@ -289,6 +293,24 @@ def mega_rows(scene, cfg, cam, reps: int, rows, plain_dir, res) -> dict:
                            visit=(cs.mega_profile(args, got, rays)
                                   if hasattr(mega, "mega_count") else None))
     return lanes
+
+
+def front_rows(scene, cfg, cam, rows, res) -> None:
+    """The ``raygen`` and ``shade`` rows, where the checkout has those
+    kernels (``packet.primary_rays``): ``chip_smoke.check_front`` on the
+    middle band (0 differing bytes required; device ms from device memory
+    and from L2, call ms, plain ms, bound) into ``res``."""
+    from raytracer_tpu_torch.kernels import packet
+
+    import chip_smoke as cs
+
+    if not hasattr(packet, "primary_rays") or (
+            rows and not {"raygen", "shade"} & set(rows)):
+        return
+    out = {}
+    cs.check_front(scene, cfg, cam, out)
+    res.update({k: dict(v, differing_lanes=v["differing_bytes"])
+                for k, v in out.items() if not rows or k in rows})
 
 
 def frame_row(scene, cfg, env: dict, frames: int = 4) -> dict:

@@ -83,13 +83,14 @@
 //
 // Build with -fmad=false and without fast math: every product, sum,
 // division and square root rounds as in the plain PyTorch version.
-#include "pcg.cuh"
+#include "shade.cuh"
 #include "walk2.cuh"
 
 namespace {
 
+using rt::Path;
+
 constexpr int kThreads = 128;
-constexpr int kRejectionRounds = 24;  // kernels/rng.py REJECTION_ROUNDS
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kBatch = 32;  // rays a warp takes from the counter
 constexpr int kShadeMin = 16;    // ended walks that shade together
@@ -107,97 +108,6 @@ struct Args {
   int p, n_out, num_nodes, start_bounce, max_bounces, sky_on, emissive_emits;
   float fuzz, t_min, t_max, det_eps;
 };
-
-// rng._to_unit_float: float(u32) / float(0xFFFFFFFF), both rounded to
-// nearest (the divisor rounds to 2^32).
-__device__ __forceinline__ float unit(uint32_t s) {
-  return __uint2float_rn(s) / 4294967295.0f;
-}
-
-struct Path {
-  rt::Ray r;
-  float cr, cg, cb;     // colour
-  float atr, atg, atb;  // atten
-  uint32_t seed;
-};
-
-// tracer.shade of one ray whose walk ended with h (normal facing the ray);
-// true when the ray scattered.
-__device__ __forceinline__ bool shade(Path& s, const rt::Hit& h,
-                                      const Args& a) {
-  const rt::Ray& r = s.r;
-  const bool hit = h.t < a.t_max;
-  // sky_color: normalize(d), t = 0.5 (y + 1).
-  const float il =
-      1.0f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
-  const float ndx = r.dx * il, ndy = r.dy * il, ndz = r.dz * il;
-  const float ts = 0.5f * (ndy + 1.0f);
-  const float omt = 1.0f - ts;
-  if (!hit) {
-    s.cr = s.atr * (a.sky_on ? omt + ts * 0.5f : 0.0f);
-    s.cg = s.atg * (a.sky_on ? omt + ts * 0.7f : 0.0f);
-    s.cb = s.atb * (a.sky_on ? omt + ts * 1.0f : 0.0f);
-  }
-
-  const float mt = h.mt;
-  const bool is_lam = mt == 0.0f;
-  const bool is_metal = (mt == 1.0f) || (mt == 2.0f);
-  const bool is_emis = mt == 3.0f;
-  const bool needs = hit && (is_lam || is_metal);
-  // rng.random_vec3_in_unit_sphere: 3 discarded draws, then up to
-  // kRejectionRounds rounds of 3 (an exhausted ray keeps (0, 0, 0)).
-  float px = 0.0f, py = 0.0f, pz = 0.0f;
-  if (needs) {
-    uint32_t seed = rt::pcg(rt::pcg(rt::pcg(s.seed)));
-    for (int k = 0; k < kRejectionRounds; ++k) {
-      seed = rt::pcg(seed);
-      const float cx = unit(seed) * 2.0f - 1.0f;
-      seed = rt::pcg(seed);
-      const float cy = unit(seed) * 2.0f - 1.0f;
-      seed = rt::pcg(seed);
-      const float cz = unit(seed) * 2.0f - 1.0f;
-      if (cx * cx + cy * cy + cz * cz < 1.0f) {
-        px = cx;
-        py = cy;
-        pz = cz;
-        break;
-      }
-    }
-    s.seed = seed;
-  }
-  const float slen = sqrtf(px * px + py * py + pz * pz);
-  const float isl = 1.0f / ((needs && slen > 0.0f) ? slen : 1.0f);
-  float lamx = h.nx + px * isl, lamy = h.ny + py * isl,
-        lamz = h.nz + pz * isl;
-  if (sqrtf(lamx * lamx + lamy * lamy + lamz * lamz) < 1e-4f) {
-    lamx = h.nx;
-    lamy = h.ny;
-    lamz = h.nz;
-  }
-  const float fz = mt == 2.0f ? a.fuzz : 0.0f;
-  const float dn = ndx * h.nx + ndy * h.ny + ndz * h.nz;
-  const float rawx = is_lam ? lamx : (ndx - 2.0f * dn * h.nx) + px * fz;
-  const float rawy = is_lam ? lamy : (ndy - 2.0f * dn * h.ny) + py * fz;
-  const float rawz = is_lam ? lamz : (ndz - 2.0f * dn * h.nz) + pz * fz;
-  const float rl = sqrtf(rawx * rawx + rawy * rawy + rawz * rawz);
-  const float irl = 1.0f / (rl > 0.0f ? rl : 1.0f);
-  const float newx = rawx * irl, newy = rawy * irl, newz = rawz * irl;
-  const bool met_ok = (newx * h.nx + newy * h.ny + newz * h.nz) > 0.0f;
-  const bool scattered = hit && (is_lam || (is_metal && met_ok));
-
-  const bool emits = a.emissive_emits && hit && is_emis;
-  s.cr = s.cr + (emits ? h.ar : 0.0f) * s.atr;
-  s.cg = s.cg + (emits ? h.ag : 0.0f) * s.atg;
-  s.cb = s.cb + (emits ? h.ab : 0.0f) * s.atb;
-  if (scattered) {
-    s.atr = s.atr * h.ar;
-    s.atg = s.atg * h.ag;
-    s.atb = s.atb * h.ab;
-    s.r = {r.ox + r.dx * h.t, r.oy + r.dy * h.t, r.oz + r.dz * h.t,
-           newx, newy, newz};
-  }
-  return scattered;
-}
 
 // Ray i's colour to its pixel id (dropped outside [0, n_out)).
 __device__ __forceinline__ void deposit(const Args& a, int i, float cr,
@@ -249,7 +159,9 @@ __device__ __forceinline__ bool end_walk(const Args& a, Path& s, W& w,
   h.ab = h.ab + 0.0f;
   h.mt = h.mt + 0.0f;
   rt::face_ray(s.r, h);
-  const bool scattered = shade(s, h, a);
+  const bool scattered =
+      rt::shade(s, h, true, h.t < a.t_max,
+                {a.sky_on, a.emissive_emits, a.fuzz});
   ++bounce;
   if (!(scattered && bounce < a.max_bounces)) return false;
   ++rays;

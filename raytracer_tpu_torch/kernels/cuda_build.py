@@ -32,8 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu", "bounce_pd5.cu",
-           "bounce_om9.cu", "tonemap.cu", "mega.cu")
-HEADERS = ("walk.cuh", "walk2.cuh", "pcg.cuh", "bounce.cuh")
+           "bounce_om9.cu", "tonemap.cu", "mega.cu", "front.cu")
+HEADERS = ("walk.cuh", "walk2.cuh", "pcg.cuh", "bounce.cuh", "shade.cuh")
 # Kernel B's builds of other keys and walk orders go by
 # kernels/bounce.py build_name ("bounce12_pd5", ...).
 KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce12_pl",
@@ -42,7 +42,7 @@ KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce12_pl",
            "bounce15_pd5", "bounce15_om9", "bounce15_unordered",
            "bounce_packed_pd5", "bounce_packed_om9", "bounce12_pd5_unordered",
            "bounce12_om9_unordered", "bounce15_pd5_unordered",
-           "bounce15_om9_unordered")
+           "bounce15_om9_unordered", "raygen", "shade")
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -129,6 +129,10 @@ def _declare(lib) -> None:
     lib.rt_tonemap.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp]
     lib.rt_mega.restype = i32
     lib.rt_mega.argtypes = [vp] * 9 + [i32] * 7 + [f32] * 4 + [vp]
+    lib.rt_raygen.restype = i32
+    lib.rt_raygen.argtypes = [vp] * 9 + [i32] * 11 + [vp]
+    lib.rt_shade.restype = i32
+    lib.rt_shade.argtypes = [vp] * 4 + [i32] * 3 + [f32, vp]
     lib.rt_mega_count.restype = i32
     lib.rt_mega_count.argtypes = ([vp] * 11 + [i32] * 7 + [f32] * 4
                                   + [i32, vp])

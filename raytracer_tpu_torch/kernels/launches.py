@@ -1,6 +1,7 @@
 """Launch counts of the hand-written kernels and calls of their plain
 versions, keyed by wrapper name ("trace4", "trace2", "trace2_warp",
-"bounce12", "bounce15", "bounce_packed", "tonemap", "mega"; the
+"bounce12", "bounce15", "bounce_packed", "tonemap", "mega", and "raygen"
+(``packet.primary_rays``) and "shade" (``tracer.shade``); the
 measurement builds "bounce12_pl" and "bounce_packed_count" run on no
 path).
 

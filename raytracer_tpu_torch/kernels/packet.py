@@ -16,6 +16,14 @@ path of the JAX package's ``render_linear_fast``
 * the fixed-light (C12) tier: kernel A or 5 on tile-major primaries under
   ``RAYTPU_B0=pallas``, else the per-ray XLA walk on raster primaries.
 
+The tile-major ray-gen is ``primary_rays``: on the card one launch of the
+ray-gen kernel (``csrc/front.cu``), which writes the rays straight into
+the walks' [6, P] layout; its plain version ``primary_rays_plain`` is the
+JAX composition (``_tile_major_pixels``, ``tracer.initial_seed``,
+``tracer.make_primary_rays``). The bounce-0 shade is ``tracer.shade``,
+one launch of the shade kernel on the card. The raster ray-gen of the
+other ``RAYTPU_B0`` arms stays plain ops.
+
 The JAX package's XLA walks and megakernel are here as plain PyTorch under
 their JAX names: ``_cluster_mt`` (the Moller-Trumbore over a leaf's
 ``cluster_size`` slots, argmin to the lowest slot on a tie, the winner
@@ -57,7 +65,8 @@ from raytracer_tpu_torch.kernels.trace import BBLOCK, BLOCK, pick_tile
 from raytracer_tpu_torch.kernels.tracer import (TraversalResult,
                                                 fixed_light_color,
                                                 initial_seed,
-                                                make_primary_rays, shade)
+                                                make_primary_rays, shade,
+                                                shade_plain)
 
 TILE_H = 8
 TILE_W = 8
@@ -113,6 +122,84 @@ def _tile_major_pixels(h: int, w: int, p_pad: int, device):
         xx = i_mod % w
         yy_local = i_mod // w
     return xx, yy_local, i < p
+
+
+def primary_rays_plain(cam: CameraUniforms, cfg: RenderConfig, p_pad: int,
+                       y_offset: int, gh: int, sample_index: int, device):
+    """A band's tile-major primaries (cfg.height rows from global row
+    ``y_offset`` of a ``gh``-row frame, ``p_pad`` rays) -> (rays f32[6,
+    p_pad] (origin xyz, direction xyz: kernel A's input), seed (u32 values
+    in int64; None in the fixed-light tier, whose rays are unjittered),
+    alive bool[p_pad], pix_local i32[p_pad] (the band-local pixel id; p for
+    a pad ray, so its deposits drop))."""
+    h, w = cfg.height, cfg.width
+    p = h * w
+    xx, yy_local, alive = _tile_major_pixels(h, w, p_pad, device)
+    yy = yy_local + y_offset
+    pix_local = torch.where(alive, yy_local * w + xx, p).to(torch.int32)
+    if cfg.shading == "fixed_light":
+        # C12 tier: unjittered primaries, no seed.
+        seed = None
+        _, ray_o, ray_d = make_primary_rays(cam, cfg, None, xx, yy, gh,
+                                            jitter=False)
+    else:
+        seed = initial_seed(cam, cfg, yy * w + xx, sample_index)
+        seed, ray_o, ray_d = make_primary_rays(cam, cfg, seed, xx, yy, gh)
+    return torch.stack([*ray_o, *ray_d]), seed, alive, pix_local
+
+
+def _camera_rows(cam: CameraUniforms, device: torch.device) -> tuple:
+    """The ray-gen kernel's camera rows and frame count, checked to lie
+    on ``device`` (a CUDA device)."""
+    rows = (cam.origin, cam.lower_left_corner, cam.horizontal, cam.vertical,
+            cam.frame_count)
+    dev = cam.origin.device
+    if (dev.type != "cuda" or device.index not in (None, dev.index)
+            or any(r.device != dev for r in rows)
+            or any(r.dtype != torch.float32 or r.shape != (3,)
+                   or r.stride() != (1,) for r in rows[:4])
+            or cam.frame_count.dtype != torch.int32
+            or cam.frame_count.numel() != 1):
+        raise ValueError("the camera uniforms must be contiguous f32[3] and "
+                         f"the frame count an i32 on {device}")
+    return rows
+
+
+def primary_rays(cam: CameraUniforms, cfg: RenderConfig, p_pad: int,
+                 y_offset: int, gh: int, sample_index: int, device):
+    """``primary_rays_plain`` as one launch of the ray-gen kernel
+    (``csrc/front.cu``, its unjittered build in the fixed-light tier) on
+    a CUDA device, reading the camera and the frame count where they lie
+    on the card; ``primary_rays_plain`` itself on the CPU. The same
+    arguments and results, bit for bit."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        launches.plain["raygen"] += 1
+        return primary_rays_plain(cam, cfg, p_pad, y_offset, gh,
+                                  sample_index, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    h, w = cfg.height, cfg.width
+    if not 0 < h * w <= p_pad:
+        raise ValueError(f"p_pad {p_pad} must hold the band's {h * w} rays")
+    th, tw = pick_tile(h, w) or (1, w)    # (1, w): raster order
+    jitter = cfg.shading != "fixed_light"
+    cams = _camera_rows(cam, device)
+    dev = cams[0].device
+    rays = torch.empty((6, p_pad), dtype=torch.float32, device=dev)
+    seed = (torch.empty(p_pad, dtype=torch.int64, device=dev)
+            if jitter else None)
+    alive = torch.empty(p_pad, dtype=torch.bool, device=dev)
+    pix = torch.empty(p_pad, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda_build.check(cuda_build.library().rt_raygen(
+        *(c.data_ptr() for c in cams), rays.data_ptr(),
+        seed.data_ptr() if jitter else None, alive.data_ptr(),
+        pix.data_ptr(), p_pad, h * w, w, th, tw, y_offset, gh, int(jitter),
+        int(cfg.rng_mode == "reference"), cfg.samples_per_pixel,
+        sample_index, stream), "rt_raygen")
+    launches.kernel["raygen"] += 1
+    return rays, seed, alive, pix
 
 
 def _cluster_mt(crow, ray_o, ray_d, closest_t, gate, state,
@@ -418,7 +505,7 @@ def _mega_step(scene: FastScene, links, st: dict, rays, sky_on: bool,
         res = TraversalResult(t, t < cfg.t_max, (nx, ny, nz), (ar, ag, ab),
                               mt)
         draws = []
-        o, d, c, a, s, scattered = shade(
+        o, d, c, a, s, scattered = shade_plain(
             res, sub(st["ray_o"]), sub(st["ray_d"]), sub(st["color"]),
             sub(st["atten"]), st["seed"][idx],
             torch.ones(idx.numel(), dtype=torch.bool, device=idx.device),
@@ -586,10 +673,10 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
     dev = scene.device
     grain = max(BLOCK, BBLOCK)
     p_pad = -(-p // grain) * grain
-    xx, yy_local, alive = _tile_major_pixels(h, w, p_pad, dev)
-    yy = yy_local + y_offset
     # Pad rays carry an out-of-range pixel id (p); their deposits drop.
-    pix_local = torch.where(alive, yy_local * w + xx, p).to(torch.int32)
+    rays, seed, alive, pix_local = primary_rays(cam, cfg, p_pad, y_offset,
+                                                gh, sample_index, dev)
+    ray_o, ray_d = rays[0:3].unbind(0), rays[3:6].unbind(0)
 
     def by_pixel(color):
         out = torch.zeros((3, p + 1), dtype=torch.float32, device=dev)
@@ -598,13 +685,9 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
 
     if cfg.shading == "fixed_light":
         # C12 tier: unjittered primaries, raw normals, Lambert + ambient.
-        _, ray_o, ray_d = make_primary_rays(cam, cfg, None, xx, yy, gh,
-                                            jitter=False)
         return by_pixel(fixed_light_color(
-            trace.traverse(scene, ray_o, ray_d, alive, cfg, coherent=True)))
+            trace.traverse_rays(scene, rays, alive, cfg, coherent=True)))
 
-    seed = initial_seed(cam, cfg, yy * w + xx, sample_index)
-    seed, ray_o, ray_d = make_primary_rays(cam, cfg, seed, xx, yy, gh)
     zero = torch.zeros(p_pad, dtype=torch.float32, device=dev)
     one = torch.ones(p_pad, dtype=torch.float32, device=dev)
     sky_on = cam.sky_host
@@ -617,7 +700,7 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
             alive, sky_on, cfg, pix_local, start_bounce=0, dense_pix=True)
         return col[:, :p], rays, None
 
-    res = trace.traverse(scene, ray_o, ray_d, alive, cfg, coherent=True)
+    res = trace.traverse_rays(scene, rays, alive, cfg, coherent=True)
     ray_o, ray_d, color, atten, seed, alive = shade(
         res, ray_o, ray_d, (zero, zero, zero), (one, one, one), seed, alive,
         sky_on, cfg)

@@ -467,7 +467,15 @@ def traverse(scene: FastScene, ray_o, ray_d, active, cfg: RenderConfig,
     kernel 5 over the binary table when the knobs ask for it or the scene
     has no wide table (JAX ``pallas_traverse``; its warp design for
     ``coherent`` rays: tile-major primaries)."""
-    rays = torch.stack([*ray_o, *ray_d])
+    return traverse_rays(scene, torch.stack([*ray_o, *ray_d]), active, cfg,
+                         coherent)
+
+
+def traverse_rays(scene: FastScene, rays: torch.Tensor, active,
+                  cfg: RenderConfig, coherent: bool = False
+                  ) -> TraversalResult:
+    """``traverse`` of rays already in the walks' layout, f32[6, P]
+    (origin xyz, direction xyz), as the ray-gen kernel writes them."""
     if knobs.binary_traverse() or scene.nodes4 is None:
         out = trace2(scene, rays, active, cfg, coherent)
     else:

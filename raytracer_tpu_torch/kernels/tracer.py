@@ -16,10 +16,18 @@ bit-equal where the JAX side is evaluated without FMA contraction.
 Division by a non-power-of-two constant goes through a 0-d tensor on the
 ray device: PyTorch's CUDA ``tensor / python_float`` multiplies by the
 reciprocal, which is not IEEE division.
+
+``shade`` is a kernel's wrapper: on CUDA tensors one launch of the shade
+kernel (``csrc/front.cu``, the device code shared with the mega kernel in
+``csrc/shade.cuh``) in place of ~1,660 plain ops, most of them the
+rejection sampler's 24 rounds; on CPU tensors its plain version
+``shade_plain``, which the plain megakernel also calls with its ``draws``
+count.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -27,7 +35,7 @@ import torch
 
 from raytracer_tpu_torch.core.types import (CameraUniforms, GpuScene,
                                             RenderConfig)
-from raytracer_tpu_torch.kernels import rng
+from raytracer_tpu_torch.kernels import cuda_build, launches, rng
 
 
 def _dot(a, b):
@@ -128,8 +136,9 @@ def scatter(seed, ray_d, normal, albedo, mtype, hit,
     return ScatterResult(seed, new_dir, albedo, scattered, emitted)
 
 
-def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
-          sky_on: bool, cfg: RenderConfig, draws: list | None = None):
+def shade_plain(res: TraversalResult, ray_o, ray_d, color, atten, seed,
+                alive, sky_on: bool, cfg: RenderConfig,
+                draws: list | None = None):
     """One bounce of shading: sky on miss, scatter / emit / absorb on hit.
     Returns advanced (ray_o, ray_d, color, atten, seed, alive).
     ``draws``: see ``rng.random_vec3_in_unit_sphere``."""
@@ -150,6 +159,50 @@ def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
     ray_o = _where(sc.scattered, hit_pos, ray_o)
     ray_d = _where(sc.scattered, sc.new_dir, ray_d)
     return ray_o, ray_d, color, atten, sc.seed, sc.scattered
+
+
+def _rows(xs, dtype, p: int, device, what: str) -> list:
+    """Each of ``xs`` as a contiguous [p] tensor of ``dtype`` on ``device``
+    (a strided or broadcast view is copied), else raise."""
+    out = []
+    for x in xs:
+        if x.dtype != dtype or x.shape != (p,) or x.device != device:
+            raise ValueError(f"{what} must be {dtype}[{p}] on {device}")
+        out.append(x.contiguous())
+    return out
+
+
+def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
+          sky_on: bool, cfg: RenderConfig):
+    """``shade_plain`` as one launch of the shade kernel
+    (``csrc/front.cu``) on CUDA tensors, ``shade_plain`` itself on CPU
+    tensors; the same arguments (f32 [P] rows, ``seed`` u32 values in
+    int64, ``res.hit`` and ``alive`` bool) and results, bit for bit."""
+    dev = alive.device
+    if dev.type == "cpu":
+        launches.plain["shade"] += 1
+        return shade_plain(res, ray_o, ray_d, color, atten, seed, alive,
+                           sky_on, cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    p = alive.shape[0]
+    ins = (_rows((res.closest_t, *res.normal, *res.mat_albedo,
+                  res.mat_type), torch.float32, p, dev, "the hit record")
+           + _rows((res.hit, alive), torch.bool, p, dev, "hit and alive")
+           + _rows((*ray_o, *ray_d, *color, *atten), torch.float32, p, dev,
+                   "the rays, colour and atten")
+           + _rows((seed,), torch.int64, p, dev, "seed"))
+    table = (ctypes.c_void_p * len(ins))(*(x.data_ptr() for x in ins))
+    out = torch.empty((12, p), dtype=torch.float32, device=dev)
+    seed_out = torch.empty(p, dtype=torch.int64, device=dev)
+    scattered = torch.empty(p, dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda_build.check(cuda_build.library().rt_shade(
+        table, out.data_ptr(), seed_out.data_ptr(), scattered.data_ptr(), p,
+        int(sky_on), int(cfg.emissive_emits), cfg.fuzz, stream), "rt_shade")
+    launches.kernel["shade"] += 1
+    rows = out.unbind(0)
+    return rows[0:3], rows[3:6], rows[6:9], rows[9:12], seed_out, scattered
 
 
 # C12 light: 1 / sqrt(3) rounded once to f32, as XLA folds the constant.

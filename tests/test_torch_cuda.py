@@ -591,9 +591,13 @@ def _plain_versions(monkeypatch):
     """Route the frame to the plain versions of every kernel."""
     from raytracer_tpu_torch.engine import renderer
     from raytracer_tpu_torch.kernels import (bounce, mega, packet, tonemap,
-                                             trace, wavefront)
+                                             trace, tracer, wavefront)
 
-    for m, name, f in ((trace, "trace4", trace.trace4_plain),
+    for m, name, f in ((packet, "primary_rays", packet.primary_rays_plain),
+                       (packet, "shade", tracer.shade_plain),
+                       (wavefront, "shade", tracer.shade_plain),
+                       (tracer, "shade", tracer.shade_plain),
+                       (trace, "trace4", trace.trace4_plain),
                        (trace, "trace2", trace.trace2_plain),
                        (wavefront, "bounce12", bounce.bounce12_plain),
                        (wavefront, "bounce15", bounce.bounce15_plain),
@@ -610,12 +614,13 @@ def _plain_versions(monkeypatch):
 
 # Path -> (knobs, kernels it launches, fixed-light tier, ties allowed).
 XLA_PATHS = {
-    "bounce_mega": ({"RAYTPU_BOUNCE": "mega"}, {"trace4", "mega"}, False,
-                    False),
+    "bounce_mega": ({"RAYTPU_BOUNCE": "mega"},
+                    {"raygen", "trace4", "shade", "mega"}, False, False),
     "b0_mega": ({"RAYTPU_B0": "mega"}, {"mega"}, False, False),
-    "b0_packet": ({"RAYTPU_B0": "packet"}, {"trace2_warp", "mega"}, False,
-                  False),
-    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"bounce12"}, False, True),
+    "b0_packet": ({"RAYTPU_B0": "packet"}, {"trace2_warp", "shade", "mega"},
+                  False, False),
+    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"raygen", "bounce12"}, False,
+                 True),
     "c12_b0_mega": ({"RAYTPU_B0": "mega"}, {"trace2"}, True, False),
 }
 
@@ -719,7 +724,8 @@ def test_bounce_build_kernel_matches_plain(scene, build):
         assert len(torch.unique(key)) > 100
 
 
-# Knobs of the sorted rounds -> the kernels a 256x192 frame launches.
+# Knobs of the sorted rounds -> the kernels a 256x192 frame launches
+# (besides the ray-gen, the bounce-0 shade and the tonemap).
 KNOB_FRAMES = {
     "SORT_KEY=pd5": ({"RAYTPU_SORT_KEY": "pd5"}, {"trace4", "bounce12_pd5"}),
     "SORT_KEY=om9,WAVE=fused": ({"RAYTPU_SORT_KEY": "om9",
@@ -765,7 +771,7 @@ def test_knob_frame_matches_plain(scene, monkeypatch, knob):
         monkeypatch.setenv(k, v)
     launches.reset()
     acc_k, img_k, st_k = Renderer(cfg).render(scene, uni)
-    assert set(launches.kernel) == kernels | {"tonemap"}
+    assert set(launches.kernel) == kernels | {"raygen", "shade", "tonemap"}
     assert not launches.plain
     with monkeypatch.context() as mp:
         _plain_versions(mp)
@@ -893,8 +899,8 @@ def test_layout_frame_matches_plain(layout_scenes, monkeypatch, layout):
     uni = default_camera(cfg.width, cfg.height).uniforms()
     launches.reset()
     acc_k, img_k, _ = Renderer(cfg).render(scene, uni)
-    assert set(launches.kernel) == {f"trace4_{layout}", f"bounce12_{layout}",
-                                    "tonemap"}
+    assert set(launches.kernel) == {"raygen", f"trace4_{layout}", "shade",
+                                    f"bounce12_{layout}", "tonemap"}
     assert not launches.plain
     with monkeypatch.context() as mp:
         _plain_versions(mp)
@@ -936,3 +942,238 @@ def test_walk_kernels_at_the_16_wide_stack_limit(scene):
     for bcap in (1, 2):
         assert _equal(bounce12(deep, state, bcap, True, cfg),
                       bounce12_plain(deep, state, bcap, True, cfg))
+
+
+# The ray-gen and shade kernels (csrc/front.cu) against their plain
+# versions: 0 differing bytes in every output row, pad lanes included.
+FC_BIG = 2 ** 20 + 7
+# Band -> (config over RenderConfig(), band rows, band, frame counter,
+# sample index): the flagship's three 240-row bands, c12's unjittered
+# 640x480 band, and bands with a pad tail in tile-major (8x128 tiles) and
+# raster order (no tile divides 120x200).
+RAYGEN_BANDS = {
+    **{f"flagship_band{b}_fc{fc}": ({}, 240, b, fc, 0)
+       for b in range(3) for fc in (0, FC_BIG)},
+    "c12": (dict(width=640, height=480, max_bounces=1,
+                 shading="fixed_light"), 480, 0, 3, 0),
+    "pad_tiles": (dict(width=128, height=80), 40, 1, FC_BIG, 0),
+    "pad_tiles_reference": (dict(width=128, height=80,
+                                 rng_mode="reference"), 40, 1, 5, 0),
+    "pad_tiles_spp2": (dict(width=128, height=80, samples_per_pixel=2),
+                       40, 1, 7, 1),
+    "pad_raster": (dict(width=200, height=120), 120, 0, 9, 0),
+    "pad_raster_c12": (dict(width=200, height=120, max_bounces=1,
+                            shading="fixed_light"), 120, 0, 9, 0),
+}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc)")
+
+
+@pytest.fixture(scope="module")
+def flagship(card):
+    from raytracer_tpu_torch.scene import presets
+
+    return presets.flagship_scene()
+
+
+@pytest.fixture(scope="module")
+def materials_scene(card):
+    """The ``sphere_light`` preset (matte ground, metal sphere, emissive
+    light) with every other metal triangle made fuzzy metal."""
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scene.builder import (
+        build_fast_scene_from_arrays, gather_triangles)
+
+    p = presets.config2_sphere_light()
+    verts, mats = gather_triangles(p.scene.create_snapshot())
+    metal = np.flatnonzero(mats[:, 3] == 1.0)
+    mats[metal[::2], 3] = 2.0
+    assert set(np.unique(mats[:, 3])) == {0.0, 1.0, 2.0, 3.0}
+    return build_fast_scene_from_arrays(verts, mats, device="cuda"), p
+
+
+def _raygen_args(cfg, band_h, band, fc, sample_index, camera=None):
+    """``primary_rays``' arguments for band ``band`` of cfg's frame."""
+    import dataclasses
+
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.kernels.trace import BBLOCK, BLOCK
+
+    cam = camera or default_camera(cfg.width, cfg.height)
+    cam.frame_count = fc
+    grain = max(BLOCK, BBLOCK)
+    p_pad = -(-band_h * cfg.width // grain) * grain
+    return (cam.uniforms(), dataclasses.replace(cfg, height=band_h), p_pad,
+            band * band_h, cfg.height, sample_index, "cuda")
+
+
+def _differing_bytes(got, want) -> int:
+    """Bytes that differ between two (nested) tuples of tensors."""
+    n = 0
+    for g, w in zip(got, want, strict=True):
+        if isinstance(g, tuple):
+            n += _differing_bytes(g, w)
+        elif g is None or w is None:
+            assert g is None and w is None
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            n += int((g.contiguous().view(torch.uint8)
+                      != w.contiguous().view(torch.uint8)).sum())
+    return n
+
+
+@pytest.mark.parametrize("band", list(RAYGEN_BANDS))
+def test_raygen_kernel_matches_plain(card, band):
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.kernels.packet import (primary_rays,
+                                                    primary_rays_plain)
+
+    over, band_h, b, fc, si = RAYGEN_BANDS[band]
+    args = _raygen_args(RenderConfig(**over), band_h, b, fc, si)
+    launches.reset()
+    got = primary_rays(*args)
+    assert dict(launches.kernel) == {"raygen": 1} and not launches.plain
+    want = primary_rays_plain(*args)
+    assert (got[1] is None) == (over.get("shading") == "fixed_light")
+    assert _differing_bytes(got, want) == 0
+    p = band_h * args[1].width
+    assert int(got[2].sum()) == p and got[2].shape[0] == args[2]
+
+
+def _bounce0(scene, cfg, args, sky_on):
+    """Bounce 0 of a band: ray-gen, the walk, then the shade's arguments
+    (kernel A's record of the primaries, colour 0, atten 1)."""
+    from raytracer_tpu_torch.kernels.packet import primary_rays
+    from raytracer_tpu_torch.kernels.trace import traverse_rays
+
+    rays, seed, alive, _ = primary_rays(*args)
+    res = traverse_rays(scene, rays, alive, args[1], coherent=True)
+    zero = torch.zeros(args[2], device="cuda")
+    one = torch.ones(args[2], device="cuda")
+    return (res, rays[0:3].unbind(0), rays[3:6].unbind(0),
+            (zero,) * 3, (one,) * 3, seed, alive, sky_on, args[1])
+
+
+def _shade_both(sargs):
+    from raytracer_tpu_torch.kernels import launches
+    from raytracer_tpu_torch.kernels.tracer import shade, shade_plain
+
+    launches.reset()
+    got = shade(*sargs)
+    assert dict(launches.kernel) == {"shade": 1} and not launches.plain
+    return got, shade_plain(*sargs)
+
+
+@pytest.mark.parametrize("band", [f"flagship_band{b}_fc{fc}"
+                                  for b in range(3) for fc in (0, FC_BIG)])
+def test_shade_kernel_matches_plain_at_bounce0(flagship, band):
+    """The bounce-0 shade of each flagship band as the default path runs
+    it (ray-gen, kernel A, shade)."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+
+    over, band_h, b, fc, si = RAYGEN_BANDS[band]
+    cfg = RenderConfig(**over)
+    got, want = _shade_both(_bounce0(flagship, cfg, _raygen_args(
+        cfg, band_h, b, fc, si), True))
+    assert _differing_bytes(got, want) == 0
+
+
+@pytest.mark.parametrize("sky_on", [True, False])
+@pytest.mark.parametrize("emits", [True, False])
+def test_shade_kernel_matches_plain_on_materials(materials_scene, sky_on,
+                                                 emits):
+    """Matte, metal, fuzzy-metal and emissive hits and sky misses at
+    640x480: bounce 0, then bounce 1 on its output (the rays that did not
+    scatter dead), sky and ``emissive_emits`` on and off."""
+    import dataclasses
+
+    from raytracer_tpu_torch.kernels.trace import traverse
+
+    scene, preset = materials_scene
+    cfg = dataclasses.replace(preset.config, emissive_emits=emits)
+    sargs = _bounce0(scene, cfg, _raygen_args(cfg, cfg.height, 0, FC_BIG,
+                                              0, preset.camera), sky_on)
+    got, want = _shade_both(sargs)
+    assert _differing_bytes(got, want) == 0
+    o, d, c, a, seed, alive = got
+    assert bool(alive.any()) and not bool(alive.all())
+    res = traverse(scene, o, d, alive, cfg)
+    got, want = _shade_both((res, o, d, c, a, seed, alive, sky_on, cfg))
+    assert _differing_bytes(got, want) == 0
+    hits = torch.cat([r.mat_type[r.hit & live] for r, live in (
+        (sargs[0], sargs[6]), (res, alive))])
+    assert set(torch.unique(hits).tolist()) == {0.0, 1.0, 2.0, 3.0}
+
+
+def test_shade_kernel_matches_plain_on_a_round(scene):
+    """Rays from everywhere, 20% dead, colours, atten and seeds of any
+    value, the hit record given as strided views (a [P, 8] record's
+    columns): the kernel's wrapper copies them, and every lane, dead ones
+    included, matches."""
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels.trace import trace4
+    from raytracer_tpu_torch.kernels.tracer import TraversalResult
+
+    n = 8191
+    o, d = _rays(n, 40)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    alive = torch.rand(n, generator=g, device="cuda") < 0.8
+    c = torch.rand((3, n), generator=g, device="cuda")
+    a = torch.rand((3, n), generator=g, device="cuda")
+    seed = torch.randint(0, 2 ** 32, (n,), generator=g, device="cuda")
+    cfg = RenderConfig()
+    rec = trace4(scene, torch.cat([o, d]).contiguous(), alive,
+                 cfg).T.contiguous()
+    res = TraversalResult(rec[:, 0], rec[:, 0] < cfg.t_max,
+                          (rec[:, 1], rec[:, 2], rec[:, 3]),
+                          (rec[:, 4], rec[:, 5], rec[:, 6]), rec[:, 7])
+    for sky_on in (True, False):
+        got, want = _shade_both((res, tuple(o), tuple(d), tuple(c),
+                                 tuple(a), seed, alive, sky_on, cfg))
+        assert _differing_bytes(got, want) == 0
+        assert not bool((got[5] & ~alive).any())
+
+
+def test_default_frame_front_matches_plain(scene, monkeypatch):
+    """Two 256x128 frames of the default path (two bands, the tail merge)
+    with the ray-gen and the shade as kernels and as plain ops, every
+    other kernel the same: accumulators, images and rays traced equal."""
+    from raytracer_tpu_torch.core.camera import default_camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import (launches, packet, tracer,
+                                             wavefront)
+
+    cfg = RenderConfig(width=256, height=128, band_rays=16384)
+    cam = default_camera(cfg.width, cfg.height)
+
+    def frames():
+        acc, out = None, []
+        for fc in (0, 1):
+            cam.frame_count = fc
+            acc, img, st = Renderer(cfg).render(scene, cam.uniforms(), acc)
+            out.append((acc.clone(), img, int(st["rays_traced"])))
+        return out
+
+    launches.reset()
+    got = frames()
+    assert dict(launches.kernel)["raygen"] == 4
+    assert dict(launches.kernel)["shade"] == 4
+    assert set(launches.kernel) == {"raygen", "trace4", "shade", "bounce12",
+                                    "tonemap"}
+    with monkeypatch.context() as mp:
+        mp.setattr(packet, "primary_rays", packet.primary_rays_plain)
+        for m in (packet, wavefront, tracer):
+            mp.setattr(m, "shade", tracer.shade_plain)
+        launches.reset()
+        want = frames()
+        assert "raygen" not in launches.kernel
+        assert "shade" not in launches.kernel
+    for (ak, ik, rk), (ap, ip, rp) in zip(got, want):
+        assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
+        assert torch.equal(ik, ip) and rk == rp

@@ -93,7 +93,7 @@ def test_c12_frame_matches_jax(refs, monkeypatch, traverse):
     launches.reset()
     accum, image, stats = Renderer(RenderConfig(**C12)).render(scene, uni)
     walk = "trace4" if traverse == "bvh4" else "trace2"
-    assert dict(launches.plain) == {walk: 1, "tonemap": 1}
+    assert dict(launches.plain) == {"raygen": 1, walk: 1, "tonemap": 1}
     np.testing.assert_allclose(accum.numpy(), ref["accum_0"], rtol=0,
                                atol=2e-5)
     np.testing.assert_array_equal(image.numpy(), ref["image_0"])

@@ -51,18 +51,24 @@ torch.set_num_threads(2)
 
 CFG = dict(width=64, height=32, max_bounces=4, band_rays=1024)
 C12 = dict(max_bounces=1, shading="fixed_light")
+# The tile-major ray-gen and the shade of bounce 0 (and of every split
+# round), booked by the default B0 arm.
+FRONT = {"raygen", "shade"}
 # Path -> (knobs, plain versions booked, config over CFG).
 PATHS = {
-    "pmega": ({"RAYTPU_BOUNCE": "pmega"}, {"trace4", "bounce15"}, {}),
-    "fused": ({"RAYTPU_WAVE": "fused"}, {"trace4", "bounce15"}, {}),
+    "pmega": ({"RAYTPU_BOUNCE": "pmega"}, {"trace4", "bounce15"} | FRONT,
+              {}),
+    "fused": ({"RAYTPU_WAVE": "fused"}, {"trace4", "bounce15"} | FRONT, {}),
     "fused_packed": ({"RAYTPU_WAVE": "fused_packed"},
-                     {"trace4", "bounce_packed"}, {}),
+                     {"trace4", "bounce_packed"} | FRONT, {}),
     "split_binary": ({"RAYTPU_WAVE": "split", "RAYTPU_TRAVERSE": "binary"},
-                     {"trace2"}, {}),
-    "bounce_mega": ({"RAYTPU_BOUNCE": "mega"}, {"trace4", "mega"}, {}),
-    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"bounce12"}, {}),
+                     {"trace2"} | FRONT, {}),
+    "bounce_mega": ({"RAYTPU_BOUNCE": "mega"}, {"trace4", "mega"} | FRONT,
+                    {}),
+    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"raygen", "bounce12"}, {}),
     "b0_mega": ({"RAYTPU_B0": "mega"}, {"mega"}, {}),
-    "b0_packet": ({"RAYTPU_B0": "packet"}, {"trace2_warp", "mega"}, {}),
+    "b0_packet": ({"RAYTPU_B0": "packet"}, {"trace2_warp", "shade", "mega"},
+                  {}),
     "c12_b0_mega": ({"RAYTPU_B0": "mega"}, {"trace2"}, C12),
 }
 CAM = dict(cam_origin=np.array([-10.0, 6.0, 30.0]),
@@ -145,9 +151,10 @@ def test_engines_render_the_default_frame(default_frame, monkeypatch, env):
 # Knobs -> (its kernels, the knobs of a path with its frame, whether the
 # two may differ on bounce-0 tie pixels).
 XLA_PAIRS = {
-    "RAYTPU_BOUNCE=mega": ({"RAYTPU_BOUNCE": "mega"}, {"trace4", "mega"},
+    "RAYTPU_BOUNCE=mega": ({"RAYTPU_BOUNCE": "mega"},
+                           {"trace4", "mega"} | FRONT,
                            {"RAYTPU_B0": "mega"}, True),
-    "RAYTPU_B0=pwave": ({"RAYTPU_B0": "pwave"}, {"bounce12"},
+    "RAYTPU_B0=pwave": ({"RAYTPU_B0": "pwave"}, {"raygen", "bounce12"},
                         {"RAYTPU_B0": "pwave", "RAYTPU_WAVE": "fused"},
                         False),
     "RAYTPU_B0=mega": ({"RAYTPU_B0": "mega"}, {"mega"},

@@ -159,8 +159,9 @@ def test_empty_gpu_scene_renders_sky():
 @pytest.mark.parametrize("kernel", ["packet", "wavefront"])
 def test_renderer_routes_gpu_scenes_per_ray(case, kernel):
     """A GpuScene renders through the per-ray path whatever the kernel
-    field says (no packet kernel runs), with the band split: two bands
-    equal one."""
+    field says (no packet kernel runs; each bounce's shade books as the
+    shade kernel's plain version), with the band split: two bands equal
+    one."""
     _, ref, scene = case
     uni = camera_uniforms_from_numpy(_sub(ref, "cam_"), device="cpu")
     images = []
@@ -168,6 +169,6 @@ def test_renderer_routes_gpu_scenes_per_ray(case, kernel):
         launches.reset()
         accum, image, stats = Renderer(RenderConfig(
             **CFG, kernel=kernel, band_rays=band_rays)).render(scene, uni)
-        assert set(launches.plain) == {"tonemap"}
+        assert set(launches.plain) == {"shade", "tonemap"}
         images.append((accum.numpy().tobytes(), int(stats["rays_traced"])))
     assert images[0] == images[1]

@@ -101,7 +101,8 @@ def test_tail_merge_widths_match_jax(case):
     assert widths == (2048, 4096)
     assert tuple(ref["tail_merge_widths"]) == widths
     # The frames went through every plain version (CPU tensors).
-    assert set(counts) == {"trace4", "bounce12", "tonemap"}
+    assert set(counts) == {"raygen", "trace4", "shade", "bounce12",
+                           "tonemap"}
 
 
 @pytest.mark.parametrize("fc", range(FRAMES))

@@ -55,12 +55,15 @@ CFG = dict(width=128, height=64, max_bounces=4, band_rays=4096)
 UNORDERED = {"RAYTPU_ORDER_MINW": str(1 << 30), "RAYTPU_WAVE_BCAP": "2",
              "RAYTPU_TAIL_BCAP": "3"}
 DEEP = {"RAYTPU_DEEP_SUB": "32"}
+# The tile-major ray-gen and the bounce-0 shade, booked on every frame.
+FRONT = {"raygen", "shade"}
 # Frame -> (knobs, plain versions booked, the tail-merge widths).
 FRAMES = {
-    "unordered_bcaps": (UNORDERED, {"trace4", "bounce12_unordered"},
+    "unordered_bcaps": (UNORDERED, {"trace4", "bounce12_unordered"} | FRONT,
                         (2048, 4096)),
-    "no_merge": ({"RAYTPU_TAIL_MERGE": "0"}, {"trace4", "bounce12"}, None),
-    "deep_sub": (DEEP, {"trace4", "bounce12"}, None),
+    "no_merge": ({"RAYTPU_TAIL_MERGE": "0"}, {"trace4", "bounce12"} | FRONT,
+                 None),
+    "deep_sub": (DEEP, {"trace4", "bounce12"} | FRONT, None),
 }
 
 
@@ -155,8 +158,8 @@ def default_frame():
     return scene, cfg, uni, accum, int(stats["rays_traced"])
 
 
-# Knob values -> the plain versions the frame books (besides trace4 and
-# the tonemap).
+# Knob values -> the plain versions the frame books (besides the ray-gen,
+# trace4, the bounce-0 shade and the tonemap).
 RESULT_FREE = {
     "RAYTPU_GLUE=perfield,RAYTPU_WAVE=fused": {"bounce15"},
     "RAYTPU_GLUE=packT,RAYTPU_WAVE=fused": {"bounce15"},
@@ -182,7 +185,7 @@ def test_result_free_knob_keeps_the_frame(default_frame, monkeypatch,
         monkeypatch.setenv(*kv.split("="))
     launches.reset()
     accum, _, stats = Renderer(cfg).render(scene, uni)
-    assert set(launches.plain) == RESULT_FREE[knobs_] | {"trace4",
-                                                          "tonemap"}
+    assert set(launches.plain) == RESULT_FREE[knobs_] | FRONT | {
+        "trace4", "tonemap"}
     assert accum.numpy().tobytes() == want.numpy().tobytes()
     assert int(stats["rays_traced"]) == rays

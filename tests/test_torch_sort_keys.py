@@ -204,7 +204,8 @@ def test_frame_matches_jax(refs, monkeypatch):
     monkeypatch.setenv("RAYTPU_SORT_KEY", "pd5")
     launches.reset()
     accum, image, stats = Renderer(cfg).render(scene, uni)
-    assert set(launches.plain) == {"trace4", "bounce12_pd5", "tonemap"}
+    assert set(launches.plain) == {"raygen", "trace4", "shade",
+                                   "bounce12_pd5", "tonemap"}
     np.testing.assert_allclose(accum.numpy(), ref["accum_0"], rtol=0,
                                atol=2e-5)
     differ = (image.numpy() != ref["image_0"]).any(-1)
