@@ -13,14 +13,16 @@ Phases, one or more lines each (any failure raises and exits non-zero):
    band sum at spp 1 and 2 (0 differing bytes in the accumulator and the
    image; its device time from the profiler and its call time); kernel A
    on the middle 720p band of flagship primaries (307,200 rays); the
-   ray-gen and shade kernels (``csrc/front.cu``) on that band (ray-gen
-   from the camera, the shade on kernel A's record of its primaries: 0
-   differing bytes in every output row; device time from device memory and
-   from L2, a call's time); kernel B on that band's sorted bounce-1 state
-   and on a merged-tail-width state with mixed bounce budgets (0
-   included); kernel 5 in its two designs, ``trace2_warp`` (one node id
-   per warp) on the same primaries and ``trace2`` (one thread per ray) on
-   the split engine's sorted bounce-1 round of that band, and both and
+   ray-gen, shade and key kernels (``csrc/front.cu``) on that band
+   (ray-gen from the camera, the shade on kernel A's record of its
+   primaries, the sorted rounds' entry key of the shaded rays in every
+   mode at dead bits 30 and 31: 0 differing bytes in every output row;
+   device time from device memory and from L2, a call's time); kernel B
+   on that band's sorted bounce-1 state and on a merged-tail-width state
+   with mixed bounce budgets (0 included); kernel 5 in its two designs,
+   ``trace2_warp`` (one node id per warp) on the same primaries and
+   ``trace2`` (one thread per ray) on the split engine's sorted bounce-1
+   round of that band, and both and
    kernel A with the normal flip off on the 640x480 C12 primaries (0
    differing lanes required); the colour-carrying kernel (``bounce15``) on
    the sorted bounce-1 band state at bcap 1 (a ``fused`` round) and on the
@@ -761,8 +763,9 @@ def packed_round_profile(scene, sf, si, cfg, want) -> dict:
 def plain_versions():
     """Route the render modules to the plain versions."""
     from raytracer_tpu_torch.engine import renderer
-    from raytracer_tpu_torch.kernels import (bounce, mega, packet, tonemap,
-                                             trace, tracer, wavefront)
+    from raytracer_tpu_torch.kernels import (bounce, keys, mega, packet,
+                                             tonemap, trace, tracer,
+                                             wavefront)
 
     slots = [(packet, "primary_rays", packet.primary_rays_plain),
              (packet, "shade", tracer.shade_plain),
@@ -770,6 +773,7 @@ def plain_versions():
              (tracer, "shade", tracer.shade_plain),
              (trace, "trace4", trace.trace4_plain),
              (trace, "trace2", trace.trace2_plain),
+             (wavefront, "sort_key", keys.sort_key_plain),
              (wavefront, "bounce12", bounce.bounce12_plain),
              (wavefront, "bounce15", bounce.bounce15_plain),
              (wavefront, "bounce_packed", bounce.bounce_packed_plain),
@@ -1868,16 +1872,19 @@ def differing_bytes(got, want) -> int:
 
 
 def check_front(scene, cfg, cam, results):
-    """The ray-gen and shade kernels (``csrc/front.cu``) on the middle
-    720p band against their plain versions: ray-gen from the camera, then
-    the shade of bounce 0 on kernel A's record of those primaries, 0
-    differing bytes in every output row; each kernel's device time
-    (profiler, inputs from device memory and from L2), a call's time, the
+    """The ray-gen, shade and key kernels (``csrc/front.cu``) on the
+    middle 720p band against their plain versions: ray-gen from the
+    camera, the shade of bounce 0 on kernel A's record of those
+    primaries, then the key the band's sorted rounds enter with from the
+    shaded rays (every mode of ``SORT_MODES`` and an unknown one at dead
+    bits 30 and 31), 0 differing bytes in every output row; each kernel's
+    device time (profiler, inputs from device memory and from L2; the key
+    at the default's mode and dead bit, cid at 30), a call's time, the
     plain version's and the bytes bound."""
     import dataclasses
 
     from raytracer_tpu_torch.engine.renderer import _num_bands
-    from raytracer_tpu_torch.kernels import packet, trace, tracer
+    from raytracer_tpu_torch.kernels import keys, packet, trace, tracer
 
     nb = _num_bands(cfg)
     band_h = cfg.height // nb
@@ -1910,7 +1917,26 @@ def check_front(scene, cfg, cam, results):
                         lambda: packet.primary_rays_plain(*args)),
              "shade": (lambda: tracer.shade(*sargs),
                        lambda: tracer.shade_plain(*sargs))}
-    for name, n_diff in (("raygen", n_raygen), ("shade", n_shade)):
+    checked = [("raygen", n_raygen), ("shade", n_shade)]
+    # The key of the shaded rays (a checkout without the key kernel,
+    # under kernel_times.py --trees, skips it): 0 differing bytes in each
+    # mode at both dead bits; timed at the default's, cid at 30, reading
+    # the rays and alive and writing the key once, the box aside.
+    if hasattr(keys, "sort_key_plain"):
+        kargs = (got_s[0], got_s[1], got_s[5], *scene.bounds())
+        n_key = 0
+        for mode in SORT_MODES + ("zorder",):
+            for dead_bit in (30, 31):
+                got_k = keys.sort_key(*kargs, mode, dead_bit)
+                want_k = keys.sort_key_plain(*kargs, mode, dead_bit)
+                n_key += differing_bytes((got_k,),
+                                         (want_k.to(got_k.dtype),))
+        moved["sort_key"] = (nbytes(*kargs[0], *kargs[1], kargs[2])
+                             + 4 * kargs[2].numel())
+        calls["sort_key"] = (lambda: keys.sort_key(*kargs, "cid", 30),
+                             lambda: keys.sort_key_plain(*kargs, "cid", 30))
+        checked.append(("sort_key", n_key))
+    for name, n_diff in checked:
         kern, plain = calls[name]
         ms = device_ms(kern, 50, f"{name}_kernel", cold=True)
         warm_ms = device_ms(kern, 50, f"{name}_kernel")
@@ -2672,7 +2698,8 @@ def main() -> None:
 
     # Phase 4: the main path at full size.
     main_run = run_path("main path", scene, cfg, cam, 16, {},
-                        ("raygen", "trace4", "shade", "bounce12", "tonemap"))
+                        ("raygen", "trace4", "shade", "sort_key", "bounce12",
+                         "tonemap"))
     os.makedirs(os.path.join(REPO, "out"), exist_ok=True)
     write_png(os.path.join(REPO, "out", "chip_smoke.png"), main_run["image"])
 
@@ -2845,7 +2872,8 @@ def main() -> None:
         "bounce_packed": packed_run["counts"]["bounce_packed"],
         "mega": xla_runs["b0_mega"]["counts"]["mega"],
         "raygen": main_run["counts"]["raygen"],
-        "shade": main_run["counts"]["shade"]}
+        "shade": main_run["counts"]["shade"],
+        "sort_key": main_run["counts"]["sort_key"]}
     launches_on_path.update({k: knob_runs[run]["counts"][k]
                              for k, run in BUILD_RUNS.items()})
     srcs = {"tonemap": ("cuda", "raytracer_tpu_torch/csrc/tonemap.cu",
@@ -2869,7 +2897,10 @@ def main() -> None:
                        "initial_seed, make_primary_rays (plain ops)"),
             "shade": ("cuda", "raytracer_tpu_torch/csrc/front.cu",
                       "none: raytracer_tpu/kernels/tracer.py shade "
-                      "(plain ops)")}
+                      "(plain ops)"),
+            "sort_key": ("cuda", "raytracer_tpu_torch/csrc/front.cu",
+                         "none: raytracer_tpu/kernels/wavefront.py "
+                         "sort_key (plain ops)")}
     srcs.update({k: ("cuda", src, rep)
                  for k, (_, _, _, src, rep) in KEY_BUILDS.items()})
     for k in srcs:

@@ -23,13 +23,13 @@ counts and the next round's sort key.
 
 Each wrapper takes ``key_mode``, the key it emits (``keys.KERNEL_KEYS``:
 ``cid``, the winner cluster id of the last walk, by default; ``pd5`` or
-``om9``, ``keys.sort_key`` of the advanced state against the root box with
-the dead flag at bit 30), and ``ordered`` (``bounce12`` and ``bounce15``
-only): False walks without the near-first push order (``walk_plain``), as
-``RAYTPU_ORDER_MINW`` levels do. Each (key, order) pair is a build of its
-own on the card (``csrc/bounce.cuh``), in the kernel library of the
-scene's table layout (``cuda_build.library``), booked in ``launches``
-under ``build_name`` with the layout's tag.
+``om9``, ``keys.sort_key_plain`` of the advanced state against the root
+box with the dead flag at bit 30), and ``ordered`` (``bounce12`` and
+``bounce15`` only): False walks without the near-first push order
+(``walk_plain``), as ``RAYTPU_ORDER_MINW`` levels do. Each (key, order)
+pair is a build of its own on the card (``csrc/bounce.cuh``), in the
+kernel library of the scene's table layout (``cuda_build.library``),
+booked in ``launches`` under ``build_name`` with the layout's tag.
 
 Round state is one i32 tensor, one row per field: f32 bits of origin,
 direction, [colour,] atten, then the PCG seed bits, the alive flag, the
@@ -52,7 +52,7 @@ import torch
 from raytracer_tpu_torch.core.fast_types import DEFAULT_LAYOUT, FastScene
 from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.kernels import cuda_build, launches
-from raytracer_tpu_torch.kernels.keys import KERNEL_KEYS, sort_key
+from raytracer_tpu_torch.kernels.keys import KERNEL_KEYS, sort_key_plain
 from raytracer_tpu_torch.kernels.rng import M32, REJECTION_ROUNDS, pcg
 from raytracer_tpu_torch.kernels.trace import (_check_scene, _check_table,
                                                walk_plain)
@@ -259,8 +259,8 @@ def _rounds_plain(scene: FastScene, state: torch.Tensor, bcap: int,
                   | ((d[2] > 0.0).to(torch.int32) << 2))
         key = ((~act).to(torch.int32) << 30) | (cid << 3) | octant
     else:
-        key = sort_key(o, d, act, *scene.bounds(), key_mode,
-                       dead_bit=30).to(torch.int32)
+        key = sort_key_plain(o, d, act, *scene.bounds(), key_mode,
+                             dead_bit=30).to(torch.int32)
     counts = torch.stack([rays, act.sum()])
     return out, key, counts
 

@@ -42,7 +42,7 @@ KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce12_pl",
            "bounce15_pd5", "bounce15_om9", "bounce15_unordered",
            "bounce_packed_pd5", "bounce_packed_om9", "bounce12_pd5_unordered",
            "bounce12_om9_unordered", "bounce15_pd5_unordered",
-           "bounce15_om9_unordered", "raygen", "shade")
+           "bounce15_om9_unordered", "raygen", "shade", "sort_key")
 ATTRS = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -133,6 +133,8 @@ def _declare(lib) -> None:
     lib.rt_raygen.argtypes = [vp] * 9 + [i32] * 11 + [vp]
     lib.rt_shade.restype = i32
     lib.rt_shade.argtypes = [vp] * 4 + [i32] * 3 + [f32, vp]
+    lib.rt_sort_key.restype = i32
+    lib.rt_sort_key.argtypes = [vp] * 3 + [i32] * 3 + [vp]
     lib.rt_mega_count.restype = i32
     lib.rt_mega_count.argtypes = ([vp] * 11 + [i32] * 7 + [f32] * 4
                                   + [i32, vp])

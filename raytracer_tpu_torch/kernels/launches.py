@@ -1,9 +1,9 @@
 """Launch counts of the hand-written kernels and calls of their plain
 versions, keyed by wrapper name ("trace4", "trace2", "trace2_warp",
 "bounce12", "bounce15", "bounce_packed", "tonemap", "mega", and "raygen"
-(``packet.primary_rays``) and "shade" (``tracer.shade``); the
-measurement builds "bounce12_pl" and "bounce_packed_count" run on no
-path).
+(``packet.primary_rays``), "shade" (``tracer.shade``) and "sort_key"
+(``keys.sort_key``); the measurement builds "bounce12_pl" and
+"bounce_packed_count" run on no path).
 
 A wrapper adds one to ``kernel`` where it launches its kernel and to
 ``plain`` where it runs the plain version, and nowhere else, so a run can

@@ -118,11 +118,8 @@ def _state_key(state, scene: FastScene, engine: str = "fused12",
         o, d = (f[0], f[1], f[2]), (f[3], f[4], f[5])
     else:
         o, d, _, _ = unpack_floats(state)
-    smin, smax = scene.bounds()
-    if _kernel_key(engine, mode):
-        return sort_key(o, d, _alive(state), smin, smax, mode,
-                        dead_bit=30).to(torch.int32)
-    return sort_key(o, d, _alive(state), smin, smax, mode)
+    dead_bit = 30 if _kernel_key(engine, mode) else 31
+    return sort_key(o, d, _alive(state), *scene.bounds(), mode, dead_bit)
 
 
 def _deposits(state) -> torch.Tensor:

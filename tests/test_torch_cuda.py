@@ -590,8 +590,9 @@ def test_mega_count_matches_kernel(scene):
 def _plain_versions(monkeypatch):
     """Route the frame to the plain versions of every kernel."""
     from raytracer_tpu_torch.engine import renderer
-    from raytracer_tpu_torch.kernels import (bounce, mega, packet, tonemap,
-                                             trace, tracer, wavefront)
+    from raytracer_tpu_torch.kernels import (bounce, keys, mega, packet,
+                                             tonemap, trace, tracer,
+                                             wavefront)
 
     for m, name, f in ((packet, "primary_rays", packet.primary_rays_plain),
                        (packet, "shade", tracer.shade_plain),
@@ -599,6 +600,7 @@ def _plain_versions(monkeypatch):
                        (tracer, "shade", tracer.shade_plain),
                        (trace, "trace4", trace.trace4_plain),
                        (trace, "trace2", trace.trace2_plain),
+                       (wavefront, "sort_key", keys.sort_key_plain),
                        (wavefront, "bounce12", bounce.bounce12_plain),
                        (wavefront, "bounce15", bounce.bounce15_plain),
                        (wavefront, "bounce_packed",
@@ -619,8 +621,8 @@ XLA_PATHS = {
     "b0_mega": ({"RAYTPU_B0": "mega"}, {"mega"}, False, False),
     "b0_packet": ({"RAYTPU_B0": "packet"}, {"trace2_warp", "shade", "mega"},
                   False, False),
-    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"raygen", "bounce12"}, False,
-                 True),
+    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"raygen", "sort_key", "bounce12"},
+                 False, True),
     "c12_b0_mega": ({"RAYTPU_B0": "mega"}, {"trace2"}, True, False),
 }
 
@@ -725,7 +727,8 @@ def test_bounce_build_kernel_matches_plain(scene, build):
 
 
 # Knobs of the sorted rounds -> the kernels a 256x192 frame launches
-# (besides the ray-gen, the bounce-0 shade and the tonemap).
+# (besides the ray-gen, the bounce-0 shade, the entry keys and the
+# tonemap).
 KNOB_FRAMES = {
     "SORT_KEY=pd5": ({"RAYTPU_SORT_KEY": "pd5"}, {"trace4", "bounce12_pd5"}),
     "SORT_KEY=om9,WAVE=fused": ({"RAYTPU_SORT_KEY": "om9",
@@ -771,7 +774,8 @@ def test_knob_frame_matches_plain(scene, monkeypatch, knob):
         monkeypatch.setenv(k, v)
     launches.reset()
     acc_k, img_k, st_k = Renderer(cfg).render(scene, uni)
-    assert set(launches.kernel) == kernels | {"raygen", "shade", "tonemap"}
+    assert set(launches.kernel) == kernels | {"raygen", "shade", "sort_key",
+                                              "tonemap"}
     assert not launches.plain
     with monkeypatch.context() as mp:
         _plain_versions(mp)
@@ -900,7 +904,8 @@ def test_layout_frame_matches_plain(layout_scenes, monkeypatch, layout):
     launches.reset()
     acc_k, img_k, _ = Renderer(cfg).render(scene, uni)
     assert set(launches.kernel) == {"raygen", f"trace4_{layout}", "shade",
-                                    f"bounce12_{layout}", "tonemap"}
+                                    "sort_key", f"bounce12_{layout}",
+                                    "tonemap"}
     assert not launches.plain
     with monkeypatch.context() as mp:
         _plain_versions(mp)
@@ -1164,8 +1169,10 @@ def test_default_frame_front_matches_plain(scene, monkeypatch):
     got = frames()
     assert dict(launches.kernel)["raygen"] == 4
     assert dict(launches.kernel)["shade"] == 4
-    assert set(launches.kernel) == {"raygen", "trace4", "shade", "bounce12",
-                                    "tonemap"}
+    # Keys: each band's entry into the sorted rounds and the tail's.
+    assert dict(launches.kernel)["sort_key"] == 6
+    assert set(launches.kernel) == {"raygen", "trace4", "shade", "sort_key",
+                                    "bounce12", "tonemap"}
     with monkeypatch.context() as mp:
         mp.setattr(packet, "primary_rays", packet.primary_rays_plain)
         for m in (packet, wavefront, tracer):

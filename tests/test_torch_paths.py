@@ -54,18 +54,22 @@ C12 = dict(max_bounces=1, shading="fixed_light")
 # The tile-major ray-gen and the shade of bounce 0 (and of every split
 # round), booked by the default B0 arm.
 FRONT = {"raygen", "shade"}
+# The host key of the sorted rounds' entries (and of every split round),
+# and of the pmega call's sort.
+KEY = {"sort_key"}
 # Path -> (knobs, plain versions booked, config over CFG).
 PATHS = {
-    "pmega": ({"RAYTPU_BOUNCE": "pmega"}, {"trace4", "bounce15"} | FRONT,
+    "pmega": ({"RAYTPU_BOUNCE": "pmega"},
+              {"trace4", "bounce15"} | FRONT | KEY, {}),
+    "fused": ({"RAYTPU_WAVE": "fused"}, {"trace4", "bounce15"} | FRONT | KEY,
               {}),
-    "fused": ({"RAYTPU_WAVE": "fused"}, {"trace4", "bounce15"} | FRONT, {}),
     "fused_packed": ({"RAYTPU_WAVE": "fused_packed"},
-                     {"trace4", "bounce_packed"} | FRONT, {}),
+                     {"trace4", "bounce_packed"} | FRONT | KEY, {}),
     "split_binary": ({"RAYTPU_WAVE": "split", "RAYTPU_TRAVERSE": "binary"},
-                     {"trace2"} | FRONT, {}),
+                     {"trace2"} | FRONT | KEY, {}),
     "bounce_mega": ({"RAYTPU_BOUNCE": "mega"}, {"trace4", "mega"} | FRONT,
                     {}),
-    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"raygen", "bounce12"}, {}),
+    "b0_pwave": ({"RAYTPU_B0": "pwave"}, {"raygen", "bounce12"} | KEY, {}),
     "b0_mega": ({"RAYTPU_B0": "mega"}, {"mega"}, {}),
     "b0_packet": ({"RAYTPU_B0": "packet"}, {"trace2_warp", "shade", "mega"},
                   {}),
@@ -154,7 +158,8 @@ XLA_PAIRS = {
     "RAYTPU_BOUNCE=mega": ({"RAYTPU_BOUNCE": "mega"},
                            {"trace4", "mega"} | FRONT,
                            {"RAYTPU_B0": "mega"}, True),
-    "RAYTPU_B0=pwave": ({"RAYTPU_B0": "pwave"}, {"raygen", "bounce12"},
+    "RAYTPU_B0=pwave": ({"RAYTPU_B0": "pwave"},
+                        {"raygen", "bounce12"} | KEY,
                         {"RAYTPU_B0": "pwave", "RAYTPU_WAVE": "fused"},
                         False),
     "RAYTPU_B0=mega": ({"RAYTPU_B0": "mega"}, {"mega"},

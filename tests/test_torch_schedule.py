@@ -55,8 +55,9 @@ CFG = dict(width=128, height=64, max_bounces=4, band_rays=4096)
 UNORDERED = {"RAYTPU_ORDER_MINW": str(1 << 30), "RAYTPU_WAVE_BCAP": "2",
              "RAYTPU_TAIL_BCAP": "3"}
 DEEP = {"RAYTPU_DEEP_SUB": "32"}
-# The tile-major ray-gen and the bounce-0 shade, booked on every frame.
-FRONT = {"raygen", "shade"}
+# The tile-major ray-gen, the bounce-0 shade and the sorted rounds' entry
+# keys, booked on every frame.
+FRONT = {"raygen", "shade", "sort_key"}
 # Frame -> (knobs, plain versions booked, the tail-merge widths).
 FRAMES = {
     "unordered_bcaps": (UNORDERED, {"trace4", "bounce12_unordered"} | FRONT,
@@ -159,7 +160,7 @@ def default_frame():
 
 
 # Knob values -> the plain versions the frame books (besides the ray-gen,
-# trace4, the bounce-0 shade and the tonemap).
+# trace4, the bounce-0 shade, the entry keys and the tonemap).
 RESULT_FREE = {
     "RAYTPU_GLUE=perfield,RAYTPU_WAVE=fused": {"bounce15"},
     "RAYTPU_GLUE=packT,RAYTPU_WAVE=fused": {"bounce15"},

@@ -24,6 +24,20 @@ The six Pallas lowerings (~20 s each) and the frame's run in three JAX
 children at once (``run_children``): the host keys, the pd5
 ``bounce_megakernel12`` and the frame, whose kernel B call reuses that
 lowering; two more builds; the last two.
+
+The key kernel (``keys.sort_key`` on the card, ``csrc/front.cu``), with no
+JAX child: ``test_key_kernel_matches_plain`` (marked ``cuda``, skipped
+without a card) holds it to ``sort_key_plain`` in every mode at both dead
+bits, 0 differing keys, on rows with NaN and +-inf coordinates, origins
+outside the box, dead rays, a width off its 256-thread blocks, in a box
+with a zero-width axis, as contiguous rows and as strided views. On the
+CPU the wrapper runs and books the plain version, kernel B's plain
+version keys without the wrapper, and a frame books one key at each
+entry of the sorted rounds (and one a round on the split engine). On the
+card:
+
+    python -m pytest --noconftest tests/test_torch_sort_keys.py -q \
+        -k kernel_matches_plain
 """
 
 import numpy as np
@@ -35,15 +49,18 @@ from test_torch_renderer import _bounce0_tie_pixels, _sub, _two_cubes
 from test_torch_trace2 import scene_arrays
 from torch_jax_refs import run_children, tie_lanes
 
+from raytracer_tpu_torch.core.camera import Camera
 from raytracer_tpu_torch.core.types import RenderConfig
-from raytracer_tpu_torch.engine.renderer import Renderer
+from raytracer_tpu_torch.engine.renderer import Renderer, _num_bands
 from raytracer_tpu_torch.kernels import launches, wavefront
 from raytracer_tpu_torch.kernels.bounce import (ROW_ALIVE, ROW_BUDGET,
                                                 ROW_SEED, bounce12_plain,
                                                 bounce15_plain,
                                                 bounce_packed_plain,
                                                 build_name, pack_state)
-from raytracer_tpu_torch.kernels.keys import sort_key
+from raytracer_tpu_torch.kernels.keys import sort_key, sort_key_plain
+from raytracer_tpu_torch.kernels.packet import (tail_merge_active,
+                                                tail_merge_widths)
 from raytracer_tpu_torch.scene.builder import (build_fast_scene_from_arrays,
                                                camera_uniforms_from_numpy,
                                                fast_scene_from_numpy)
@@ -204,7 +221,7 @@ def test_frame_matches_jax(refs, monkeypatch):
     monkeypatch.setenv("RAYTPU_SORT_KEY", "pd5")
     launches.reset()
     accum, image, stats = Renderer(cfg).render(scene, uni)
-    assert set(launches.plain) == {"raygen", "trace4", "shade",
+    assert set(launches.plain) == {"raygen", "trace4", "shade", "sort_key",
                                    "bounce12_pd5", "tonemap"}
     np.testing.assert_allclose(accum.numpy(), ref["accum_0"], rtol=0,
                                atol=2e-5)
@@ -212,3 +229,126 @@ def test_frame_matches_jax(refs, monkeypatch):
     ties = _bounce0_tie_pixels(scene, cfg, uni)
     assert not (differ & ~ties).any(), np.argwhere(differ & ~ties)[:10]
     assert int(stats["rays_traced"]) == int(ref["rays_0"])
+
+
+# The key kernel's rays: _key_inputs' cases cut to a width off the
+# kernel's 256-thread blocks, in the root box of scene_arrays' terrain.
+KEY_W = W - 5
+BOUNDS = np.array([-30.0, -8.042026, -30.0, 30.0, 12.0001, 30.0],
+                  np.float32)
+
+
+def _kernel_inputs(device, flat: bool = False, strided: bool = False):
+    """(origin rows, direction rows, alive, smin, smax) on ``device``;
+    ``flat``: the box's y axis has no width, and a tenth of the origins lie
+    on its plane; ``strided``: the rows are views of one [n, 6] tensor."""
+    bounds = BOUNDS.copy()
+    if flat:
+        bounds[4] = bounds[1]
+    o, d, alive = _key_inputs(np.random.default_rng(77), bounds)
+    o, d, alive = o[:, :KEY_W], d[:, :KEY_W], alive[:KEY_W]
+    if flat:
+        o[1, 100:100 + KEY_W // 10] = bounds[1]
+    rays = torch.from_numpy(np.concatenate([o, d])).to(device)
+    rays = rays.T.contiguous().T if strided else rays.contiguous()
+    assert rays[0].stride(0) == (6 if strided else 1)
+    b = torch.from_numpy(bounds).to(device)
+    return (tuple(rays[0:3]), tuple(rays[3:6]),
+            torch.from_numpy(alive).to(device), b[0:3], b[3:6])
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dead_bit", [30, 31])
+@pytest.mark.parametrize("flat", [False, True])
+def test_key_kernel_matches_plain(card, mode, dead_bit, flat):
+    for strided in (False, True):
+        args = _kernel_inputs(card, flat, strided)
+        launches.reset()
+        got = sort_key(*args, mode, dead_bit)
+        assert dict(launches.kernel) == {"sort_key": 1}
+        assert not launches.plain
+        want = sort_key_plain(*args, mode, dead_bit)
+        assert got.dtype == (torch.int32 if dead_bit == 30
+                             else torch.int64)
+        differ = got.to(torch.int64) != want
+        assert not bool(differ.any()), (strided, differ.nonzero()[:10])
+    # The inputs reach dead keys and many codes.
+    assert bool((got >> dead_bit == 1).any())
+    assert len(torch.unique(got)) > 100
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dead_bit", [30, 31])
+def test_key_wrapper_runs_the_plain_version(mode, dead_bit):
+    args = _kernel_inputs("cpu", flat=True, strided=True)
+    launches.reset()
+    got = sort_key(*args, mode, dead_bit)
+    assert dict(launches.plain) == {"sort_key": 1} and not launches.kernel
+    assert got.dtype == (torch.int32 if dead_bit == 30 else torch.int64)
+    assert torch.equal(got.to(torch.int64),
+                       sort_key_plain(*args, mode, dead_bit))
+
+
+def test_key_wrapper_refuses_other_dead_bits():
+    args = _kernel_inputs("cpu")
+    for dead_bit in (29, 32):
+        with pytest.raises(ValueError, match="dead bit"):
+            sort_key(*args, "cid", dead_bit)
+
+
+@pytest.mark.parametrize("key_mode", ["pd5", "om9"])
+def test_kernel_b_plain_keys_without_the_wrapper(key_mode):
+    """Kernel B's plain version (``bounce._rounds_plain``) emits its
+    ``pd5`` / ``om9`` key with ``sort_key_plain``: the plain build alone is
+    booked, and its key is ``sort_key_plain`` of the state it returns at
+    dead bit 30."""
+    verts, mats = scene_arrays()
+    scene = build_fast_scene_from_arrays(verts, mats, device="cpu")
+    f, i = _state_inputs(scene)
+    launches.reset()
+    out, key, _ = bounce12_plain(scene, _port_state(f, i, False), 1, True,
+                                 RenderConfig(), key_mode)
+    assert dict(launches.plain) == {build_name("bounce12", key_mode): 1}
+    fl = out[0:9].view(torch.float32)
+    want = sort_key_plain(tuple(fl[0:3]), tuple(fl[3:6]),
+                          out[ROW_ALIVE] != 0, *scene.bounds(), key_mode,
+                          dead_bit=30)
+    assert key.dtype == torch.int32 and torch.equal(key.to(torch.int64),
+                                                    want)
+
+
+@pytest.mark.parametrize("wave", ["fused12", "split"])
+def test_frame_books_the_entry_keys(monkeypatch, wave):
+    """A 256x96 frame of three bands: on the default engine one key at
+    each band's entry into the sorted rounds and one at the merged tail's
+    (kernel B carries every other key); on the split engine, which merges
+    no tail, one at each band's entry and one after each round."""
+    verts, mats = _two_cubes()
+    scene = build_fast_scene_from_arrays(verts, mats, device="cpu")
+    monkeypatch.setattr(wavefront, "MIN_WIDTH", 2048)
+    monkeypatch.setenv("RAYTPU_WAVE", wave)
+    cfg = RenderConfig(width=256, height=96, max_bounces=4, band_rays=8192)
+    nb = _num_bands(cfg)
+    assert nb == 3 and tail_merge_widths(cfg, cfg.height // nb, nb)
+    merged = tail_merge_active(scene, cfg)
+    assert merged == (wave == "fused12")
+    rounds = []
+    split_round = wavefront._Ladder._split_round
+    monkeypatch.setattr(wavefront._Ladder, "_split_round",
+                        lambda lad, st: rounds.append(1) or split_round(
+                            lad, st))
+    uni = Camera(origin=CAM["cam_origin"], look_at=CAM["cam_look"],
+                 vfov_deg=CAM["cam_vfov"], aspect_ratio=8 / 3).uniforms(
+        device="cpu")
+    launches.reset()
+    Renderer(cfg).render(scene, uni)
+    assert launches.plain["sort_key"] == nb + (1 if merged else len(rounds))
+    assert (len(rounds) > nb) == (wave == "split")
