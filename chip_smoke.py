@@ -759,39 +759,6 @@ def packed_round_profile(scene, sf, si, cfg, want) -> dict:
                 / (resident * span))
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Route the render modules to the plain versions."""
-    from raytracer_tpu_torch.engine import renderer
-    from raytracer_tpu_torch.kernels import (bounce, keys, mega, packet,
-                                             tonemap, trace, tracer,
-                                             wavefront)
-
-    slots = [(packet, "primary_rays", packet.primary_rays_plain),
-             (packet, "shade", tracer.shade_plain),
-             (wavefront, "shade", tracer.shade_plain),
-             (tracer, "shade", tracer.shade_plain),
-             (trace, "trace4", trace.trace4_plain),
-             (trace, "trace2", trace.trace2_plain),
-             (wavefront, "sort_key", keys.sort_key_plain),
-             (wavefront, "bounce12", bounce.bounce12_plain),
-             (wavefront, "bounce15", bounce.bounce15_plain),
-             (wavefront, "bounce_packed", bounce.bounce_packed_plain),
-             (packet, "bounce15", bounce.bounce15_plain),
-             (packet, "_traverse_fast", packet.ray_traverse_fast),
-             (packet, "_traverse_groups", packet.packet_traverse),
-             (mega, "mega", mega.mega_plain),
-             (renderer, "tonemap_accumulate", tonemap.tonemap_plain)]
-    saved = [getattr(m, n) for m, n, _ in slots]
-    for m, n, f in slots:
-        setattr(m, n, f)
-    try:
-        yield
-    finally:
-        for (m, n, _), f in zip(slots, saved):
-            setattr(m, n, f)
-
-
 def run_path(label, scene, cfg, cam, frames, env, kernels, warm=1):
     """``frames`` progressive frames through ``Renderer`` under the knobs
     ``env``, with the launch counts reset just before and read just after;
@@ -840,19 +807,27 @@ def run_path(label, scene, cfg, cam, frames, env, kernels, warm=1):
 
 def small_frame(label, scene, cfg, cam, env, kernels, max_px: int):
     """One frame through the kernels and through the plain versions under
-    the knobs ``env``: at most ``max_px`` differing u8 pixels."""
+    the knobs ``env``: each of ``kernels`` ran plain, every wrapper the
+    kernel frame launched ran plain and nothing launched, at most
+    ``max_px`` differing u8 pixels."""
     from raytracer_tpu_torch.engine.renderer import Renderer
     from raytracer_tpu_torch.kernels import launches
 
     with knob_env(env):
-        acc_k, img_k, st_k = Renderer(cfg).render(scene, cam)
         launches.reset()
-        with plain_versions():
+        acc_k, img_k, st_k = Renderer(cfg).render(scene, cam)
+        launched = set(launches.kernel)
+        launches.reset()
+        with launches.plain_versions():
             acc_p, img_p, st_p = Renderer(cfg).render(scene, cam)
         _sync()
     assert not launches.kernel, launches.kernel
     for k in kernels:
         assert launches.plain[k] > 0, f"{label}: plain {k} never ran"
+    # The plain coherent binary walk books as "trace2" (trace.trace2).
+    assert set(launches.plain) in (launched, {
+        k.replace("trace2_warp", "trace2") for k in launched}), (
+        label, launched, dict(launches.plain))
     n_px = int((img_k != img_p).any(-1).sum())
     lin_err = (acc_k - acc_p).abs().max().item()
     print(f"end to end {cfg.width}x{cfg.height} {label}: u8 differing "
@@ -2648,8 +2623,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from raytracer_tpu_torch.core.camera import default_camera
     from raytracer_tpu_torch.core.types import RenderConfig
-    from raytracer_tpu_torch.engine.renderer import Renderer
-    from raytracer_tpu_torch.kernels import cuda_build, launches
+    from raytracer_tpu_torch.kernels import cuda_build
     from raytracer_tpu_torch.scene import presets
     from raytracer_tpu_torch.scene.builder import \
         build_fast_scene_from_arrays
@@ -2703,21 +2677,13 @@ def main() -> None:
     os.makedirs(os.path.join(REPO, "out"), exist_ok=True)
     write_png(os.path.join(REPO, "out", "chip_smoke.png"), main_run["image"])
 
-    # Phase 5: a small frame, kernels against plain versions.
+    # Phase 5: a small frame (2 bands, tail merge), kernels against plain
+    # versions.
     cfg5 = RenderConfig(width=256, height=128, band_rays=16384)
     cam5 = default_camera(cfg5.width, cfg5.height).uniforms()
-    acc_k, img_k, st_k = Renderer(cfg5).render(scene, cam5)
-    launches.reset()
-    with plain_versions():
-        acc_p, img_p, st_p = Renderer(cfg5).render(scene, cam5)
-    _sync()
-    assert not launches.kernel and launches.plain["bounce12"] > 0
-    n_px = int((img_k != img_p).any(-1).sum())
-    lin_err = (acc_k - acc_p).abs().max().item()
-    print(f"end to end 256x128 (2 bands, tail merge): u8 differing pixels "
-          f"{n_px}, linear max abs diff {lin_err:.3g}, rays "
-          f"{int(st_k['rays_traced'])} vs {int(st_p['rays_traced'])}")
-    assert n_px <= TIE_FRACTION_MAX * cfg5.width * cfg5.height
+    ties = int(TIE_FRACTION_MAX * cfg5.width * cfg5.height)
+    small_frame("main path", scene, cfg5, cam5, {},
+                ("raygen", "trace4", "shade", "sort_key", "bounce12"), ties)
 
     # Phase 6: pmega against the default path, in turns (two cycles of
     # default, pmega, pmega, default, 8 frames each: the host-bound frame
@@ -2755,7 +2721,6 @@ def main() -> None:
                           c12_runs["trace2_warp"]["image"])
 
     # Phase 8: a 256x128 frame per new path, kernels against plain.
-    ties = int(TIE_FRACTION_MAX * cfg5.width * cfg5.height)
     for label, env, kernels, max_px in (
             ("pmega", pmega, ("trace4", "bounce15"), ties),
             ("fused", {"RAYTPU_WAVE": "fused"}, ("trace4", "bounce15"),

@@ -19,12 +19,11 @@ bands' (``bounce15_top``, ``bounce15_bottom``; with ``--bcaps``, also at
 those bcaps on the middle band, rows ``bounce15_b<k>``) and as a fused
 round (bcap 1), ``bounce_packed`` on the ``fused_packed`` round's state
 of the middle band and of the top and bottom bands
-(``bounce_packed_top``, ``bounce_packed_bottom``),
-``bounce12_pl`` (kernel B with the walk's postponed leaves, where the
-checkout has it), kernel B's key and walk-order builds where the checkout
-has them (``chip_smoke.KEY_BUILDS``: ``bounce12_pd5``, ``bounce12_om9``,
-``bounce12_unordered``, ``bounce15_pd5``, ``bounce15_om9``,
-``bounce15_unordered``, ``bounce_packed_pd5``, ``bounce_packed_om9``, each
+(``bounce_packed_top``, ``bounce_packed_bottom``), kernel B's key and
+walk-order builds where the checkout has them (``chip_smoke.KEY_BUILDS``:
+``bounce12_pd5``, ``bounce12_om9``, ``bounce12_unordered``,
+``bounce15_pd5``, ``bounce15_om9``, ``bounce15_unordered``,
+``bounce_packed_pd5``, ``bounce_packed_om9``, each
 on the middle band's bounce-1 state sorted by its key, as
 ``chip_smoke.py`` phase 20 runs them), and the tonemap on a 1280x720
 frame at spp 1: its kernel's device time from the profiler, after an L2
@@ -79,7 +78,7 @@ MEGA_ROWS = {"mega": (None, 0), "mega_b1": (None, 1), "mega_top": (0, 0),
 # Whole frames of the paths that launch mega (row -> their knobs).
 FRAME_ROWS = {"frame_b0_mega": {"RAYTPU_B0": "mega"},
               "frame_bounce_mega": {"RAYTPU_BOUNCE": "mega"}}
-KERNELS = ("trace4", "bounce12", "bounce12_pl", "bounce15", "bounce15_top",
+KERNELS = ("trace4", "bounce12", "bounce15", "bounce15_top",
            "bounce15_bottom", "bounce15_fused", "bounce_packed",
            "bounce_packed_top", "bounce_packed_bottom", "trace2",
            "trace2_split", "tonemap", "tonemap_warm", "tonemap_call",
@@ -183,11 +182,6 @@ def run_one(tree: str, reps: int, bcaps=(), rows=None,
                                                    True, cfg),
             lambda band=band: bounce.bounce_packed_plain(
                 scene, *packed(band), 1, True, cfg))
-    if "bounce12_pl" in cuda_build.KERNELS:
-        calls["bounce12_pl"] = (
-            lambda: bounce._launch_rounds("bounce12_pl", scene, st12(), 1,
-                                          True, cfg),
-            lambda: bounce.bounce12_plain(scene, st12(), 1, True, cfg))
     if "bounce12_pd5" in cuda_build.KERNELS and (
             not rows or any(k in cs.KEY_BUILDS for k in rows)):
         states = {m: cs.key_states(scene, cfg, cam, m)

@@ -187,19 +187,19 @@ __device__ __forceinline__ void shade(RayState& s, const rt::Hit& h,
 }
 
 // One walk + shade iteration of a live ray.
-template <bool CarryColor, bool kOrdered, bool kPostpone = false>
+template <bool CarryColor, bool kOrdered>
 __device__ __forceinline__ void iterate(RayState& s, const Params& q) {
   ++s.rays;
-  const rt::Hit h = rt::walk<kPostpone, kOrdered>(
-      q.nodes4, q.clusters, s.r, q.t_min, q.t_max, q.det_eps, true);
+  const rt::Hit h = rt::walk<kOrdered>(q.nodes4, q.clusters, s.r, q.t_min,
+                                       q.t_max, q.det_eps, true);
   shade<CarryColor>(s, h, q);
 }
 
 // Up to bcap walk + shade iterations while the ray lives.
-template <bool CarryColor, bool kOrdered, bool kPostpone = false>
+template <bool CarryColor, bool kOrdered>
 __device__ __forceinline__ void run_ray(RayState& s, const Params& q) {
   for (int b = 0; b < q.bcap && s.act; ++b) {
-    iterate<CarryColor, kOrdered, kPostpone>(s, q);
+    iterate<CarryColor, kOrdered>(s, q);
   }
 }
 
@@ -335,9 +335,8 @@ __device__ __forceinline__ void store_ray(const RayState& s,
   key_out[i] = round_key<K>(s, bounds);
 }
 
-// One thread runs one ray through up to bcap iterations. kPostpone (the
-// walk's postponed leaves) is measured on bounce12 only (rt_bounce12_pl).
-template <bool CarryColor, Key K, bool kOrdered, bool kPostpone = false>
+// One thread runs one ray through up to bcap iterations.
+template <bool CarryColor, Key K, bool kOrdered>
 __global__ void __launch_bounds__(kThreads)
     bounce_kernel(Params q, const int32_t* __restrict__ st_in,
                   int32_t* __restrict__ st_out, int32_t* __restrict__ key_out,
@@ -349,7 +348,7 @@ __global__ void __launch_bounds__(kThreads)
   s.rays = 0;
   if (i < w) {
     load_ray<CarryColor>(s, st_in, i, w);
-    run_ray<CarryColor, kOrdered, kPostpone>(s, q);
+    run_ray<CarryColor, kOrdered>(s, q);
     store_ray<CarryColor, K>(s, st_in, st_out, key_out, i, w, q.bounds);
   }
   add_counts(counts, s.rays, s.act ? 1u : 0u);
@@ -447,7 +446,7 @@ using rt::globaltimer;
 // thread makes 148,607 warp trips through the walk's visit loop at a SIMD
 // efficiency of 0.44 and 108,793 through its leaf loop at 0.155, and
 // leaves block slots idle for the last third of the launch. Postponed
-// leaves (walk<true>) cut leaf trips by a third but added 43% of visit
+// leaves (walk.cuh) cut leaf trips by a third but added 43% of visit
 // trips (+6%). Persistent warps that refill lanes in mid-walk from 32-ray
 // batches (91 registers, 5 blocks per SM) cut visit trips by 39% but not
 // leaf trips (+6%); with postponed leaves too they cut leaf trips by 54%
@@ -486,8 +485,8 @@ __global__ void __launch_bounds__(kThreads)
     s.cid = 0;
     for (int b = 0; b < q.bcap && s.act; ++b) {
       ++s.rays;
-      const rt::Hit h = rt::walk<false>(q.nodes4, q.clusters, s.r, q.t_min,
-                                        q.t_max, q.det_eps, true, count);
+      const rt::Hit h = rt::walk(q.nodes4, q.clusters, s.r, q.t_min,
+                                 q.t_max, q.det_eps, true, count);
       shade<true>(s, h, q);
     }
     float* o = sf_out + i;

@@ -165,23 +165,6 @@ extern "C" int rt_bounce12(const void* nodes4, const void* clusters,
                       state_in, state_out, key, counts, stream);
 }
 
-// bounce12 with the walk's postponed leaves: measured (kernel_times.py),
-// not on any path; the cid key and the ordered walk only.
-extern "C" int rt_bounce12_pl(const void* nodes4, const void* clusters,
-                              const void* bounds, const void* state_in,
-                              void* state_out, void* key, void* counts,
-                              int w, int bcap, int sky_on, float fuzz,
-                              int emissive_emits, float t_min, float t_max,
-                              float det_eps, int key_mode, int ordered,
-                              void* stream) {
-  if (key_mode != 0 || !ordered) return kInvalidValue;
-  return launch_round(&rtb::bounce_kernel<false, Key::kCid, true, true>,
-                      make_params(nodes4, clusters, bounds, w, bcap, sky_on,
-                                  fuzz, emissive_emits, t_min, t_max,
-                                  det_eps),
-                      state_in, state_out, key, counts, stream);
-}
-
 // The colour-carrying round; at bcap > 1 (the pmega call, multi-bounce
 // rounds) the persistent warps of bounce15_pmega_kernel.
 extern "C" int rt_bounce15(const void* nodes4, const void* clusters,
@@ -265,9 +248,6 @@ extern "C" int rt_bounce12_pd5_unordered_attrs(int* out) {
 }
 extern "C" int rt_bounce12_om9_unordered_attrs(int* out) {
   return attrs_of(builds_or_none(2, 0).b12, out);
-}
-extern "C" int rt_bounce12_pl_attrs(int* out) {
-  return attrs_of(&rtb::bounce_kernel<false, Key::kCid, true, true>, out);
 }
 extern "C" int rt_bounce15_attrs(int* out) {
   return attrs_of(builds_or_none(0, 1).b15, out);

@@ -35,11 +35,14 @@
 // for a ray that pushes fewer than two children. With that, kernel A uses
 // about 58 registers and kernel B 66, for 8 and 7 resident 128-thread
 // blocks per SM; 64- or 256-thread blocks and a register cap that buys
-// more blocks (it spills) were not faster. Postponed leaves (walk<true>)
-// made kernel B 3.5% slower (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
-// they add more visit trips than they save leaf trips; with warps that
-// refill lanes in mid-walk they paid on one band's round and not on
-// another's (bounce12.cu, bounce_packed_kernel).
+// more blocks (it spills) were not faster. Postponed leaves (the
+// "while-while" loop of Aila and Laine, HPG 2009: a lane parks the leaves
+// a visit hits and visits on until the warp's lanes have all parked leaves
+// or ended, then the warp tests them together) made kernel B 3.5% slower
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md) and were taken out: they add
+// more visit trips than they save leaf trips; with warps that refill lanes
+// in mid-walk they paid on one band's round and not on another's
+// (bounce.cuh, bounce_packed_kernel).
 //
 // Build with -fmad=false and without fast math: every product, sum,
 // division and square root rounds as in the plain PyTorch version.
@@ -397,42 +400,25 @@ __device__ __forceinline__ bool pop(Walk& w, const int* stack) {
   return true;
 }
 
-// One step of the walk: a visit and its leaves, or with kPostpone visits
-// until one hits a leaf, then its leaves (see walk()). False when the walk
-// has ended.
-template <bool kPostpone, bool kOrdered, class C>
+// One step of the walk: a visit and its leaves. False when the walk has
+// ended.
+template <bool kOrdered, class C>
 __device__ __forceinline__ bool walk_step(Walk& w, int* stack,
                                           const float* __restrict__ nodes4,
                                           const float* __restrict__ clusters,
                                           float t_min, float det_eps,
                                           C& count) {
-  if constexpr (kPostpone) {
-    bool more = true;
-    while (more && !w.leaves) {
-      count.visit();
-      visit<kOrdered>(w, stack, nodes4, t_min);
-      if (!w.leaves) more = pop(w, stack);
-    }
-    if (!w.leaves) return false;
-  } else {
-    count.visit();
-    visit<kOrdered>(w, stack, nodes4, t_min);
-  }
+  count.visit();
+  visit<kOrdered>(w, stack, nodes4, t_min);
   test_leaves(w, nodes4, clusters, t_min, det_eps, count);
   return pop(w, stack);
 }
 
 // Closest hit of one ray. Returns t = t_max and zeros on a miss.
 //
-// kPostpone: postponed leaves (the "while-while" loop of Aila and Laine,
-// HPG 2009). A lane whose visit hits a leaf parks it and stops; the other
-// lanes visit on until each has parked leaves or ended, then the warp
-// tests its parked leaves together. A lane tests a visit's leaves before
-// it visits again, so each ray keeps its own visit and test order, and
-// its result is the same bit for bit.
 // kOrdered: near-first pushes (the default), or slot order (see visit).
 // count: the tallies of a counting build (LaneCount), or NoCount.
-template <bool kPostpone, bool kOrdered = true, class C>
+template <bool kOrdered = true, class C>
 __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
                                     const float* __restrict__ clusters,
                                     const Ray& r, float t_min, float t_max,
@@ -440,21 +426,21 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
   Walk w;
   int stack[kStackCap];
   walk_start(w, r, t_max);
-  while (walk_step<kPostpone, kOrdered>(w, stack, nodes4, clusters, t_min,
-                                        det_eps, count)) {
+  while (walk_step<kOrdered>(w, stack, nodes4, clusters, t_min, det_eps,
+                             count)) {
   }
   if (flip) face_ray(r, w.h);
   return w.h;
 }
 
-template <bool kPostpone = false, bool kOrdered = true>
+template <bool kOrdered = true>
 __device__ __forceinline__ Hit walk(const float* __restrict__ nodes4,
                                     const float* __restrict__ clusters,
                                     const Ray& r, float t_min, float t_max,
                                     float det_eps, bool flip) {
   NoCount count;
-  return walk<kPostpone, kOrdered>(nodes4, clusters, r, t_min, t_max,
-                                   det_eps, flip, count);
+  return walk<kOrdered>(nodes4, clusters, r, t_min, t_max, det_eps, flip,
+                        count);
 }
 
 #undef RT_CSWAP

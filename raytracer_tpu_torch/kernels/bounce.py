@@ -271,8 +271,6 @@ def bounce12_plain(scene: FastScene, state: torch.Tensor, bcap: int,
     """Plain version of kernel B -> (state' i32[13, w], key i32[w],
     counts int64[2] = (rays traced, live at the end))."""
     _check_state(scene, state, STATE_ROWS)
-    launches.plain[build_name("bounce12", key_mode, ordered,
-                              scene.layout)] += 1
     return _rounds_plain(scene, state, bcap, sky_on, cfg, key_mode, ordered)
 
 
@@ -282,8 +280,6 @@ def bounce15_plain(scene: FastScene, state: torch.Tensor, bcap: int,
     """Plain version of the colour-carrying kernel -> (state' i32[16, w],
     key i32[w], counts int64[2])."""
     _check_state(scene, state, COLOR_ROWS)
-    launches.plain[build_name("bounce15", key_mode, ordered,
-                              scene.layout)] += 1
     return _rounds_plain(scene, state, bcap, sky_on, cfg, key_mode, ordered)
 
 
@@ -293,8 +289,6 @@ def bounce_packed_plain(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
     """Plain version of the packed kernel: sf f32[13, w], si i32[k, w] ->
     (sf', si', key i32[w], counts int64[2]); si rows >= 1 pass through."""
     _check_packed(scene, sf, si)
-    launches.plain[build_name("bounce_packed", key_mode,
-                              layout=scene.layout)] += 1
     state = packed_to_state(sf, si, UNIFORM_BUDGET, 0)
     out, key, counts = _rounds_plain(scene, state, bcap, sky_on, cfg,
                                      key_mode)
@@ -343,40 +337,37 @@ def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
         cfg.fuzz, int(cfg.emissive_emits), cfg.t_min, cfg.t_max, cfg.det_eps,
         KERNEL_KEYS.index(key_mode), int(bool(ordered)), stream),
         f"rt_{name}")
-    launches.kernel[build_name(name, key_mode, ordered, scene.layout)] += 1
     return out, key, counts[:2]
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    """False for a CPU tensor (plain version), True for a CUDA one,
-    raises for any other device."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type == "cuda"
 
 
 def bounce12(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
              cfg: RenderConfig, key_mode: str = "cid", ordered: bool = True):
     """Kernel B on CUDA tensors, its plain version on CPU tensors (same
     arguments and results as ``bounce12_plain``)."""
-    if not _on_cuda(state):
+    name = build_name("bounce12", key_mode, ordered, scene.layout)
+    if not launches.on_card(name, state.device):
         return bounce12_plain(scene, state, bcap, sky_on, cfg, key_mode,
                               ordered)
     _check_state(scene, state, STATE_ROWS)
-    return _launch_rounds("bounce12", scene, state, bcap, sky_on, cfg,
-                          key_mode, ordered)
+    out = _launch_rounds("bounce12", scene, state, bcap, sky_on, cfg,
+                         key_mode, ordered)
+    launches.launched(name)
+    return out
 
 
 def bounce15(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
              cfg: RenderConfig, key_mode: str = "cid", ordered: bool = True):
     """The colour-carrying kernel on CUDA tensors, its plain version on
     CPU tensors (same arguments and results as ``bounce15_plain``)."""
-    if not _on_cuda(state):
+    name = build_name("bounce15", key_mode, ordered, scene.layout)
+    if not launches.on_card(name, state.device):
         return bounce15_plain(scene, state, bcap, sky_on, cfg, key_mode,
                               ordered)
     _check_state(scene, state, COLOR_ROWS)
-    return _launch_rounds("bounce15", scene, state, bcap, sky_on, cfg,
-                          key_mode, ordered)
+    out = _launch_rounds("bounce15", scene, state, bcap, sky_on, cfg,
+                         key_mode, ordered)
+    launches.launched(name)
+    return out
 
 
 def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
@@ -399,7 +390,6 @@ def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
         counts.data_ptr(), *(t.data_ptr() for t in extra), w, si.shape[0],
         int(bcap), int(bool(sky_on)), cfg.fuzz, int(cfg.emissive_emits),
         cfg.t_min, cfg.t_max, cfg.det_eps, *code, stream), f"rt_{name}")
-    launches.kernel[build_name(name, key_mode, layout=scene.layout)] += 1
     return sf_out, si_out, key, counts
 
 
@@ -408,12 +398,15 @@ def bounce_packed(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
                   key_mode: str = "cid"):
     """The packed kernel on CUDA tensors, its plain version on CPU tensors
     (same arguments and results as ``bounce_packed_plain``)."""
-    if not _on_cuda(sf):
+    name = build_name("bounce_packed", key_mode, layout=scene.layout)
+    if not launches.on_card(name, sf.device):
         return bounce_packed_plain(scene, sf, si, bcap, sky_on, cfg,
                                    key_mode)
     _check_packed(scene, sf, si)
-    return _launch_packed("bounce_packed", scene, sf, si, bcap, sky_on, cfg,
-                          key_mode=key_mode)
+    out = _launch_packed("bounce_packed", scene, sf, si, bcap, sky_on, cfg,
+                         key_mode=key_mode)
+    launches.launched(name)
+    return out
 
 
 def bounce_packed_count(scene: FastScene, sf: torch.Tensor,
@@ -424,7 +417,7 @@ def bounce_packed_count(scene: FastScene, sf: torch.Tensor,
     trips, lanes active in them, leaf trips, lanes active in them, summed
     over warps) and each launched block's first and last ``%globaltimer``
     reading, int64[blocks, 2] in ns."""
-    if not _on_cuda(sf):
+    if not launches.is_card(sf.device):
         raise ValueError("the counting build runs on the card only")
     _check_packed(scene, sf, si)
     tallies = torch.zeros(4, dtype=torch.int64, device=sf.device)
@@ -432,4 +425,5 @@ def bounce_packed_count(scene: FastScene, sf: torch.Tensor,
                         device=sf.device)
     out = _launch_packed("bounce_packed_count", scene, sf, si, bcap, sky_on,
                          cfg, tallies, times)
+    launches.launched(build_name("bounce_packed_count", layout=scene.layout))
     return (*out, tallies, times[times[:, 0] != 0])

@@ -36,8 +36,8 @@ SOURCES = ("trace4.cu", "trace2.cu", "bounce12.cu", "bounce_pd5.cu",
 HEADERS = ("walk.cuh", "walk2.cuh", "pcg.cuh", "bounce.cuh", "shade.cuh")
 # Kernel B's builds of other keys and walk orders go by
 # kernels/bounce.py build_name ("bounce12_pd5", ...).
-KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce12_pl",
-           "bounce15", "bounce15_pmega", "bounce_packed", "tonemap", "mega",
+KERNELS = ("trace4", "trace2", "trace2_warp", "bounce12", "bounce15",
+           "bounce15_pmega", "bounce_packed", "tonemap", "mega",
            "bounce12_pd5", "bounce12_om9", "bounce12_unordered",
            "bounce15_pd5", "bounce15_om9", "bounce15_unordered",
            "bounce_packed_pd5", "bounce_packed_om9", "bounce12_pd5_unordered",
@@ -114,7 +114,7 @@ def _declare(lib) -> None:
         fn.restype = i32
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, f32, f32, f32, i32,
                        vp]
-    for name in ("rt_bounce12", "rt_bounce12_pl", "rt_bounce15"):
+    for name in ("rt_bounce12", "rt_bounce15"):
         fn = getattr(lib, name)
         fn.restype = i32
         fn.argtypes = [vp] * 7 + [i32, i32, i32, f32, i32, f32, f32, f32,

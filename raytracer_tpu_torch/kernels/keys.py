@@ -104,12 +104,9 @@ def sort_key(ray_o, ray_d, alive, smin, smax, mode: str = "cid",
         raise ValueError(f"dead bit {dead_bit}: the keys take 30 or 31")
     out_dtype = torch.int32 if dead_bit == 30 else torch.int64
     dev = alive.device
-    if dev.type == "cpu":
-        launches.plain["sort_key"] += 1
+    if not launches.on_card("sort_key", dev):
         return sort_key_plain(ray_o, ray_d, alive, smin, smax, mode,
                               dead_bit).to(out_dtype)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     n = alive.shape[0]
     rows = [ray_o[k] for k in range(3)] + [ray_d[k] for k in range(3)]
     if (alive.dtype != torch.bool or alive.shape != (n,)
@@ -127,5 +124,5 @@ def sort_key(ray_o, ray_d, alive, smin, smax, mode: str = "cid",
     cuda_build.check(cuda_build.library().rt_sort_key(
         ptrs, strides, out.data_ptr(), n, _MODE_IDS.get(mode, 3), dead_bit,
         stream), "rt_sort_key")
-    launches.kernel["sort_key"] += 1
+    launches.launched("sort_key")
     return out

@@ -76,7 +76,6 @@ def _launch(name: str, scene: FastScene, ray_o, ray_d, color, atten, seed,
         int(bool(cfg.emissive_emits)),
         cfg.fuzz, cfg.t_min, cfg.t_max, cfg.det_eps, *ints, stream),
         f"rt_{name}")
-    launches.kernel[cuda_build.kernel_name(name, layout)] += 1
     return out, rays
 
 
@@ -87,13 +86,13 @@ def mega(scene: FastScene, ray_o, ray_d, color, atten, seed, alive,
     (same arguments and result as ``mega_plain``). The pixel ids below
     ``n_out`` must be distinct (the kernel writes, the plain version
     adds)."""
-    if alive.device.type == "cpu":
+    name = cuda_build.leaf_kernel_name("mega", scene.layout)
+    if not launches.on_card(name, alive.device):
         return mega_plain(scene, ray_o, ray_d, color, atten, seed, alive,
                           sky_on, cfg, start_bounce, pix, n_out)
-    if alive.device.type != "cuda":
-        raise ValueError(f"unsupported device {alive.device}")
     out, rays = _launch("mega", scene, ray_o, ray_d, color, atten, seed,
                         alive, sky_on, cfg, start_bounce, pix, n_out)
+    launches.launched(name)
     return out, rays[0]
 
 
@@ -108,7 +107,7 @@ def mega_count(scene: FastScene, ray_o, ray_d, color, atten, seed, alive,
     summed over warps) and each launched block's first and last
     ``%globaltimer`` reading, int64[blocks, 2] in ns. Books its launch as
     ``mega_count``."""
-    if alive.device.type != "cuda":
+    if not launches.is_card(alive.device):
         raise ValueError("the counting build runs on the card only")
     tallies = torch.zeros(4, dtype=torch.int64, device=alive.device)
     times = torch.zeros((-(-alive.shape[0] // 128), 2), dtype=torch.int64,
@@ -116,4 +115,6 @@ def mega_count(scene: FastScene, ray_o, ray_d, color, atten, seed, alive,
     out, rays = _launch("mega_count", scene, ray_o, ray_d, color, atten,
                         seed, alive, sky_on, cfg, start_bounce, pix, n_out,
                         (tallies, times), (int(schedule),))
+    launches.launched(cuda_build.leaf_kernel_name("mega_count",
+                                                  scene.layout))
     return out, rays[0], tallies, times[times[:, 0] != 0]

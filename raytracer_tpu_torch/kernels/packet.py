@@ -173,12 +173,9 @@ def primary_rays(cam: CameraUniforms, cfg: RenderConfig, p_pad: int,
     on the card; ``primary_rays_plain`` itself on the CPU. The same
     arguments and results, bit for bit."""
     device = torch.device(device)
-    if device.type == "cpu":
-        launches.plain["raygen"] += 1
+    if not launches.on_card("raygen", device):
         return primary_rays_plain(cam, cfg, p_pad, y_offset, gh,
                                   sample_index, device)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     h, w = cfg.height, cfg.width
     if not 0 < h * w <= p_pad:
         raise ValueError(f"p_pad {p_pad} must hold the band's {h * w} rays")
@@ -198,7 +195,7 @@ def primary_rays(cam: CameraUniforms, cfg: RenderConfig, p_pad: int,
         pix.data_ptr(), p_pad, h * w, w, th, tw, y_offset, gh, int(jitter),
         int(cfg.rng_mode == "reference"), cfg.samples_per_pixel,
         sample_index, stream), "rt_raygen")
-    launches.kernel["raygen"] += 1
+    launches.launched("raygen")
     return rays, seed, alive, pix
 
 
@@ -295,8 +292,6 @@ def packet_traverse(scene: FastScene, ray_o, ray_d, active,
     node one of its rays hits; fully inactive groups start at the end.
     Returns flat [G * NG] results. On the card the frame runs
     ``trace2_warp`` instead (one node id a warp)."""
-    launches.plain[cuda_build.leaf_kernel_name("trace2_warp",
-                                               scene.layout)] += 1
     g, ng = active.shape
     num_nodes = scene.num_nodes
     dev = active.device
@@ -335,7 +330,6 @@ def ray_traverse_fast(scene: FastScene, ray_o, ray_d, active,
     """Per-ray closest hit over the packed tables (the JAX
     ``ray_traverse_fast``), plain torch: flat f32[P] comps, every ray one
     node a step. On the card the frame runs ``trace2`` instead."""
-    launches.plain[cuda_build.leaf_kernel_name("trace2", scene.layout)] += 1
     p = active.shape[0]
     num_nodes = scene.num_nodes
     dev = active.device
@@ -402,7 +396,6 @@ def megakernel_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
     ``n_out`` (default P) are dropped. Returns (color f32[3, n_out], rays
     traced: the live rays plus every respawn, int64 tensor), and with
     ``walks`` also i64[P], each ray's walks (its bounces run)."""
-    launches.plain[cuda_build.leaf_kernel_name("mega", scene.layout)] += 1
     p = alive.shape[0]
     dev = alive.device
     n_out = p if n_out is None else n_out
@@ -564,12 +557,12 @@ def _traverse_fast(scene: FastScene, ray_o, ray_d, active,
                    cfg: RenderConfig) -> TraversalResult:
     """``ray_traverse_fast``: kernel 5's per-ray design (``trace2``) on
     CUDA tensors, the plain version on CPU tensors."""
-    if active.device.type == "cpu":
+    if not launches.on_card(cuda_build.leaf_kernel_name("trace2",
+                                                         scene.layout),
+                            active.device):
         return ray_traverse_fast(scene, ray_o, ray_d, active, cfg)
     out = trace.trace2(scene, torch.stack([*ray_o, *ray_d]), active, cfg)
-    return TraversalResult(out[0], out[0] < cfg.t_max,
-                           (out[1], out[2], out[3]),
-                           (out[4], out[5], out[6]), out[7])
+    return trace.hit_result(out, cfg)
 
 
 def _traverse_groups(scene: FastScene, ray_o, ray_d, active,
@@ -577,16 +570,16 @@ def _traverse_groups(scene: FastScene, ray_o, ray_d, active,
     """``packet_traverse`` of [G, NG] groups: kernel 5's warp design
     (``trace2_warp``, each group's G rays consecutive) on CUDA tensors,
     the plain version on CPU tensors. Flat [G * NG] results either way."""
-    if active.device.type == "cpu":
+    if not launches.on_card(cuda_build.leaf_kernel_name("trace2_warp",
+                                                         scene.layout),
+                            active.device):
         return packet_traverse(scene, ray_o, ray_d, active, cfg)
     g, ng = active.shape
     rays = torch.stack([*ray_o, *ray_d]).transpose(1, 2).reshape(6, ng * g)
     out = trace.trace2(scene, rays, active.T.reshape(ng * g), cfg,
                        coherent=True)
     out = out.view(8, ng, g).transpose(1, 2).reshape(8, g * ng)
-    return TraversalResult(out[0], out[0] < cfg.t_max,
-                           (out[1], out[2], out[3]),
-                           (out[4], out[5], out[6]), out[7])
+    return trace.hit_result(out, cfg)
 
 
 def _render_raster(scene: FastScene, cam: CameraUniforms,

@@ -38,7 +38,6 @@ def tonemap_plain(accum, total, spp: int, frame_count, exposure):
     s)/(fc+1) in place; the image is round(sqrt(max(accum*2^exposure, 0))
     * 255) in [0, 255]."""
     _check(accum, total)
-    launches.plain["tonemap"] += 1
     dev = accum.device
     # A true division: PyTorch multiplies by the reciprocal of a host
     # scalar on the card.
@@ -57,10 +56,8 @@ def tonemap_accumulate(accum, total, spp: int, frame_count, exposure):
     """The kernel on CUDA tensors, its plain version on CPU tensors (same
     arguments and results as ``tonemap_plain``; on the card
     ``frame_count`` is an i32 and ``exposure`` an f32 tensor there)."""
-    if accum.device.type == "cpu":
+    if not launches.on_card("tonemap", accum.device):
         return tonemap_plain(accum, total, spp, frame_count, exposure)
-    if accum.device.type != "cuda":
-        raise ValueError(f"unsupported device {accum.device}")
     _check(accum, total)
     if (not isinstance(frame_count, torch.Tensor)
             or not isinstance(exposure, torch.Tensor)
@@ -79,5 +76,5 @@ def tonemap_accumulate(accum, total, spp: int, frame_count, exposure):
         total.data_ptr(), accum.data_ptr(), image.data_ptr(), total.shape[1],
         int(spp), frame_count.data_ptr(), exposure.data_ptr(), stream),
         "rt_tonemap")
-    launches.kernel["tonemap"] += 1
+    launches.launched("tonemap")
     return accum, image

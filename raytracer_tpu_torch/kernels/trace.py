@@ -376,7 +376,6 @@ def trace4_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     xyz), active bool[P] -> f32[8, P] (t, normal xyz, albedo rgb, type)."""
     _check_scene(scene, rays.device)
     _check_rays(rays, active)
-    launches.plain[cuda_build.kernel_name("trace4", scene.layout)] += 1
     out, _ = walk_plain(scene.node_rows, scene.leaf_rows, rays[0:3],
                         rays[3:6], active, cfg.t_min, cfg.t_max, cfg.det_eps,
                         _flip(cfg))
@@ -387,10 +386,9 @@ def trace4(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
            cfg: RenderConfig) -> torch.Tensor:
     """Kernel A on CUDA tensors, its plain version on CPU tensors (same
     arguments and result as ``trace4_plain``)."""
-    if rays.device.type == "cpu":
+    name = cuda_build.kernel_name("trace4", scene.layout)
+    if not launches.on_card(name, rays.device):
         return trace4_plain(scene, rays, active, cfg)
-    if rays.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays.device}")
     _check_scene(scene, rays.device)
     _check_rays(rays, active)
     p = rays.shape[1]
@@ -402,7 +400,7 @@ def trace4(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
         scene.nodes4.data_ptr(), scene.clusters.data_ptr(), rays.data_ptr(),
         act.data_ptr(), out.data_ptr(), p, cfg.t_min, cfg.t_max,
         cfg.det_eps, int(_flip(cfg)), stream), "rt_trace4")
-    launches.kernel[cuda_build.kernel_name("trace4", scene.layout)] += 1
+    launches.launched(name)
     return out
 
 
@@ -426,7 +424,6 @@ def trace2_plain(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     ``trace4_plain``."""
     _check_scene2(scene, rays.device)
     _check_rays(rays, active)
-    launches.plain[cuda_build.leaf_kernel_name("trace2", scene.layout)] += 1
     return walk2_plain(scene.nodes8, scene.num_nodes, scene.leaf_rows,
                        scene.cluster_counts, rays[0:3], rays[3:6], active,
                        cfg.t_min, cfg.t_max, cfg.det_eps, _flip(cfg))
@@ -438,11 +435,12 @@ def trace2(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
     arguments and result as ``trace2_plain``). ``coherent``: the rays of
     a warp are neighbouring primaries, so the warp walks the union of
     their paths (``trace2_warp``); else each thread walks its own ray
-    (``trace2``). Both give the same result bit for bit."""
-    if rays.device.type == "cpu":
+    (``trace2``). Both give the same result bit for bit; the plain
+    version books as "trace2" for both."""
+    if not launches.on_card(cuda_build.leaf_kernel_name("trace2",
+                                                         scene.layout),
+                            rays.device):
         return trace2_plain(scene, rays, active, cfg)
-    if rays.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays.device}")
     _check_scene2(scene, rays.device)
     _check_rays(rays, active)
     p = rays.shape[1]
@@ -457,7 +455,7 @@ def trace2(scene: FastScene, rays: torch.Tensor, active: torch.Tensor,
         scene.cluster_counts.data_ptr(), rays.data_ptr(), act.data_ptr(),
         out.data_ptr(), p, scene.num_nodes, cfg.t_min, cfg.t_max,
         cfg.det_eps, int(_flip(cfg)), stream), f"rt_{name}")
-    launches.kernel[cuda_build.kernel_name(name, layout)] += 1
+    launches.launched(cuda_build.kernel_name(name, layout))
     return out
 
 
@@ -480,6 +478,12 @@ def traverse_rays(scene: FastScene, rays: torch.Tensor, active,
         out = trace2(scene, rays, active, cfg, coherent)
     else:
         out = trace4(scene, rays, active, cfg)
+    return hit_result(out, cfg)
+
+
+def hit_result(out: torch.Tensor, cfg: RenderConfig) -> TraversalResult:
+    """A walk's hit record f32[8, P] (t, normal xyz, albedo rgb, type) as
+    a ``TraversalResult`` (views of its rows; a hit is t < t_max)."""
     return TraversalResult(out[0], out[0] < cfg.t_max,
                            (out[1], out[2], out[3]),
                            (out[4], out[5], out[6]), out[7])

@@ -179,12 +179,9 @@ def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
     tensors; the same arguments (f32 [P] rows, ``seed`` u32 values in
     int64, ``res.hit`` and ``alive`` bool) and results, bit for bit."""
     dev = alive.device
-    if dev.type == "cpu":
-        launches.plain["shade"] += 1
+    if not launches.on_card("shade", dev):
         return shade_plain(res, ray_o, ray_d, color, atten, seed, alive,
                            sky_on, cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     p = alive.shape[0]
     ins = (_rows((res.closest_t, *res.normal, *res.mat_albedo,
                   res.mat_type), torch.float32, p, dev, "the hit record")
@@ -200,7 +197,7 @@ def shade(res: TraversalResult, ray_o, ray_d, color, atten, seed, alive,
     cuda_build.check(cuda_build.library().rt_shade(
         table, out.data_ptr(), seed_out.data_ptr(), scattered.data_ptr(), p,
         int(sky_on), int(cfg.emissive_emits), cfg.fuzz, stream), "rt_shade")
-    launches.kernel["shade"] += 1
+    launches.launched("shade")
     rows = out.unbind(0)
     return rows[0:3], rows[3:6], rows[6:9], rows[9:12], seed_out, scattered
 

@@ -99,7 +99,7 @@ JAX package reads it at import (``raytracer_tpu/core/fast_types.py:40``,
   and its scenes walk the binary one).
 
 Every result-bearing knob of the JAX package runs its JAX values: the
-port refuses none (``FIXED`` is empty).
+port refuses none.
 
 The JAX package's TPU tile-shape knobs change no result and do not apply
 to the port, which does not read them: ``RAYTPU_PALLAS_SUBLANES``,
@@ -125,10 +125,6 @@ DEVICE_BUILDS = ("instanced", "refit", "lbvh")
 DEVICE_TREES = ("karras", "ploc")
 WAVE_ENGINES = ("fused12", "fused", "fused_packed", "split")
 NODE_SOURCES = ("pack", "extract")
-
-# Knob -> its JAX default, for knobs whose other values the port refuses.
-# Every knob runs its JAX values now.
-FIXED: dict = {}
 
 
 def _read(name: str, default: str, allowed) -> str:

@@ -587,33 +587,6 @@ def test_mega_count_matches_kernel(scene):
         assert bool((times[:, 1] >= times[:, 0]).all())
 
 
-def _plain_versions(monkeypatch):
-    """Route the frame to the plain versions of every kernel."""
-    from raytracer_tpu_torch.engine import renderer
-    from raytracer_tpu_torch.kernels import (bounce, keys, mega, packet,
-                                             tonemap, trace, tracer,
-                                             wavefront)
-
-    for m, name, f in ((packet, "primary_rays", packet.primary_rays_plain),
-                       (packet, "shade", tracer.shade_plain),
-                       (wavefront, "shade", tracer.shade_plain),
-                       (tracer, "shade", tracer.shade_plain),
-                       (trace, "trace4", trace.trace4_plain),
-                       (trace, "trace2", trace.trace2_plain),
-                       (wavefront, "sort_key", keys.sort_key_plain),
-                       (wavefront, "bounce12", bounce.bounce12_plain),
-                       (wavefront, "bounce15", bounce.bounce15_plain),
-                       (wavefront, "bounce_packed",
-                        bounce.bounce_packed_plain),
-                       (packet, "bounce15", bounce.bounce15_plain),
-                       (packet, "_traverse_fast", packet.ray_traverse_fast),
-                       (packet, "_traverse_groups", packet.packet_traverse),
-                       (mega, "mega", mega.mega_plain),
-                       (renderer, "tonemap_accumulate",
-                        tonemap.tonemap_plain)):
-        monkeypatch.setattr(m, name, f)
-
-
 # Path -> (knobs, kernels it launches, fixed-light tier, ties allowed).
 XLA_PATHS = {
     "bounce_mega": ({"RAYTPU_BOUNCE": "mega"},
@@ -648,9 +621,11 @@ def test_xla_path_frame_matches_plain(scene, monkeypatch, path):
     acc_k, img_k, st_k = Renderer(cfg).render(scene, uni)
     assert set(launches.kernel) == kernels | {"tonemap"}
     assert not launches.plain
-    with monkeypatch.context() as mp:
-        _plain_versions(mp)
+    launches.reset()
+    with launches.plain_versions():
         acc_p, img_p, st_p = Renderer(cfg).render(scene, uni)
+    assert not launches.kernel
+    assert set(launches.plain) == kernels | {"tonemap"}
     differ = int((img_k != img_p).any(-1).sum())
     if ties:
         assert differ <= 0.005 * cfg.width * cfg.height
@@ -774,12 +749,13 @@ def test_knob_frame_matches_plain(scene, monkeypatch, knob):
         monkeypatch.setenv(k, v)
     launches.reset()
     acc_k, img_k, st_k = Renderer(cfg).render(scene, uni)
-    assert set(launches.kernel) == kernels | {"raygen", "shade", "sort_key",
-                                              "tonemap"}
+    booked = kernels | {"raygen", "shade", "sort_key", "tonemap"}
+    assert set(launches.kernel) == booked
     assert not launches.plain
-    with monkeypatch.context() as mp:
-        _plain_versions(mp)
+    launches.reset()
+    with launches.plain_versions():
         acc_p, img_p, st_p = Renderer(cfg).render(scene, uni)
+    assert not launches.kernel and set(launches.plain) == booked
     assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
     assert torch.equal(img_k, img_p)
     assert int(st_k["rays_traced"]) == int(st_p["rays_traced"])
@@ -889,7 +865,7 @@ def test_layout_kernels_match_plain(layout_scenes, layout):
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
-def test_layout_frame_matches_plain(layout_scenes, monkeypatch, layout):
+def test_layout_frame_matches_plain(layout_scenes, layout):
     """A 256x192 frame (three bands, the tail merge live) of a layout's
     scene through its kernels and through the plain versions: 0
     differing bytes."""
@@ -903,13 +879,14 @@ def test_layout_frame_matches_plain(layout_scenes, monkeypatch, layout):
     uni = default_camera(cfg.width, cfg.height).uniforms()
     launches.reset()
     acc_k, img_k, _ = Renderer(cfg).render(scene, uni)
-    assert set(launches.kernel) == {"raygen", f"trace4_{layout}", "shade",
-                                    "sort_key", f"bounce12_{layout}",
-                                    "tonemap"}
+    booked = {"raygen", f"trace4_{layout}", "shade", "sort_key",
+              f"bounce12_{layout}", "tonemap"}
+    assert set(launches.kernel) == booked
     assert not launches.plain
-    with monkeypatch.context() as mp:
-        _plain_versions(mp)
+    launches.reset()
+    with launches.plain_versions():
         acc_p, img_p, _ = Renderer(cfg).render(scene, uni)
+    assert not launches.kernel and set(launches.plain) == booked
     assert torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32))
     assert torch.equal(img_k, img_p)
 
@@ -1144,15 +1121,14 @@ def test_shade_kernel_matches_plain_on_a_round(scene):
         assert not bool((got[5] & ~alive).any())
 
 
-def test_default_frame_front_matches_plain(scene, monkeypatch):
+def test_default_frame_front_matches_plain(scene):
     """Two 256x128 frames of the default path (two bands, the tail merge)
     with the ray-gen and the shade as kernels and as plain ops, every
     other kernel the same: accumulators, images and rays traced equal."""
     from raytracer_tpu_torch.core.camera import default_camera
     from raytracer_tpu_torch.core.types import RenderConfig
     from raytracer_tpu_torch.engine.renderer import Renderer
-    from raytracer_tpu_torch.kernels import (launches, packet, tracer,
-                                             wavefront)
+    from raytracer_tpu_torch.kernels import launches
 
     cfg = RenderConfig(width=256, height=128, band_rays=16384)
     cam = default_camera(cfg.width, cfg.height)
@@ -1173,14 +1149,12 @@ def test_default_frame_front_matches_plain(scene, monkeypatch):
     assert dict(launches.kernel)["sort_key"] == 6
     assert set(launches.kernel) == {"raygen", "trace4", "shade", "sort_key",
                                     "bounce12", "tonemap"}
-    with monkeypatch.context() as mp:
-        mp.setattr(packet, "primary_rays", packet.primary_rays_plain)
-        for m in (packet, wavefront, tracer):
-            mp.setattr(m, "shade", tracer.shade_plain)
+    with launches.plain_versions("raygen", "shade"):
         launches.reset()
         want = frames()
-        assert "raygen" not in launches.kernel
-        assert "shade" not in launches.kernel
+    assert dict(launches.plain) == {"raygen": 4, "shade": 4}
+    assert set(launches.kernel) == {"trace4", "sort_key", "bounce12",
+                                    "tonemap"}
     for (ak, ik, rk), (ap, ip, rp) in zip(got, want):
         assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
         assert torch.equal(ik, ip) and rk == rp

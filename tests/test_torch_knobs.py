@@ -1,7 +1,7 @@
 """Every result-bearing knob of the JAX package runs its JAX A/B value
 in the port (``PORTED``: the XLA path's and host builds' knobs, the
-sorted rounds' A/B knobs and the table layout); ``knobs.FIXED``, the
-knobs the port would refuse off their default, is empty.
+sorted rounds' A/B knobs and the table layout): the port refuses no
+knob off its default.
 
 Each knob is exercised through the entry point that reads it: a tiny
 frame (16x8, three bounces, one band: bounce 0, the sorted rounds, the
@@ -63,8 +63,8 @@ def _load(tmp_path):
     return run
 
 
-# The knobs the port has taken out of FIXED, each with the value the JAX
-# package's A/B path takes (``test_ported_knob_runs_its_jax_value``).
+# The knobs the port once refused off their default, each with the value
+# the JAX package's A/B path takes (``test_ported_knob_runs_its_jax_value``).
 PORTED = {"RAYTPU_COMPACT_FLOOR": "512", "RAYTPU_COMPACT_RATIO": "4",
           "RAYTPU_BVH": "median", "RAYTPU_NATIVE": "0",
           "RAYTPU_LEAF_COUNTS": "0",
@@ -97,9 +97,8 @@ ROUND_KNOBS = {
 
 
 def test_every_fixed_knob_has_a_case():
-    """No knob is left in FIXED: the layout knobs, its last two, run
-    their JAX values (``PORTED``)."""
-    assert knobs.FIXED == {}
+    """No knob is refused: the layout knobs, the last two the port took
+    in, run their JAX values (``PORTED``)."""
     assert {"RAYTPU_CLUSTER", "RAYTPU_WIDE"} <= set(PORTED)
 
 

@@ -17,11 +17,11 @@ Under each layout, on a terrain of 734 triangles:
   (``CLUSTER`` only: the JAX capture asserts width 8, and the port's
   refuses width 16) and the LBVH tables (no wide table at width 16) are
   byte-equal to the JAX package's, the unit normals within 2 ulp;
-* the plain kernel A (``trace4_plain``) against ``pallas_traverse`` in
+* the plain kernel A (``trace4`` on CPU tensors) against ``pallas_traverse`` in
   interpret mode, on 2048 random rays and 2048 primaries; the plain
-  kernel B (``bounce12_plain``, ``cid``) against ``bounce_megakernel12``
+  kernel B (``bounce12``, ``cid``) against ``bounce_megakernel12``
   on two 2048-ray states (uniform budget, budgets 0-2); the plain binary
-  walk (``trace2_plain``) against ``_trace_call`` (``CLUSTER`` only: the
+  walk (``trace2``) against ``_trace_call`` (``CLUSTER`` only: the
   binary table has no width): t bit-equal, the rest equal except on
   equal-t tie lanes, state floats within 2e-5;
 * a 64x32 two-band frame of the XLA render path (``RAYTPU_B0=mega``,
@@ -47,9 +47,9 @@ from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.engine.renderer import Renderer
 from raytracer_tpu_torch.kernels import cuda_build, launches
 from raytracer_tpu_torch.kernels.bounce import (ROW_ALIVE, ROW_BUDGET,
-                                                ROW_SEED, bounce12_plain)
+                                                ROW_SEED, bounce12)
 from raytracer_tpu_torch.kernels.packet import _tile_major_pixels
-from raytracer_tpu_torch.kernels.trace import trace2_plain, trace4_plain
+from raytracer_tpu_torch.kernels.trace import trace2, trace4
 from raytracer_tpu_torch.kernels.tracer import (initial_seed,
                                                 make_primary_rays)
 from raytracer_tpu_torch.scene import instanced, refit
@@ -343,7 +343,7 @@ def test_trace4_plain_matches_pallas(refs, name, rays):
     r, a = _ray_args(inp["trace"][f"{rays}_rays"],
                      inp["trace"][f"{rays}_active"])
     launches.reset()
-    got = trace4_plain(scene, r, a, cfg).numpy()
+    got = trace4(scene, r, a, cfg).numpy()
     assert dict(launches.plain) == {f"trace4_{name}": 1}
     _assert_hits(scene, got, ref[name]["trace"][f"{rays}_out"], r, a, cfg)
 
@@ -355,7 +355,7 @@ def test_binary_walk_plain_matches_pallas(refs, name):
     cfg = RenderConfig()
     r, a = _ray_args(inp["binary"]["rays"], inp["binary"]["active"])
     launches.reset()
-    got = trace2_plain(scene, r, a, cfg).numpy()
+    got = trace2(scene, r, a, cfg).numpy()
     assert dict(launches.plain) == {f"trace2_{name}": 1}
     _assert_hits(scene, got, ref[name]["trace_shadings"]["path_out"], r, a,
                  cfg)
@@ -372,7 +372,7 @@ def test_bounce12_plain_matches_pallas(refs, name, state):
     cfg = RenderConfig()
     f, i = inp["bounce"][f"{state}_f"], inp["bounce"][f"{state}_i"]
     launches.reset()
-    out, key, counts = bounce12_plain(scene, _port_state(f, i), 1, True, cfg)
+    out, key, counts = bounce12(scene, _port_state(f, i), 1, True, cfg)
     assert dict(launches.plain) == {f"bounce12_{name}": 1}
     got_f = np.concatenate([out[0:9].view(torch.float32).numpy(),
                             (out[ROW_ALIVE] != 0).numpy()[None]

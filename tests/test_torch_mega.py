@@ -118,8 +118,8 @@ def _port_results(inp) -> dict:
     for shading in ("path", "fixed_light"):
         cfg = RenderConfig(width=16, height=16, shading=shading)
         launches.reset()
-        got[f"fast_{shading}"] = packet.ray_traverse_fast(scene, o, d,
-                                                          active, cfg)
+        got[f"fast_{shading}"] = packet._traverse_fast(scene, o, d, active,
+                                                       cfg)
         got[f"fast_{shading}_plain"] = dict(launches.plain)
         got[f"fast_{shading}_ties"] = tie_lanes(scene, o, d, active,
                                                 cfg).numpy()

@@ -54,10 +54,9 @@ from raytracer_tpu_torch.core.types import RenderConfig
 from raytracer_tpu_torch.engine.renderer import Renderer, _num_bands
 from raytracer_tpu_torch.kernels import launches, wavefront
 from raytracer_tpu_torch.kernels.bounce import (ROW_ALIVE, ROW_BUDGET,
-                                                ROW_SEED, bounce12_plain,
-                                                bounce15_plain,
-                                                bounce_packed_plain,
-                                                build_name, pack_state)
+                                                ROW_SEED, bounce12, bounce15,
+                                                bounce_packed, build_name,
+                                                pack_state)
 from raytracer_tpu_torch.kernels.keys import sort_key, sort_key_plain
 from raytracer_tpu_torch.kernels.packet import (tail_merge_active,
                                                 tail_merge_widths)
@@ -158,19 +157,19 @@ def _port_state(f, i, color: bool):
 
 
 def run_build(scene, f, i, build, cfg, bcap=1):
-    """The port's plain build "kernel:key_mode:ordered" on the job's state
-    -> (floats as the JAX kernel returns them then alive, (seed, budget,
-    key), counts)."""
+    """The port's plain build "kernel:key_mode:ordered" (its wrapper on
+    CPU tensors) on the job's state -> (floats as the JAX kernel returns
+    them then alive, (seed, budget, key), counts)."""
     kernel, key_mode, ordered = build.split(":")
     if kernel == "packed":
         sf = torch.from_numpy(f).contiguous()
         si = torch.from_numpy(i[[0, 2]]).contiguous()
-        sf_o, si_o, key, counts = bounce_packed_plain(scene, sf, si, bcap,
-                                                      True, cfg, key_mode)
+        sf_o, si_o, key, counts = bounce_packed(scene, sf, si, bcap, True,
+                                                cfg, key_mode)
         got_i = np.stack([si_o[0].numpy(), np.full(W, 1 << 30, np.int32),
                           key.numpy()])
         return sf_o.numpy(), got_i, counts
-    run = bounce15_plain if kernel == "b15" else bounce12_plain
+    run = bounce15 if kernel == "b15" else bounce12
     out, key, counts = run(scene, _port_state(f, i, kernel == "b15"), bcap,
                            True, cfg, key_mode, bool(int(ordered)))
     nf = 12 if kernel == "b15" else 9
@@ -306,16 +305,17 @@ def test_key_wrapper_refuses_other_dead_bits():
 
 @pytest.mark.parametrize("key_mode", ["pd5", "om9"])
 def test_kernel_b_plain_keys_without_the_wrapper(key_mode):
-    """Kernel B's plain version (``bounce._rounds_plain``) emits its
-    ``pd5`` / ``om9`` key with ``sort_key_plain``: the plain build alone is
-    booked, and its key is ``sort_key_plain`` of the state it returns at
+    """Kernel B's plain version (``bounce12`` on CPU tensors:
+    ``bounce._rounds_plain``) emits its ``pd5`` / ``om9`` key with
+    ``sort_key_plain``, not the ``sort_key`` wrapper: the plain build alone
+    is booked, and its key is ``sort_key_plain`` of the state it returns at
     dead bit 30."""
     verts, mats = scene_arrays()
     scene = build_fast_scene_from_arrays(verts, mats, device="cpu")
     f, i = _state_inputs(scene)
     launches.reset()
-    out, key, _ = bounce12_plain(scene, _port_state(f, i, False), 1, True,
-                                 RenderConfig(), key_mode)
+    out, key, _ = bounce12(scene, _port_state(f, i, False), 1, True,
+                           RenderConfig(), key_mode)
     assert dict(launches.plain) == {build_name("bounce12", key_mode): 1}
     fl = out[0:9].view(torch.float32)
     want = sort_key_plain(tuple(fl[0:3]), tuple(fl[3:6]),
