@@ -38,7 +38,11 @@ Phases, one or more lines each (any failure raises and exits non-zero):
 4. the main path at full size: the flagship scene, ``Renderer`` with
    ``RenderConfig()`` (1280x720, 10 bounces), one warm frame, then 16
    progressive frames with the launch counts of every kernel; writes
-   ``out/chip_smoke.png``;
+   ``out/chip_smoke.png``; then the sorted rounds' steps as replayed CUDA
+   graphs (``check_graphs``): 16 frames of the eager ladder against 16 of
+   the graphed one, bit-equal, their host ms and ms a frame, the
+   ``launches.graphs`` counts (no capture after the second frame, only
+   replays) and the bytes of the static buffers and the graph pool;
 5. one 256x128 frame (2 bands, cross-band tail merge) through the
    kernels and through the plain versions, compared;
 6. ``RAYTPU_BOUNCE=pmega`` against the default path in turns (default,
@@ -79,7 +83,11 @@ Phases, one or more lines each (any failure raises and exits non-zero):
     launches of one rebuild (profiler) and the host reads per rebuild;
 14. ``bench.py``'s ``two_humans`` drag frame per mode at 1280x720, 10
     bounces: rebuild after a 0.05 x move, then render, 16 frames after
-    a warm one: FPS, ms/frame, rebuild share, launches per frame;
+    a warm one: FPS, ms/frame, rebuild share, launches per frame; then
+    the last drag's scene rendered three times more (``rerender``: the
+    first captures the sorted rounds' steps as CUDA graphs), which
+    prices a capture at a scene's first render against the eager
+    render of a drag frame;
 15. ``RenderEngine`` at 1280x720: an async rebuild, 16 frames under the
     UI tick, a drag swapped in, a rebuild that raises (the old scene
     keeps rendering), ``stop()`` within 5 s, then a ladder session;
@@ -167,6 +175,7 @@ ran. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -805,6 +814,123 @@ def run_path(label, scene, cfg, cam, frames, env, kernels, warm=1):
     return run
 
 
+def check_graphs(scene, cfg, cam, frames: int = 16) -> dict:
+    """The sorted rounds' steps as replayed CUDA graphs
+    (``kernels/stepgraphs.py``) on ``cfg``'s frames: ``frames``
+    progressive frames of the eager ladder (each frame on a fresh copy of
+    the scene object, which stays eager), then of the graphed one (one
+    copy: its first frame eager, its second capturing every step, then
+    replays), each run after the same two warm frames. Each frame's
+    accumulator bit-equal between the two; a frame's host ms (the render
+    call's return, before the sync) and ms (after it), medians; the
+    ``launches.graphs`` counts of the measured frames (no capture, only
+    replays); the replayed rounds a frame; the workspace's static buffer
+    and graph pool bytes; one more replayed frame under the profiler,
+    whose device kernels must equal the launches the frame booked
+    (``booked_against_run``: a replay books its capture's launches). A
+    checkout without ``stepgraphs`` runs both eagerly and reports no
+    graphs."""
+    import dataclasses
+
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+    try:
+        from raytracer_tpu_torch.kernels import stepgraphs
+    except ImportError:
+        stepgraphs = None
+
+    def replays() -> int:
+        return dict(getattr(launches, "graphs", {})).get("replay.round", 0)
+
+    def run(scene_of, warm: int = 2):
+        r, accum = Renderer(cfg), None
+        out, host, wall, rounds = [], [], [], []
+        for fc in range(warm + frames):
+            if fc == warm:
+                _sync()
+                launches.reset()
+            cam.frame_count = fc
+            before = replays()
+            t0 = time.perf_counter()
+            accum, _, _ = r.render(scene_of(), cam.uniforms(), accum)
+            t1 = time.perf_counter()
+            _sync()
+            t2 = time.perf_counter()
+            if fc >= warm:
+                host.append((t1 - t0) * 1e3)
+                wall.append((t2 - t0) * 1e3)
+                out.append(accum.clone())
+                rounds.append(replays() - before)
+        return dict(out=out, host_ms=float(np.median(host)),
+                    ms=float(np.median(wall)), rounds=rounds,
+                    graphs=dict(getattr(launches, "graphs", {})))
+
+    eager = run(lambda: dataclasses.replace(scene))
+    one = dataclasses.replace(scene)
+    graphed = run(lambda: one)
+    differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                 for a, b in zip(eager["out"], graphed["out"]))
+    res = {"eager_host_ms": eager["host_ms"], "eager_ms": eager["ms"],
+           "graphed_host_ms": graphed["host_ms"],
+           "graphed_ms": graphed["ms"], "differing_words": differ,
+           "graphs": graphed["graphs"], "rounds": graphed["rounds"]}
+    ws = (stepgraphs._spaces.get(torch.device(one.device))
+          if stepgraphs is not None else None)
+    if ws is not None and ws.scene is one:
+        res.update(buffer_bytes=ws.buffer_bytes(),
+                   pool_bytes=ws.pool_bytes, graph_count=len(ws.graphs))
+        res["booked"], res["ran"] = booked_against_run(
+            lambda: Renderer(cfg).render(one, cam.uniforms()))
+    print(f"graphs {cfg.width}x{cfg.height}, {frames} frames after 2 warm: "
+          f"eager ladder {res['eager_ms']:.2f} ms a frame (host "
+          f"{res['eager_host_ms']:.2f}), graphed {res['graphed_ms']:.2f} "
+          f"(host {res['graphed_host_ms']:.2f}); differing accumulator "
+          f"words {differ}; launches.graphs {res['graphs']}; replayed "
+          f"rounds a frame {res['rounds']}; graphs "
+          f"{res.get('graph_count')}, static buffers "
+          f"{res.get('buffer_bytes')} B, graph pool {res.get('pool_bytes')} "
+          f"B; a replayed frame's launches booked {res.get('booked')}, "
+          f"device kernels {res.get('ran')}")
+    assert differ == 0, "graphed frames differ from the eager ladder's"
+    assert res.get("booked") == res.get("ran"), (res.get("booked"),
+                                                 res.get("ran"))
+    if stepgraphs is not None:
+        assert not any(k.startswith(("capture.", "eager."))
+                       for k in res["graphs"]), res["graphs"]
+        assert res["graphs"].get("replay.round", 0) > 0, res["graphs"]
+    return res
+
+
+# A kernel wrapper's name in ``launches.kernel`` -> the device kernel's.
+DEVICE_KERNEL = {"bounce12": "bounce_kernel", "bounce15": "bounce_kernel"}
+
+
+def booked_against_run(fn, tries: int = 3):
+    """(booked, ran) of one fn() call: the launches ``launches.kernel``
+    booked, and for each booked name the device kernels of that name the
+    profiler saw (``DEVICE_KERNEL``, else ``<name>_kernel``). The profiler
+    may drop a few events: up to ``tries`` calls until the two agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch.kernels import launches
+
+    for _ in range(tries):
+        _sync()
+        launches.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync()
+        booked = dict(launches.kernel)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        ran = {k: sum(DEVICE_KERNEL.get(k, k + "_kernel") in n
+                      for n in names) for k in booked}
+        if ran == booked:
+            break
+    return booked, ran
+
+
 def small_frame(label, scene, cfg, cam, env, kernels, max_px: int):
     """One frame through the kernels and through the plain versions under
     the knobs ``env``: each of ``kernels`` ran plain, every wrapper the
@@ -1202,7 +1328,8 @@ def run_drag(cfg, dev="cuda", frames: int = 16, modes=None) -> dict:
     """Phase 14: ``bench.py:156-175``'s frame per mode: the last figure
     moves 0.05 in x, the scene is rebuilt on the card and rendered
     (frame count 0: a live edit restarts accumulation), one warm frame
-    then ``frames``, synchronised; launch counts reset just before.
+    then ``frames``, synchronised; launch counts reset just before;
+    then the last scene three times more (``rerender``).
     ``modes``: label -> (knobs, the builder's ``last_mode``, the kernels
     a frame launches); default each of ``MODES``, kernels A and B."""
     from raytracer_tpu_torch.core.camera import default_camera
@@ -1226,7 +1353,7 @@ def run_drag(cfg, dev="cuda", frames: int = 16, modes=None) -> dict:
                                    cam.uniforms(device=dev))
             _sync()
             launches.reset()
-            build_ms, frame_ms = [], []
+            build_ms, frame_ms, render_ms = [], [], []
             t_start = time.perf_counter()
             for i in range(2, frames + 2):
                 t0 = time.perf_counter()
@@ -1240,8 +1367,10 @@ def run_drag(cfg, dev="cuda", frames: int = 16, modes=None) -> dict:
                 t2 = time.perf_counter()
                 build_ms.append((t1 - t0) * 1e3)
                 frame_ms.append((t2 - t0) * 1e3)
+                render_ms.append((t2 - t1) * 1e3)
             dt = time.perf_counter() - t_start
             counts, plain = dict(launches.kernel), dict(launches.plain)
+            again = rerender(r, scene, cam.uniforms(device=dev), accum)
         assert builder.last_mode == last_mode, (mode, builder.last_mode)
         for k in kernels:
             assert counts.get(k, 0) > 0, f"{k} never launched on drag {mode}"
@@ -1251,20 +1380,47 @@ def run_drag(cfg, dev="cuda", frames: int = 16, modes=None) -> dict:
         out[mode] = dict(fps=frames / dt, ms=dt / frames * 1e3,
                          median_ms=float(np.median(frame_ms)),
                          rebuild_ms=float(np.median(build_ms)),
+                         render_ms=float(np.median(render_ms)),
                          rebuild_share=sum(build_ms) / sum(frame_ms),
                          launches_per_frame={k: v / frames
                                              for k, v in counts.items()},
                          image_mean=float(img.mean()),
                          last_mode=builder.last_mode,
-                         wide_table=scene.nodes4 is not None)
+                         wide_table=scene.nodes4 is not None, **again)
         print(f"drag {mode} {cfg.width}x{cfg.height}, {cfg.max_bounces} "
               f"bounces, {frames} frames: {out[mode]['fps']:.3f} FPS, "
               f"{out[mode]['ms']:.2f} ms/frame (median "
               f"{out[mode]['median_ms']:.2f}), rebuild median "
               f"{out[mode]['rebuild_ms']:.3f} ms, rebuild share "
-              f"{out[mode]['rebuild_share']:.4f}; launches per frame "
+              f"{out[mode]['rebuild_share']:.4f}, render median "
+              f"{out[mode]['render_ms']:.3f} ms; the last scene again: "
+              f"{out[mode]['again_ms']} ms (graph steps "
+              f"{out[mode]['again_graphs']}); launches per frame "
               f"{out[mode]['launches_per_frame']}")
     return out
+
+
+def rerender(r, scene, uni, accum, n: int = 3) -> dict:
+    """A drag's last scene rendered ``n`` times more, synchronised: the
+    ms of each render and the ``launches.graphs`` counts of each
+    (``kernels/stepgraphs.py``: the first of them is the scene's second
+    render, which captures every step of its ladders, then replays;
+    later ones replay). Against the drag's eager frames this prices a
+    capture at a scene's first render (``again_ms`` [0] less an eager
+    frame's render)."""
+    from raytracer_tpu_torch.kernels import launches
+
+    ms, events = [], []
+    for _ in range(n):
+        before = collections.Counter(getattr(launches, "graphs", {}))
+        _sync()
+        t0 = time.perf_counter()
+        accum, _, _ = r.render(scene, uni, accum)
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        events.append(dict(collections.Counter(
+            getattr(launches, "graphs", {})) - before))
+    return dict(again_ms=ms, again_graphs=events)
 
 
 def _wait_for(pred, timeout: float, what: str, poll: float = 0.005):
@@ -2676,6 +2832,7 @@ def main() -> None:
                          "tonemap"))
     os.makedirs(os.path.join(REPO, "out"), exist_ok=True)
     write_png(os.path.join(REPO, "out", "chip_smoke.png"), main_run["image"])
+    results["graphs"] = check_graphs(scene, cfg, cam)
 
     # Phase 5: a small frame (2 bands, tail merge), kernels against plain
     # versions.
@@ -2918,6 +3075,7 @@ def main() -> None:
                    "ploc": {"device_build": device_builds["lbvh_ploc"],
                             "drag": drag_runs["lbvh_ploc"]},
                    "mesh": mesh_run,
+                   "graphs": results["graphs"],
                    "mega": results["mega"],
                    "xla_paths": {k: {m: v for m, v in r.items()
                                      if m != "image"}

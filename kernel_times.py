@@ -40,7 +40,10 @@ walk level and, where the checkout has the counting build, the visit
 and leaf SIMD efficiency of both schedules (``mega_lanes``), and the
 720p frames of ``RAYTPU_B0=mega`` and ``RAYTPU_BOUNCE=mega``
 (``frame_b0_mega``, ``frame_bounce_mega``: wall and device busy ms a
-frame, idle share, device activities and ``mega``'s ms a frame), and,
+frame, idle share, device activities and ``mega``'s ms a frame), the
+default path's 720p frames with the sorted rounds' steps eager and as
+replayed CUDA graphs (``frame_eager``, ``frame_graphed``: ms and host ms
+a frame, the ``launches.graphs`` counts, the graph pool's bytes), and,
 where the checkout has them, the ray-gen, shade and key kernels on the
 middle band (``raygen``, ``shade``, ``sort_key``: the entry key of the
 band's sorted rounds, cid at dead bit 30; ``chip_smoke.check_front``,
@@ -85,7 +88,8 @@ KERNELS = ("trace4", "bounce12", "bounce15", "bounce15_top",
            "bounce12_pd5", "bounce12_om9", "bounce12_unordered",
            "bounce15_pd5", "bounce15_om9", "bounce15_unordered",
            "bounce_packed_pd5", "bounce_packed_om9", *MEGA_ROWS,
-           *FRAME_ROWS, "raygen", "shade", "sort_key")
+           *FRAME_ROWS, "raygen", "shade", "sort_key", "frame_eager",
+           "frame_graphed")
 # Row -> the kernel whose attributes it reports, where the checkout's
 # cuda_build knows that kernel (else the row's name, or bounce15 for the
 # pmega rows).
@@ -231,6 +235,8 @@ def run_one(tree: str, reps: int, bcaps=(), rows=None,
     for name, env in FRAME_ROWS.items():
         if not rows or name in rows:
             res[name] = frame_row(scene, cfg, env)
+    if not rows or {"frame_eager", "frame_graphed"} & set(rows):
+        res.update(graph_rows(scene, cfg))
     if not rows or "tonemap" in rows:
         res.update(tonemap_rows(tonemap, reps))
     for name in res:
@@ -325,6 +331,29 @@ def frame_row(scene, cfg, env: dict, frames: int = 4) -> dict:
                             st["port_kernels_ms_per_frame"].items()
                             if "mega_kernel" in n),
                 differing_lanes=None)
+
+
+def graph_rows(scene, cfg, frames: int = 8) -> dict:
+    """The default path's 720p frames with the sorted rounds' steps eager
+    (``frame_eager``: a fresh scene object each frame) and as replayed
+    CUDA graphs (``frame_graphed``), ``chip_smoke.check_graphs``: ms and
+    host ms a frame, and for the graphed frames the ``launches.graphs``
+    counts and the static buffer and graph pool bytes (a checkout
+    without ``stepgraphs`` renders both eagerly)."""
+    from raytracer_tpu_torch.core.camera import default_camera
+
+    import chip_smoke as cs
+
+    g = cs.check_graphs(scene, cfg, default_camera(cfg.width, cfg.height),
+                        frames)
+    return {"frame_eager": dict(ms=g["eager_ms"], host_ms=g["eager_host_ms"],
+                                differing_lanes=g["differing_words"]),
+            "frame_graphed": dict(ms=g["graphed_ms"],
+                                  host_ms=g["graphed_host_ms"],
+                                  graphs=g["graphs"],
+                                  buffer_bytes=g.get("buffer_bytes"),
+                                  pool_bytes=g.get("pool_bytes"),
+                                  differing_lanes=g["differing_words"])}
 
 
 def tonemap_rows(tonemap, reps: int) -> dict:

@@ -9,8 +9,13 @@ eagerly, so Python loops replace ``lax.scan`` / ``fori_loop`` and there is
 no jit cache and no environment fingerprint: the path knobs are read at
 call time. The frame tail always goes through the tonemap kernel
 (``kernels/tonemap.py``), which accumulates and tonemaps in one launch;
-``render_chain`` runs k frames as k steps (no CUDA graph: the sorted
-rounds read their live count on the host once a round).
+``render_chain`` runs k frames as k steps. A whole frame cannot be one
+CUDA graph (the sorted rounds read their live count on the host once a
+round), but from the second render of a scene each fixed-width step of
+the rounds replays a graph of its own (``kernels/stepgraphs.py``):
+``_sample_terms`` counts the renders and hands the bounce engine the
+places its outputs go (each band's colours into the frame's rows, its
+survivors into the tail's input).
 """
 
 from __future__ import annotations
@@ -24,13 +29,14 @@ import torch
 from raytracer_tpu_torch.core.fast_types import FastScene
 from raytracer_tpu_torch.core.types import (CameraUniforms, RenderConfig,
                                             to_device)
+from raytracer_tpu_torch.kernels import stepgraphs
 from raytracer_tpu_torch.kernels.bounce import ROW_PIX
 from raytracer_tpu_torch.kernels.packet import (render_linear_fast,
                                                 tail_merge_active,
                                                 tail_merge_widths)
 from raytracer_tpu_torch.kernels.tonemap import tonemap_accumulate
 from raytracer_tpu_torch.kernels.tracer import render_linear
-from raytracer_tpu_torch.kernels.wavefront import wavefront_tail
+from raytracer_tpu_torch.kernels.wavefront import tail_input, wavefront_tail
 
 
 def tonemap(linear: torch.Tensor, exposure) -> torch.Tensor:
@@ -79,31 +85,44 @@ def _sample_terms(scene, cam: CameraUniforms, cfg: RenderConfig, *,
     band_h = cfg.height // nb
     band_cfg = dataclasses.replace(cfg, height=band_h)
     hw = cfg.height * cfg.width
+    band_hw = band_h * cfg.width
     tm = (tail_merge_widths(cfg, band_h, nb)
           if packet and tail_merge_active(scene, cfg) else None)
+    if packet:
+        stepgraphs.begin_render(scene)
 
     for i in range(sample_offset, sample_offset + spp):
-        bands, survivors = [], []
+        # The bands' colours go into the frame's rows (one band's colours
+        # are the frame); the tail's input: band b hands its survivors
+        # into columns b * handoff onwards.
+        frame = (torch.empty((3, hw), dtype=torch.float32,
+                             device=scene.device) if nb > 1 else None)
+        merged = tail_input(scene, tm[1]) if tm is not None else None
         rays = torch.zeros((), dtype=torch.int64, device=scene.device)
         for b in range(nb):
             y0 = y_base + b * band_h
+            rows = (None if frame is None
+                    else frame[:, b * band_hw:(b + 1) * band_hw])
             if packet:
-                color, brays, surv = render_linear_fast(
+                color, brays, _ = render_linear_fast(
                     scene, cam, band_cfg, sample_index=i, y_offset=y0,
-                    global_height=gh, tail_handoff=tm[0] if tm else None)
-                survivors.append(surv)
+                    global_height=gh, tail_handoff=tm[0] if tm else None,
+                    out=rows, survivors_out=None if tm is None else
+                    merged[:, b * tm[0]:(b + 1) * tm[0]])
             else:
                 color, brays = render_linear(
                     scene, cam, band_cfg, sample_index=i, y_offset=y0,
                     global_height=gh)
-            bands.append(color)
+            if rows is None:
+                frame = color
+            elif color is not rows:
+                rows.copy_(color)
             rays = rays + brays
-        terms = [torch.cat(bands, dim=1)]
+        terms = [frame]
         if tm is not None:
             # Survivor pixel ids are global; deposits target this
             # frame's rows, so shift them by its base row (the pad
             # sentinel gh * w stays >= hw and still drops).
-            merged = torch.cat(survivors, dim=1)
             if y_base:
                 merged[ROW_PIX] -= y_base * cfg.width
             tail, trays = wavefront_tail(scene, merged, cam.sky_host, cfg,

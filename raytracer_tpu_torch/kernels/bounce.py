@@ -78,13 +78,15 @@ def build_name(kernel: str, key_mode: str = "cid", ordered: bool = True,
         + ("" if ordered else "_unordered"), layout)
 
 
-def pack_state(ray_o, ray_d, atten, seed, alive, budget, pix, color=None):
+def pack_state(ray_o, ray_d, atten, seed, alive, budget, pix, color=None,
+               out=None):
     """Round state from SoA fields: i32[13, w], or i32[16, w] with
-    ``color`` (seed: u32 values in int64; budget: int or i32[w])."""
+    ``color`` (seed: u32 values in int64; budget: int or i32[w]), written
+    into ``out`` when given."""
     w = alive.shape[0]
     fields = (*ray_o, *ray_d, *(color or ()), *atten)
-    st = torch.empty((len(fields) + 4, w), dtype=torch.int32,
-                     device=alive.device)
+    st = out if out is not None else torch.empty(
+        (len(fields) + 4, w), dtype=torch.int32, device=alive.device)
     f = st[0:len(fields)].view(torch.float32)
     for j, c in enumerate(fields):
         f[j] = c
@@ -103,11 +105,13 @@ def unpack_floats(state: torch.Tensor):
             (f[-3], f[-2], f[-1]))
 
 
-def packed_to_state(sf: torch.Tensor, si: torch.Tensor, budget, pix):
+def packed_to_state(sf: torch.Tensor, si: torch.Tensor, budget, pix,
+                    out=None):
     """Packed state (sf f32[13, w], si i32[k, w] with the seed in row 0)
-    -> colour-carrying round state i32[16, w]."""
-    st = torch.empty((COLOR_ROWS, sf.shape[1]), dtype=torch.int32,
-                     device=sf.device)
+    -> colour-carrying round state i32[16, w] (written into ``out`` when
+    given)."""
+    st = out if out is not None else torch.empty(
+        (COLOR_ROWS, sf.shape[1]), dtype=torch.int32, device=sf.device)
     st[0:12] = sf[0:12].view(torch.int32)
     st[ROW_SEED] = si[0]
     st[ROW_ALIVE] = (sf[12] > 0.5).to(torch.int32)
@@ -319,15 +323,37 @@ def _check_packed(scene: FastScene, sf: torch.Tensor,
         raise ValueError("si must be contiguous i32[k, w] beside sf")
 
 
+def _outputs(out, like: torch.Tensor, w: int):
+    """The (state', key, counts) a launch writes: ``out``'s (its counts
+    int64[3] zeroed here), else new tensors. counts: (rays, live), then
+    the ray counter of the pmega call's persistent warps (bounce15 at
+    bcap > 1)."""
+    if out is not None:
+        out[2].zero_()
+        return out
+    return (torch.empty_like(like),
+            torch.empty(w, dtype=torch.int32, device=like.device),
+            torch.zeros(3, dtype=torch.int64, device=like.device))
+
+
+def _into(out, got):
+    """Copy a plain version's results into ``out`` (counts into its first
+    two) and return them as the kernel's wrapper does, or ``got`` as it
+    is without ``out``."""
+    if out is None:
+        return got
+    *arrays, counts = got
+    for o, g in zip(out, arrays):
+        o.copy_(g)
+    out[-1][:2].copy_(counts)
+    return (*out[:-1], out[-1][:2])
+
+
 def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
                    bcap: int, sky_on: bool, cfg: RenderConfig,
-                   key_mode: str = "cid", ordered: bool = True):
+                   key_mode: str = "cid", ordered: bool = True, out=None):
     w = state.shape[1]
-    out = torch.empty_like(state)
-    key = torch.empty(w, dtype=torch.int32, device=state.device)
-    # (rays, live), then the ray counter of the pmega call's persistent
-    # warps (bounce15 at bcap > 1).
-    counts = torch.zeros(3, dtype=torch.int64, device=state.device)
+    out, key, counts = _outputs(out, state, w)
     lib = cuda_build.library(scene.layout)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     cuda_build.check(getattr(lib, f"rt_{name}")(
@@ -341,31 +367,36 @@ def _launch_rounds(name: str, scene: FastScene, state: torch.Tensor,
 
 
 def bounce12(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
-             cfg: RenderConfig, key_mode: str = "cid", ordered: bool = True):
+             cfg: RenderConfig, key_mode: str = "cid", ordered: bool = True,
+             out=None):
     """Kernel B on CUDA tensors, its plain version on CPU tensors (same
-    arguments and results as ``bounce12_plain``)."""
+    arguments and results as ``bounce12_plain``). ``out``: (state' i32[13,
+    w], key i32[w], counts int64[3]) to write, apart from ``state``; the
+    results are then views of them."""
     name = build_name("bounce12", key_mode, ordered, scene.layout)
     if not launches.on_card(name, state.device):
-        return bounce12_plain(scene, state, bcap, sky_on, cfg, key_mode,
-                              ordered)
+        return _into(out, bounce12_plain(scene, state, bcap, sky_on, cfg,
+                                         key_mode, ordered))
     _check_state(scene, state, STATE_ROWS)
     out = _launch_rounds("bounce12", scene, state, bcap, sky_on, cfg,
-                         key_mode, ordered)
+                         key_mode, ordered, out)
     launches.launched(name)
     return out
 
 
 def bounce15(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
-             cfg: RenderConfig, key_mode: str = "cid", ordered: bool = True):
+             cfg: RenderConfig, key_mode: str = "cid", ordered: bool = True,
+             out=None):
     """The colour-carrying kernel on CUDA tensors, its plain version on
-    CPU tensors (same arguments and results as ``bounce15_plain``)."""
+    CPU tensors (same arguments and results as ``bounce15_plain``;
+    ``out`` as ``bounce12``'s, with the state i32[16, w])."""
     name = build_name("bounce15", key_mode, ordered, scene.layout)
     if not launches.on_card(name, state.device):
-        return bounce15_plain(scene, state, bcap, sky_on, cfg, key_mode,
-                              ordered)
+        return _into(out, bounce15_plain(scene, state, bcap, sky_on, cfg,
+                                         key_mode, ordered))
     _check_state(scene, state, COLOR_ROWS)
     out = _launch_rounds("bounce15", scene, state, bcap, sky_on, cfg,
-                         key_mode, ordered)
+                         key_mode, ordered, out)
     launches.launched(name)
     return out
 
@@ -373,12 +404,15 @@ def bounce15(scene: FastScene, state: torch.Tensor, bcap: int, sky_on: bool,
 def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
                    si: torch.Tensor, bcap: int, sky_on: bool,
                    cfg: RenderConfig, *extra: torch.Tensor,
-                   key_mode: str = "cid"):
+                   key_mode: str = "cid", out=None):
     w = sf.shape[1]
-    sf_out = torch.empty_like(sf)
-    si_out = torch.empty_like(si)
-    key = torch.empty(w, dtype=torch.int32, device=sf.device)
-    counts = torch.zeros(2, dtype=torch.int64, device=sf.device)
+    if out is not None:
+        sf_out, si_out, key, counts = out
+        counts.zero_()
+    else:
+        sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
+        key = torch.empty(w, dtype=torch.int32, device=sf.device)
+        counts = torch.zeros(2, dtype=torch.int64, device=sf.device)
     lib = cuda_build.library(scene.layout)
     stream = torch.cuda.current_stream(sf.device).cuda_stream
     # The counting build has the cid key only and takes no key code.
@@ -390,21 +424,23 @@ def _launch_packed(name: str, scene: FastScene, sf: torch.Tensor,
         counts.data_ptr(), *(t.data_ptr() for t in extra), w, si.shape[0],
         int(bcap), int(bool(sky_on)), cfg.fuzz, int(cfg.emissive_emits),
         cfg.t_min, cfg.t_max, cfg.det_eps, *code, stream), f"rt_{name}")
-    return sf_out, si_out, key, counts
+    return sf_out, si_out, key, counts[:2]
 
 
 def bounce_packed(scene: FastScene, sf: torch.Tensor, si: torch.Tensor,
                   bcap: int, sky_on: bool, cfg: RenderConfig,
-                  key_mode: str = "cid"):
+                  key_mode: str = "cid", out=None):
     """The packed kernel on CUDA tensors, its plain version on CPU tensors
-    (same arguments and results as ``bounce_packed_plain``)."""
+    (same arguments and results as ``bounce_packed_plain``). ``out``:
+    (sf', si', key i32[w], counts int64[2 or more]) to write, apart from
+    the inputs."""
     name = build_name("bounce_packed", key_mode, layout=scene.layout)
     if not launches.on_card(name, sf.device):
-        return bounce_packed_plain(scene, sf, si, bcap, sky_on, cfg,
-                                   key_mode)
+        return _into(out, bounce_packed_plain(scene, sf, si, bcap, sky_on,
+                                              cfg, key_mode))
     _check_packed(scene, sf, si)
     out = _launch_packed("bounce_packed", scene, sf, si, bcap, sky_on, cfg,
-                         key_mode=key_mode)
+                         key_mode=key_mode, out=out)
     launches.launched(name)
     return out
 

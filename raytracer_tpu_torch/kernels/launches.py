@@ -19,6 +19,11 @@ price the least time a kernel needs for the same inputs. The plain
 versions of the JAX package's XLA walks book under the kernel that
 replaces them on the card: ``ray_traverse_fast`` as "trace2",
 ``packet_traverse`` as "trace2_warp", ``megakernel_bounces`` as "mega".
+
+``graphs`` counts the bounce engine's steps (``kernels/stepgraphs.py``)
+by what ran them and their kind: "capture.round", "replay.shrink",
+"eager.last", ... A replayed graph books the launches its capture made,
+so ``kernel`` counts the same launches either way.
 """
 
 import collections
@@ -29,6 +34,7 @@ import torch
 kernel: collections.Counter = collections.Counter()
 plain: collections.Counter = collections.Counter()
 work: collections.Counter = collections.Counter()
+graphs: collections.Counter = collections.Counter()
 
 # The names of each open plain_versions() context, () for every wrapper.
 _forced: list = []
@@ -38,6 +44,7 @@ def reset() -> None:
     kernel.clear()
     plain.clear()
     work.clear()
+    graphs.clear()
 
 
 def is_card(device) -> bool:
@@ -63,6 +70,11 @@ def on_card(name: str, device) -> bool:
 def launched(name: str) -> None:
     """Book one launch of kernel ``name``."""
     kernel[name] += 1
+
+
+def forced() -> bool:
+    """Whether a ``plain_versions()`` context is open."""
+    return bool(_forced)
 
 
 @contextlib.contextmanager

@@ -643,14 +643,19 @@ def _render_raster(scene: FastScene, cam: CameraUniforms,
 def render_linear_fast(scene: FastScene, cam: CameraUniforms,
                        cfg: RenderConfig, sample_index: int = 0,
                        y_offset: int = 0, global_height: int | None = None,
-                       tail_handoff: int | None = None):
+                       tail_handoff: int | None = None,
+                       out: torch.Tensor | None = None,
+                       survivors_out: torch.Tensor | None = None):
     """One band (cfg.height rows starting at global row ``y_offset``) ->
     (color f32[3, h*w] in raster order, rays traced (int64 tensor),
     survivors). With ``tail_handoff`` (the sorted rounds after
     ``RAYTPU_B0=pallas`` only: ``tail_merge_active``), the wavefront
     stops at that width and ``survivors`` is the band's live tail (round
     state with global pixel ids, pads at global_height * w) for
-    ``wavefront_tail``; otherwise it is None."""
+    ``wavefront_tail``, written into ``survivors_out`` when given;
+    otherwise it is None. The sorted rounds write their colours into
+    ``out`` (f32[3, h*w]) when given and return it as ``color``; the other
+    paths return colours of their own."""
     if cfg.height % TILE_H or cfg.width % TILE_W:
         raise ValueError("fast path needs resolution divisible by 8")
     b0 = knobs.bounce0()
@@ -690,8 +695,9 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
         # the primaries (the first round's key from the unshaded rays).
         col, rays, _ = wavefront.wavefront_bounces(
             scene, ray_o, ray_d, (zero, zero, zero), (one, one, one), seed,
-            alive, sky_on, cfg, pix_local, start_bounce=0, dense_pix=True)
-        return col[:, :p], rays, None
+            alive, sky_on, cfg, pix_local, start_bounce=0, dense_pix=True,
+            out=out)
+        return (col if out is not None else col[:, :p]), rays, None
 
     res = trace.traverse_rays(scene, rays, alive, cfg, coherent=True)
     ray_o, ray_d, color, atten, seed, alive = shade(
@@ -714,11 +720,12 @@ def render_linear_fast(scene: FastScene, cam: CameraUniforms,
 
     col, rays, surv = wavefront.wavefront_bounces(
         scene, ray_o, ray_d, color, atten, seed, alive, sky_on, cfg,
-        pix_local, handoff_width=tail_handoff, dense_pix=True)
+        pix_local, handoff_width=tail_handoff, dense_pix=True, out=out,
+        survivors_out=survivors_out)
     if surv is not None:
         # Survivor pixel ids go global for the cross-band merge; the pad
         # sentinel (p) maps to gh * w so merged deposits still drop it.
         pixl = surv[wavefront.ROW_PIX]
         surv[wavefront.ROW_PIX] = torch.where(pixl >= p, gh * w,
                                               pixl + y_offset * w)
-    return col[:, :p], rays + p, surv
+    return (col if out is not None else col[:, :p]), rays + p, surv

@@ -41,18 +41,26 @@ The A/B knobs of the rounds, each read at call time (``knobs.py``):
 
 Python loops replace ``lax.while_loop``: a round's live count is read on
 the host (one sync per round) to decide the next step, as the JAX loop
-condition does on the device.
+condition does on the device; a ladder's entry is read too, and after a
+shrink the count carries (``_Ladder.shrink``). Every fixed-width step
+(round, shrink, hand-off, last deposit, tail entry) reads and writes
+buffers of the ladder's space (``kernels/stepgraphs.py``): fresh ones run
+eagerly, or a scene's static ones whose steps replay CUDA graphs.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from raytracer_tpu_torch import knobs
 from raytracer_tpu_torch.core.fast_types import FastScene
 from raytracer_tpu_torch.core.types import RenderConfig
-from raytracer_tpu_torch.kernels.bounce import (ROW_ALIVE, ROW_BUDGET,
-                                                ROW_PIX, ROW_SEED,
+from raytracer_tpu_torch.kernels import launches, stepgraphs
+from raytracer_tpu_torch.kernels.bounce import (COLOR_ROWS, ROW_ALIVE,
+                                                ROW_BUDGET, ROW_PIX,
+                                                ROW_SEED, SF_ROWS,
                                                 STATE_ROWS, UNIFORM_BUDGET,
                                                 bounce12, bounce15,
                                                 bounce_packed, pack_state,
@@ -144,31 +152,43 @@ class _Deposits:
     exactly once, so the adds onto zeros are exact in any order. Modes
     (``RAYTPU_DEPOSIT``):
 
-    * ``grave``: no adds; each deposit appends (pixel id, colour bits) rows
-      i32[m, 4] to a graveyard, and ``colors`` sorts them by pixel id
-      (one stable argsort and one row gather). Only under the dense-pixel
-      promise of a band: each id < n at most once (a gather keeps a -0.0
-      deposit, which an add onto zeros turns into +0.0);
+    * ``grave``: no adds; each deposit writes (pixel id, colour bits) rows
+      into a graveyard i32[rows, 4] at an offset its ladder fixes (every
+      row written once a ladder), and ``colors`` sorts them by pixel id
+      (one stable argsort and one row gather). Only under the
+      dense-pixel promise of a band: each id < n at most once (a gather
+      keeps a -0.0 deposit, which an add onto zeros turns into +0.0);
     * ``rows``: one add of [m, 3] rows into f32[n + 1, 3];
-    * ``ch``: one add a channel into f32[3, n + 1]."""
+    * ``ch``: one add a channel into f32[3, n + 1].
 
-    def __init__(self, n: int, device, mode: str):
+    The storage comes from ``space`` (``kernels/stepgraphs.py``) under
+    ``role``; ``reset`` zeroes the adds' cells."""
+
+    def __init__(self, n: int, device, mode: str,
+                 space: stepgraphs.Space = stepgraphs.PLAIN,
+                 role: str = "band", rows: int | None = None):
         self.n, self.mode = n, mode
+        name = (role, "deposits")
         if mode == "grave":
-            self.grave = []
+            self.grave = space.buf(name, (rows or n, 4), torch.int32, device)
         elif mode == "rows":
-            self.out = torch.zeros((n + 1, 3), dtype=torch.float32,
-                                   device=device)
+            self.out = space.buf(name, (n + 1, 3), torch.float32, device)
         else:
-            self.out = torch.zeros((3, n + 1), dtype=torch.float32,
-                                   device=device)
+            self.out = space.buf(name, (3, n + 1), torch.float32, device)
+        if not space.static:
+            self.reset()
 
-    def add(self, pix: torch.Tensor, dep: torch.Tensor) -> None:
-        """Deposit dep f32[3, m] at pixel ids pix i32[m]."""
+    def reset(self) -> None:
+        if self.mode != "grave":
+            self.out.zero_()
+
+    def add(self, pix: torch.Tensor, dep: torch.Tensor, at: int = 0) -> None:
+        """Deposit dep f32[3, m] at pixel ids pix i32[m] (graveyard: into
+        rows ``at``..``at + m``)."""
         if self.mode == "grave":
             bits = dep.view(torch.int32)
-            self.grave.append(torch.stack([pix, bits[0], bits[1], bits[2]],
-                                          dim=1))
+            torch.stack([pix, bits[0], bits[1], bits[2]], dim=1,
+                        out=self.grave[at:at + pix.shape[0]])
             return
         idx = torch.clamp(pix, max=self.n).to(torch.int64)
         if self.mode == "rows":
@@ -177,19 +197,24 @@ class _Deposits:
             for c in range(3):
                 self.out[c].index_add_(0, idx, dep[c])
 
-    def add_state(self, state) -> None:
-        self.add(_pix(state), _deposits(state))
+    def add_state(self, state, at: int = 0) -> None:
+        self.add(_pix(state), _deposits(state), at)
 
-    def colors(self) -> torch.Tensor:
+    def colors(self, out: torch.Tensor | None = None) -> torch.Tensor:
         """f32[3, n]: the cells (graveyard: the first n rows in pixel id
-        order, the pads' after every real pixel)."""
+        order, the pads' after every real pixel), written into ``out``
+        when given."""
         if self.mode == "grave":
-            g = torch.cat(self.grave)
-            g = g.index_select(0, torch.argsort(g[:, 0], stable=True))
-            return g[:self.n, 1:4].T.contiguous().view(torch.float32)
-        if self.mode == "rows":
-            return self.out[:self.n].T.contiguous()
-        return self.out[:, :self.n]
+            g = self.grave.index_select(
+                0, torch.argsort(self.grave[:, 0], stable=True))
+            cells = g[:self.n, 1:4].T.view(torch.float32)
+        elif self.mode == "rows":
+            cells = self.out[:self.n].T
+        else:
+            cells = self.out[:, :self.n]
+        if out is not None:
+            return out.copy_(cells)
+        return cells if self.mode == "ch" else cells.contiguous()
 
 
 def _deposit_mode(dense_pix: bool) -> str:
@@ -234,10 +259,8 @@ def _sorted(state, key, gather: str = "col"):
     return _gather(state, order, gather=gather), key.index_select(0, order)
 
 
-def _prefix(state, n: int):
-    if isinstance(state, tuple):
-        return tuple(x[:, :n].contiguous() for x in state)
-    return state[:, :n].contiguous()
+def _parts(state) -> tuple:
+    return state if isinstance(state, tuple) else (state,)
 
 
 def _ordered(width: int) -> bool:
@@ -248,42 +271,175 @@ def _ordered(width: int) -> bool:
 
 
 class _Ladder:
-    """Shared round/shrink loop of the band wavefront and the tail."""
+    """The round/shrink loop of a band wavefront (``role`` "band") or of
+    the tail ("tail") over levels of static width ``widths``: one state
+    buffer X[w] (i32[rows, w], or the packed pair) and one key buffer K[w]
+    a level, the deposits into ``n`` cells and their colours C f32[3, n],
+    the rays traced and the round counts, all from the ladder's space
+    (``kernels/stepgraphs.py``). Each step reads and writes only these,
+    so the same functions run eagerly or as replayed graphs:
+
+    * ``round`` (w, cap): stable argsort of K[w], gather of X[w], one
+      round of up to ``cap`` bounces writing X[w], K[w] and the counts;
+    * ``shrink`` (w, w'): sort, the dead tail past w' deposited (the
+      graveyard at its static offset P - w), the prefix into X[w'], K[w'];
+    * ``handoff`` (w): a band's zero deposits of its survivors (graveyard)
+      and its colours, the survivors left in X[w];
+    * ``last`` (w): the last level's deposits and the colours;
+    * ``entry``: the tail's entry (budget kills, key, live count).
+
+    ``caps`` lists the bounces a round may run, ``handoff`` whether the
+    last of ``widths`` is a band's hand-off level; ``entry``: the tail's
+    input state, which a plain space takes as X of the first level."""
 
     def __init__(self, scene: FastScene, sky_on: bool, cfg: RenderConfig,
-                 deposits: _Deposits, engine: str, mode: str,
-                 glue: str = "one", gather: str = "col"):
+                 engine: str, mode: str, widths: list, caps: tuple,
+                 deposit_mode: str, n: int, role: str, glue: str = "one",
+                 gather: str = "col", rows: int = STATE_ROWS,
+                 handoff: bool = False, entry=None):
         self.scene, self.sky_on, self.cfg = scene, sky_on, cfg
-        self.deposits, self.engine, self.mode = deposits, engine, mode
+        self.engine, self.mode = engine, mode
         self.glue, self.gather = glue, gather
+        self.widths, self.caps, self.handoff = widths, caps, handoff
+        self.role = role
         self.kernel_key = _kernel_key(engine, mode)
         # The build launched: the key's own where the rounds carry it,
         # else the default (its key is not read).
         self.build_key = mode if self.kernel_key else "cid"
-        self.rays = torch.zeros((), dtype=torch.int64,
-                                device=scene.device)
+        self.packed = engine == "fused_packed"
+        self.ordered = {w: self.packed or _ordered(w) for w in widths}
+        # The scene itself is no part of the key: a workspace holds one
+        # scene's graphs, and a new scene object gets a new workspace.
+        self.key = (role, engine, mode, glue, gather, deposit_mode,
+                    bool(sky_on), cfg.fuzz, cfg.emissive_emits, cfg.t_min,
+                    cfg.t_max, cfg.det_eps, scene.layout, str(scene.device),
+                    rows, n, tuple(widths), tuple(caps),
+                    tuple(self.ordered[w] for w in widths), handoff)
+        sp = self.space = stepgraphs.space(scene, self.key, engine)
+        dev = scene.device
+        key_dtype = torch.int32 if self.kernel_key else torch.int64
 
-    def round(self, state, key, cap: int = 1, ordered: bool = True):
-        """One sorted round of up to ``cap`` bounces -> (state, key,
-        live)."""
+        def state(w):
+            if self.packed:
+                return (sp.buf((role, "sf"), (SF_ROWS, w), torch.float32,
+                               dev),
+                        sp.buf((role, "si"), (2, w), torch.int32, dev))
+            return sp.buf((role, "state"), (rows, w), torch.int32, dev)
+
+        self.X = {w: state(w) for w in widths[1:]}
+        self.X[widths[0]] = (entry if entry is not None and not sp.static
+                             else state(widths[0]))
+        self.K = {w: sp.buf((role, "key"), (w,), key_dtype, dev)
+                  for w in widths}
+        self.C = sp.buf((role, "colors"), (3, n), torch.float32, dev)
+        self.counts = sp.buf((role, "counts"), (3,), torch.int64, dev)
+        self.live = sp.buf((role, "live"), (), torch.int64, dev)
+        self.rays = sp.buf((role, "rays"), (), torch.int64, dev)
+        self.deposits = _Deposits(n, dev, deposit_mode, sp, role, widths[0])
+        if sp.static:
+            # The tail's input is in X of its first level already.
+            keep = _parts(self.X[widths[0]]) if entry is not None else ()
+            sp.prepare(self.key, self.steps, keep)
+
+    def steps(self) -> list:
+        """Every step of the ladder as (key, kind, fn), in ladder order,
+        each round at every bounce cap it may run."""
+        out = [self._step("entry")] if self.role == "tail" else []
+        for li, w in enumerate(self.widths):
+            last = li == len(self.widths) - 1
+            if last and self.handoff:
+                out.append(self._step("handoff", w))
+                break
+            out += [self._step("round", w, cap) for cap in self.caps]
+            out.append(self._step("last", w) if last
+                       else self._step("shrink", w, self.widths[li + 1]))
+        return out
+
+    def _step(self, kind: str, *args):
+        return (stepgraphs.step_key(self.key, kind, *args), kind,
+                functools.partial(getattr(self, "_" + kind), *args))
+
+    def run(self, kind: str, *args) -> None:
+        self.space.run(*self._step(kind, *args))
+
+    def set_key(self, w: int, key: torch.Tensor) -> None:
+        if self.space.static:
+            self.K[w].copy_(key)
+        else:
+            self.K[w] = key
+
+    # --- the steps -------------------------------------------------------
+
+    def _round(self, w: int, cap: int) -> None:
+        state, key = self.X[w], self.K[w]
         order = torch.argsort(key, stable=True)
-        state = _gather(state, order, self.glue, self.gather)
-        if self.engine == "split":
-            return self._split_round(state)
+        state_in = _gather(state, order, self.glue, self.gather)
+        kkey = (key if self.kernel_key
+                else torch.empty(w, dtype=torch.int32, device=key.device))
         args = (cap, self.sky_on, self.cfg)
-        if self.engine == "fused_packed":
-            sf, si, kkey, counts = bounce_packed(self.scene, *state, *args,
-                                                 key_mode=self.build_key)
-            state = (sf, si)
+        if self.packed:
+            bounce_packed(self.scene, *state_in, *args,
+                          key_mode=self.build_key,
+                          out=(*state, kkey, self.counts))
         else:
             kernel = bounce12 if self.engine == "fused12" else bounce15
-            state, kkey, counts = kernel(self.scene, state, *args,
-                                         key_mode=self.build_key,
-                                         ordered=ordered)
-        self.rays = self.rays + counts[0]
+            kernel(self.scene, state_in, *args, key_mode=self.build_key,
+                   ordered=self.ordered[w], out=(state, kkey, self.counts))
+        self.rays += self.counts[0]
         if not self.kernel_key:
-            kkey = _state_key(state, self.scene, self.engine, self.mode)
-        return state, kkey, int(counts[1])
+            key.copy_(_state_key(state, self.scene, self.engine, self.mode))
+
+    def _shrink(self, w: int, w2: int) -> None:
+        state, key = _sorted(self.X[w], self.K[w], self.gather)
+        tail = tuple(x[:, w2:] for x in _parts(state))
+        self.deposits.add_state(tail if self.packed else tail[0],
+                                at=self.widths[0] - w)
+        for dst, src in zip(_parts(self.X[w2]), _parts(state)):
+            dst.copy_(src[:, :w2])
+        self.K[w2].copy_(key[:w2])
+
+    def _handoff(self, w: int) -> None:
+        if self.deposits.mode == "grave":
+            # The survivors deposit in the tail; zero rows keep the
+            # graveyard one row a ray.
+            self.deposits.add(_pix(self.X[w]), torch.zeros(
+                (3, w), dtype=torch.float32, device=self.C.device),
+                at=self.widths[0] - w)
+        self.deposits.colors(out=self.C)
+
+    def _last(self, w: int) -> None:
+        self.deposits.add_state(self.X[w], at=self.widths[0] - w)
+        self.deposits.colors(out=self.C)
+
+    def _entry(self) -> None:
+        w = self.widths[0]
+        state = self.X[w]
+        alive = state[ROW_ALIVE] != 0
+        kill = alive & (state[ROW_BUDGET] <= 0)
+        if state.shape[0] == STATE_ROWS:
+            f = state[6:9].view(torch.float32)
+            f.copy_(torch.where(kill, 0.0, f))
+        state[ROW_ALIVE] = (alive & ~kill).to(torch.int32)
+        self.set_key(w, _state_key(state, self.scene, self.engine,
+                                   self.mode))
+        self.live.copy_(_alive(state).sum())
+        self.rays.zero_()
+        if self.space.static:
+            self.deposits.reset()
+
+    # --- the host's side of the loop -------------------------------------
+
+    def round(self, w: int, cap: int = 1) -> int:
+        """One sorted round of up to ``cap`` bounces at level ``w`` -> the
+        live count (read on the host)."""
+        if self.engine == "split":
+            launches.graphs["eager.round"] += 1
+            order = torch.argsort(self.K[w], stable=True)
+            state = _gather(self.X[w], order, self.glue, self.gather)
+            self.X[w], self.K[w], live = self._split_round(state)
+            return live
+        self.run("round", w, cap)
+        return int(self.counts[1])
 
     def _split_round(self, state):
         o, d, c, a = unpack_floats(state)
@@ -298,19 +454,34 @@ class _Ladder:
         return (state, _state_key(state, self.scene, "split", self.mode),
                 int(alive.sum()))
 
-    def shrink(self, state, key, next_width: int):
-        """Sort, deposit the tail past next_width, keep the prefix."""
-        state, key = _sorted(state, key, self.gather)
-        tail = (tuple(x[:, next_width:] for x in state)
-                if isinstance(state, tuple) else state[:, next_width:])
-        self.deposits.add_state(tail)
-        return _prefix(state, next_width), key[:next_width]
+    def shrink(self, w: int, w2: int, live: int) -> int:
+        """Sort, deposit the tail past w2, keep the prefix -> the live
+        count of the prefix, with no read: the key's dead bit sorts every
+        live ray ahead of the dead ones (a stable sort), so the kept
+        prefix holds min(live, w2) of them, and the rounds leave a level
+        with live <= w2 unless they ran out of bounces."""
+        self.run("shrink", w, w2)
+        return min(live, w2)
+
+    def outputs(self, out: torch.Tensor | None = None):
+        """(colours, rays traced) that outlive the ladder: written into
+        ``out`` (f32[3, m], the first m cells) when given; copies where
+        the space's buffers serve the next ladder too."""
+        colors = self.C
+        if out is not None:
+            colors = out.copy_(colors[:, :out.shape[1]])
+        elif self.space.static:
+            colors = colors.clone()
+        rays = self.rays.clone() if self.space.static else self.rays
+        return colors, rays
 
 
 def wavefront_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
                       alive, sky_on: bool, cfg: RenderConfig, pix,
                       handoff_width: int | None = None,
-                      start_bounce: int = 1, dense_pix: bool = False):
+                      start_bounce: int = 1, dense_pix: bool = False,
+                      out: torch.Tensor | None = None,
+                      survivors_out: torch.Tensor | None = None):
     """Sorted bounce rounds ``start_bounce``.. over flat [P] SoA state (P a
     multiple of BBLOCK), on the engine ``knobs.wave_engine()``: from
     bounce 1 after the bounce-0 shade, or from bounce 0 on unshaded
@@ -324,7 +495,8 @@ def wavefront_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
     ``survivors`` is None, or with ``handoff_width`` the round state
     (i32[13, width] for fused12, else i32[16, width]) of the live-sorted
     band tail with per-ray bounces-left budgets (their pixels hold 0 in
-    ``color``)."""
+    ``color``). ``out`` (f32[3, m]) takes the first m colours and is
+    returned in their place; ``survivors_out`` takes the survivors."""
     p = alive.shape[0]
     if p % BBLOCK:
         raise ValueError(f"ray count {p} not a multiple of {BBLOCK}")
@@ -335,54 +507,88 @@ def wavefront_bounces(scene: FastScene, ray_o, ray_d, color, atten, seed,
     gather = knobs.pack_gather() if packed else "col"
     if handoff_width is not None and engine == "split":
         raise ValueError("tail handoff requires a fused wavefront path")
+    widths = round_widths(p)
+    hand = None
+    if handoff_width is not None:
+        hand = next((w for w in widths if w <= handoff_width), None)
+        if hand is not None:
+            widths = widths[:widths.index(hand) + 1]
+    wave_bcap = 1 if engine == "split" else knobs.wave_bcap()
+    caps = tuple(range(1, min(wave_bcap, cfg.max_bounces - start_bounce)
+                       + 1))
+    # The packed engine always adds per channel (JAX's _wavefront_packed).
+    lad = _Ladder(scene, sky_on, cfg, engine, mode, widths, caps,
+                  "ch" if packed else _deposit_mode(dense_pix), p, "band",
+                  glue, gather, STATE_ROWS if engine == "fused12"
+                  else COLOR_ROWS, handoff=hand is not None)
+    state = lad.X[p]
     if engine == "fused12":
         # No-color carry: dead entrants' colours (their deposits) ride in
         # the atten rows; live entrants' colours are necessarily 0.
         atten = tuple(torch.where(alive, a, c) for a, c in zip(atten, color))
-        state = pack_state(ray_o, ray_d, atten, seed, alive, UNIFORM_BUDGET,
-                           pix)
+        pack_state(ray_o, ray_d, atten, seed, alive, UNIFORM_BUDGET, pix,
+                   out=state)
     elif packed:
-        state = (torch.stack([*ray_o, *ray_d, *color, *atten,
-                              alive.to(torch.float32)]),
-                 torch.stack([seed.to(torch.int32), pix.to(torch.int32)]))
+        torch.stack([*ray_o, *ray_d, *color, *atten,
+                     alive.to(torch.float32)], out=state[0])
+        torch.stack([seed.to(torch.int32), pix.to(torch.int32)],
+                    out=state[1])
     else:
-        state = pack_state(ray_o, ray_d, atten, seed, alive, UNIFORM_BUDGET,
-                           pix, color=color)
-    key = _state_key(state, scene, engine, mode)
-    # The packed engine always adds per channel (JAX's _wavefront_packed).
-    deposits = _Deposits(p, alive.device,
-                         "ch" if packed else _deposit_mode(dense_pix))
-    lad = _Ladder(scene, sky_on, cfg, deposits, engine, mode, glue, gather)
-    wave_bcap = 1 if engine == "split" else knobs.wave_bcap()
+        pack_state(ray_o, ray_d, atten, seed, alive, UNIFORM_BUDGET, pix,
+                   color=color, out=state)
+    lad.set_key(p, _state_key(state, scene, engine, mode))
+    lad.rays.zero_()
+    if lad.space.static:
+        lad.deposits.reset()
     bounce = start_bounce
-    widths = round_widths(p)
+    # The band's one level read (none where it hands off at once): after
+    # a shrink the count carries (``_Ladder.shrink``).
+    live = 0 if hand == p else int(_alive(state).sum())
     for li, width in enumerate(widths):
-        if handoff_width is not None and width <= handoff_width:
+        if hand is not None and width == hand:
+            lad.run("handoff", width)
+            colors, rays = lad.outputs(out)
+            state = lad.X[width]
+            # The budget changes from frame to frame: written here,
+            # outside every graph.
             budget = cfg.max_bounces - bounce
-            if deposits.mode == "grave":
-                # The survivors deposit in the tail; zero rows keep the
-                # graveyard one row a ray.
-                deposits.add(_pix(state), torch.zeros(
-                    (3, width), dtype=torch.float32, device=alive.device))
-            if isinstance(state, tuple):
-                state = packed_to_state(*state, budget, state[1][1])
-            else:
-                state[ROW_BUDGET] = budget
-            return deposits.colors(), lad.rays, state
+            if packed:
+                return colors, rays, packed_to_state(
+                    *state, budget, state[1][1], out=survivors_out)
+            surv = survivors_out
+            if surv is None:
+                surv = (torch.empty_like(state) if lad.space.static
+                        else state)
+            if surv is not state:
+                surv.copy_(state)
+            surv[ROW_BUDGET] = budget
+            return colors, rays, surv
         is_last = li == len(widths) - 1
         next_width = None if is_last else widths[li + 1]
-        ordered = packed or _ordered(width)
-        live = int(_alive(state).sum())
         while (bounce < cfg.max_bounces and live > 0
                and (is_last or live > next_width)):
             cap = min(wave_bcap, cfg.max_bounces - bounce)
-            state, key, live = lad.round(state, key, cap, ordered)
+            live = lad.round(width, cap)
             bounce += cap
         if is_last:
-            deposits.add_state(state)
+            lad.run("last", width)
             break
-        state, key = lad.shrink(state, key, next_width)
-    return deposits.colors(), lad.rays, None
+        live = lad.shrink(width, next_width, live)
+    return (*lad.outputs(out), None)
+
+
+def tail_input(scene: FastScene, width: int) -> torch.Tensor:
+    """The round state the bands hand their survivors into for
+    ``wavefront_tail`` (i32[13, width] on the fused12 engine, else
+    i32[16, width]): the tail's own first-level buffer where the scene has
+    a workspace (``kernels/stepgraphs.py``), else new."""
+    rows = STATE_ROWS if knobs.wave_engine() == "fused12" else COLOR_ROWS
+    ws = stepgraphs.workspace(scene)
+    if ws is None:
+        return torch.empty((rows, width), dtype=torch.int32,
+                           device=scene.device)
+    return ws.buf(("tail", "state"), (rows, width), torch.int32,
+                  scene.device)
 
 
 def wavefront_tail(scene: FastScene, state: torch.Tensor, sky_on: bool,
@@ -396,27 +602,25 @@ def wavefront_tail(scene: FastScene, state: torch.Tensor, sky_on: bool,
     traced)."""
     mode = knobs.sort_key_mode()
     tail_bcap = knobs.tail_bcap()
-    alive = state[ROW_ALIVE] != 0
-    kill = alive & (state[ROW_BUDGET] <= 0)
-    nocolor = state.shape[0] == STATE_ROWS
-    if nocolor:
-        f = state[6:9].view(torch.float32)
-        f.copy_(torch.where(kill, 0.0, f))
-    state[ROW_ALIVE] = (alive & ~kill).to(torch.int32)
-    engine = "fused12" if nocolor else "fused"
-    key = _state_key(state, scene, engine, mode)
-    deposits = _Deposits(out_size, state.device, _deposit_mode(False))
-    lad = _Ladder(scene, sky_on, cfg, deposits, engine, mode)
+    engine = "fused12" if state.shape[0] == STATE_ROWS else "fused"
     widths = round_widths(state.shape[1])
+    lad = _Ladder(scene, sky_on, cfg, engine, mode, widths, (tail_bcap,),
+                  _deposit_mode(False), out_size, "tail",
+                  rows=state.shape[0], entry=state)
+    first = lad.X[widths[0]]
+    if first.data_ptr() != state.data_ptr():
+        first.copy_(state)
+    lad.run("entry")
+    # The one level read of the tail: after a shrink the count carries
+    # (``_Ladder.shrink``).
+    live = int(lad.live)
     for li, width in enumerate(widths):
         is_last = li == len(widths) - 1
         next_width = None if is_last else widths[li + 1]
-        ordered = _ordered(width)
-        live = int(_alive(state).sum())
         while live > (0 if is_last else next_width):
-            state, key, live = lad.round(state, key, tail_bcap, ordered)
+            live = lad.round(width, tail_bcap)
         if is_last:
-            deposits.add_state(state)
+            lad.run("last", width)
             break
-        state, key = lad.shrink(state, key, next_width)
-    return deposits.colors(), lad.rays
+        live = lad.shrink(width, next_width, live)
+    return lad.outputs()

@@ -1158,3 +1158,195 @@ def test_default_frame_front_matches_plain(scene):
     for (ak, ik, rk), (ap, ip, rp) in zip(got, want):
         assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
         assert torch.equal(ik, ip) and rk == rp
+
+
+# The sorted rounds' knob paths whose graphed frames are held to their
+# eager ones (tests/test_torch_graph_ladder.py holds the same paths to
+# JAX and to each other on the CPU).
+GRAPH_PATHS = {
+    "default": {},
+    "fused": {"RAYTPU_WAVE": "fused"},
+    "fused_packed": {"RAYTPU_WAVE": "fused_packed"},
+    "sort_key_pos": {"RAYTPU_SORT_KEY": "pos"},
+    "deposit_rows": {"RAYTPU_DEPOSIT": "rows"},
+    "deposit_ch": {"RAYTPU_DEPOSIT": "ch"},
+    "tail_merge_0": {"RAYTPU_TAIL_MERGE": "0"},
+    "bcaps_unordered": {"RAYTPU_WAVE_BCAP": "2", "RAYTPU_TAIL_BCAP": "3",
+                        "RAYTPU_ORDER_MINW": "65536"},
+    "b0_pwave": {"RAYTPU_B0": "pwave"},
+}
+
+
+def _graph_frames(scene_of, cfg, poses):
+    """A frame a camera of ``poses``, the accumulator carried, on the
+    scene ``scene_of()`` -> [(accum, image, rays traced, the frame's
+    ``launches.graphs`` counts)]."""
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches
+
+    acc, out = None, []
+    for fc, cam in enumerate(poses):
+        cam.frame_count = fc
+        before = dict(launches.graphs)
+        acc, img, st = Renderer(cfg).render(scene_of(), cam.uniforms(), acc)
+        ev = {k: v - before.get(k, 0) for k, v in launches.graphs.items()
+              if v != before.get(k, 0)}
+        out.append((acc.clone(), img.clone(), int(st["rays_traced"]), ev))
+    return out
+
+
+def _poses(cfg, n: int = 5):
+    """The default pose, with frame 3 (the last of fewer) looking up into
+    the sky: its rays die at bounce 0, so it runs fewer rounds than its
+    neighbours."""
+    from raytracer_tpu_torch.core.camera import Camera, default_camera
+
+    poses = [default_camera(cfg.width, cfg.height) for _ in range(n)]
+    poses[min(3, n - 1)] = Camera(
+        origin=(0.0, 30.0, 0.0), look_at=(0.0, 60.0, 1.0), vfov_deg=20.0,
+        aspect_ratio=cfg.width / cfg.height)
+    return poses
+
+
+def _is(kind, ev):
+    return any(k.startswith(kind) for k in ev)
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graphed_frames_equal_eager_frames(scene, monkeypatch, path):
+    """Five 256x192 frames (three bands, the tail merge live) on one
+    scene object, whose second render captures every step and whose later
+    ones replay them, against five on fresh copies of it (each stays
+    eager): 0 differing accumulator and image bytes, equal rays traced,
+    in every frame, the capture frame and a frame of fewer rounds
+    included."""
+    import dataclasses
+
+    from raytracer_tpu_torch.core.types import RenderConfig
+
+    for k, v in GRAPH_PATHS[path].items():
+        monkeypatch.setenv(k, v)
+    cfg = RenderConfig(width=256, height=192, band_rays=16384)
+    eager = _graph_frames(lambda: dataclasses.replace(scene), cfg,
+                          _poses(cfg))
+    one = dataclasses.replace(scene)
+    got = _graph_frames(lambda: one, cfg, _poses(cfg))
+    for f, (g, e) in enumerate(zip(got, eager)):
+        assert torch.equal(g[0].view(torch.int32), e[0].view(torch.int32)), f
+        assert torch.equal(g[1], e[1]) and g[2] == e[2], f
+    assert not any(_is("capture", e[3]) or _is("replay", e[3])
+                   for e in eager)
+    assert not _is("capture", got[0][3]) and not _is("replay", got[0][3])
+    assert _is("capture", got[1][3])
+    for *_, ev in got[1:]:
+        assert _is("replay", ev) and not _is("eager", ev), ev
+    for *_, ev in got[2:]:
+        assert not _is("capture", ev), ev
+    rounds = [ev.get("replay.round", 0) for *_, ev in got[1:]]
+    assert len(set(rounds)) > 1 and max(rounds) > 0, rounds
+
+
+def test_scene_swap_replaces_the_graphs(scene):
+    """A new scene object takes its device's workspace: the old one's
+    graphs go, the new one renders eagerly first, captures at its second
+    render, and its frames equal the eager ones."""
+    import dataclasses
+
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.kernels import stepgraphs
+
+    cfg = RenderConfig(width=256, height=192, band_rays=16384)
+    dev = torch.device(scene.device)
+    a = dataclasses.replace(scene)
+    _graph_frames(lambda: a, cfg, _poses(cfg, 3))
+    old = stepgraphs._spaces[dev]
+    assert old.scene is a and old.graphs
+    b = dataclasses.replace(scene)
+    got = _graph_frames(lambda: b, cfg, _poses(cfg, 3))
+    new = stepgraphs._spaces[dev]
+    assert new is not old and new.scene is b and new.graphs
+    assert list(stepgraphs._spaces.values()) == [new]
+    assert not _is("replay", got[0][3]) and _is("capture", got[1][3])
+    assert _is("replay", got[2][3]) and not _is("capture", got[2][3])
+    eager = _graph_frames(lambda: dataclasses.replace(scene), cfg,
+                          _poses(cfg, 3))
+    for g, e in zip(got, eager):
+        assert torch.equal(g[0].view(torch.int32), e[0].view(torch.int32))
+
+
+def test_engine_frame_with_a_rebuild_during_capture(tmp_path, monkeypatch):
+    """``RenderEngine``'s render thread captures the steps at a scene's
+    second render while the rebuild thread builds the next scene on the
+    card (started and awaited inside the first capture): every frame the
+    render thread made, the capture frame included, equals an eager
+    render of its scene; the rebuilt scene then renders, captures and
+    replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc)")
+    import dataclasses
+    import time
+
+    from raytracer_tpu_torch.core.camera import Camera
+    from raytracer_tpu_torch.core.types import RenderConfig
+    from raytracer_tpu_torch.engine.loop import RenderEngine
+    from raytracer_tpu_torch.engine.renderer import Renderer
+    from raytracer_tpu_torch.kernels import launches, stepgraphs
+    from raytracer_tpu_torch.scene.scene import ModelInstance, Scene
+    from raytracer_tpu_torch.utils import assets
+
+    path = str(tmp_path / "cube.obj")
+    assets.write_obj(path, assets.make_cube() * 5.0)
+    plane = str(tmp_path / "plane.obj")
+    assets.write_obj(plane, assets.make_ground_plane())
+    first = Scene([ModelInstance(path),
+                   ModelInstance(plane, position=(0.0, -5.0, 0.0),
+                                 scale=(60.0, 1.0, 60.0))])
+    second = Scene([ModelInstance(path, position=(3.0, 0.0, 0.0)),
+                    ModelInstance(plane, position=(0.0, -5.0, 0.0),
+                                  scale=(60.0, 1.0, 60.0))])
+    cfg = RenderConfig(width=256, height=128, band_rays=16384)
+    engine = RenderEngine(cfg, device="cuda", ladder_frames=0)
+    made, rebuilt = [], []
+    render = engine.renderer.render
+
+    def recording(scene, cam, accum=None):
+        out = render(scene, cam, accum)
+        made.append((scene, out[1].clone()))
+        return out
+
+    record = stepgraphs.Workspace._record
+
+    def record_with_rebuild(self, fn):
+        def step():
+            fn()
+            if not rebuilt:
+                rebuilt.append(engine.rebuild_scene_async(second).result(
+                    timeout=120))
+        return record(self, step)
+
+    monkeypatch.setattr(engine.renderer, "render", recording)
+    monkeypatch.setattr(stepgraphs.Workspace, "_record", record_with_rebuild)
+    launches.reset()
+    engine.start()
+    try:
+        a = engine.rebuild_scene_async(first).result(timeout=120)
+        cam = Camera(origin=(0.0, 4.0, 30.0), look_at=(0.0, 0.0, 0.0),
+                     vfov_deg=40.0, aspect_ratio=2.0)
+        engine.submit_camera_update(cam.uniforms())
+        deadline = time.time() + 120
+        while time.time() < deadline and (
+                not rebuilt or sum(s is rebuilt[0] for s, _ in made) < 4):
+            time.sleep(0.01)
+    finally:
+        engine.stop()
+    assert rebuilt, "the rebuild never ran inside a capture"
+    b = rebuilt[0]
+    assert sum(s is a for s, _ in made) >= 2
+    assert sum(s is b for s, _ in made) >= 4
+    assert launches.graphs["replay.round"] > 0
+    monkeypatch.setattr(stepgraphs.Workspace, "_record", record)
+    want = {id(s): Renderer(cfg).render(dataclasses.replace(s),
+                                        cam.uniforms())[1]
+            for s in (a, b)}
+    for s, image in made:
+        assert torch.equal(image, want[id(s)])
