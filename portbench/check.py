@@ -11,10 +11,17 @@ judged alone use the first pixels of the set judged whole):
   after its render call.
 
 An output's history is the run of calls of its frame size back to the
-last one at frame counter 0, which overwrites the accumulator. The
-reference traces every (pose, frame counter) of the histories at those
-pixels, replays the running average over them and tonemaps. The numbers
-compared:
+last one at frame counter 0, which overwrites the accumulator. Each call
+names the camera pose and the scene it rendered (``Call.pose``,
+``Call.scene``), so a history may cross a move or an edit: it is replayed
+as the program accumulated it, each frame against its own pose and scene.
+The reference traces every (pose, scene, frame counter) of the histories
+at those pixels, replays the running average over them and tonemaps. The
+window stores no soups: the Judge asks the driver's soup function
+(``Window.scenes``) for each scene the histories reach, makes its
+triangles when their turn comes and frees them before the next, so a
+window of thousands of edits costs only the judged histories' scenes.
+The numbers compared:
 
 * ``accum_mae``: mean |accumulator - reference| (linear radiance);
 * ``image_mae``: mean |u8 - reference u8| (levels);
@@ -82,13 +89,14 @@ def wanted(calls, seen, snaps) -> set:
 
 
 class Judge:
-    """The reference's view of one run: the scene, the poses, the frame
-    settings and the judged pixels, in one precision."""
+    """The reference's view of one run: the scenes, the poses, the frame
+    settings and the judged pixels, in one precision. ``soups`` maps a
+    call's scene index to its (verts, mats)."""
 
-    def __init__(self, verts, mats, poses, shading: pt.Shading,
+    def __init__(self, soups, poses, shading: pt.Shading,
                  full_size: tuple, pixels, device, dtype=torch.float32,
                  max_paths: int = 131072):
-        self.tris = pt.Triangles(verts, mats, device, dtype)
+        self.soups = soups
         self.poses = poses
         self.sh = shading
         self.full = full_size
@@ -106,29 +114,35 @@ class Judge:
         return 0 if self.sh.fixed_light else call.fc
 
     def _frames(self, calls, idx):
-        """{(size, pose, fc): the frame's radiance at the pixels} for the
-        calls ``idx``, traced in chunks of at most ``max_paths`` paths."""
+        """{(size, pose, scene, fc): the frame's radiance at the pixels}
+        for the calls ``idx``, a scene at a time (its triangles made, its
+        frames traced in chunks of at most ``max_paths`` paths, its
+        triangles freed before the next scene's are made)."""
         need = {}
         for j in idx:
             c = calls[j]
-            need.setdefault((c.size, c.pose), set()).add(self._fc(c))
+            need.setdefault(c.scene, {}).setdefault(
+                (c.size, c.pose), set()).add(self._fc(c))
         frames = {}
-        for (size, pose), fcs in need.items():
-            o, llc, hor, ver = self.poses[pose]
-            view = pt.View(o, llc, hor, ver, size[0], size[1])
-            px, py = self._coords(size)
-            fcs = sorted(fcs)
-            per = max(1, self.max_paths // max(1, px.shape[0]))
-            for i in range(0, len(fcs), per):
-                chunk = fcs[i:i + per]
-                fc = torch.as_tensor(chunk, device=self.device)
-                fc = fc.repeat_interleave(px.shape[0])
-                s = pt.frame_sum(self.tris, view, self.sh,
-                                 px.repeat(len(chunk)),
-                                 py.repeat(len(chunk)), fc)
-                for n, f in enumerate(chunk):
-                    frames[(size, pose, f)] = s[n * px.shape[0]:
-                                                (n + 1) * px.shape[0]]
+        for scene in sorted(need):
+            tris = pt.Triangles(*self.soups(scene), self.device, self.dtype)
+            for (size, pose), fcs in need[scene].items():
+                o, llc, hor, ver = self.poses[pose]
+                view = pt.View(o, llc, hor, ver, size[0], size[1])
+                px, py = self._coords(size)
+                fcs = sorted(fcs)
+                per = max(1, self.max_paths // max(1, px.shape[0]))
+                for i in range(0, len(fcs), per):
+                    chunk = fcs[i:i + per]
+                    fc = torch.as_tensor(chunk, device=self.device)
+                    fc = fc.repeat_interleave(px.shape[0])
+                    s = pt.frame_sum(tris, view, self.sh,
+                                     px.repeat(len(chunk)),
+                                     py.repeat(len(chunk)), fc)
+                    for n, f in enumerate(chunk):
+                        frames[(size, pose, scene, f)] = s[
+                            n * px.shape[0]:(n + 1) * px.shape[0]]
+            del tris
         return frames
 
     def outputs(self, calls, ks):
@@ -140,7 +154,7 @@ class Judge:
         for start in {h[0] for h in hists.values()}:
             want = {k for k, h in hists.items() if h[0] == start}
             chain = hists[max(want)]        # the others are its prefixes
-            steps = [(frames[(calls[j].size, calls[j].pose,
+            steps = [(frames[(calls[j].size, calls[j].pose, calls[j].scene,
                               self._fc(calls[j]))], calls[j].fc)
                      for j in chain]
             for j, acc in zip(chain, pt.running_average(steps, self.dtype)):

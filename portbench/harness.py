@@ -10,6 +10,15 @@ reader (``portbench/metrics/<metric>.py``, a ``read(ctx)`` that returns a
 number or None when it finds nothing to read). A later scene, driver,
 cell, mix or metric is new files and entries, not an edit here.
 
+A driver may change the scene and the camera inside the window. It is
+handed the configuration, scene 0's soup, ``add_pose`` (a new camera
+pose's index) and, in a traced run, the harness's spans, so it can wrap
+the program function it drives (the wraps are undone after the run). Each
+call names the pose and the scene it rendered; a driver that edits the
+scene hands back a soup function (``Window.scenes``) that the check calls
+only for the scenes its judged histories reach, each judged against its
+own geometry and pose.
+
 The program under test is ``raytracer_tpu_torch``, run as its defaults
 and its configuration file state: ``run.py`` gives no result where a
 ``RAYTPU_*`` switch is set (``program_knobs``). The benchmark hands it the scene arrays and
@@ -125,6 +134,30 @@ class _Clock:
         return now
 
 
+def _soups(win, verts, mats):
+    """The window's soup function: its own, or scene 0's alone."""
+    if win.scenes is not None:
+        return win.scenes
+
+    def scene_zero(i: int):
+        if i != 0:
+            raise KeyError(f"a call names scene {i}, and the window "
+                           f"describes no scenes")
+        return verts, mats
+    return scene_zero
+
+
+def _triangles(calls, soups, scene0: int):
+    """The triangles a frame of the window traced: scene 0's count when
+    every call rendered it, else the mean over the calls of their scene's
+    count (each scene's soup made once)."""
+    scenes = {c.scene for c in calls}
+    if scenes <= {0}:
+        return scene0
+    counts = {i: len(soups(i)[0]) for i in scenes}
+    return sum(counts[c.scene] for c in calls) / len(calls)
+
+
 def _peaks(kind: str):
     table = load_json(os.path.join(HERE, "peaks.json"))
     for name, p in table.items():
@@ -194,6 +227,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     poses = [inputs.camera(config)]
     sky, exposure = bool(config["sky"]), float(config["exposure"])
 
+    def add_pose(uniforms) -> int:
+        """Append a pose (as ``inputs.uniforms`` makes it) -> its index."""
+        poses.append(uniforms)
+        return len(poses) - 1
+
     def make_uniforms(p: int, fc: int):
         o, llc, hor, ver = poses[p]
         return CameraUniforms.create(o, llc, hor, ver, frame_count=fc,
@@ -253,7 +291,9 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     env = records.Env(Renderer=renderer_mod.Renderer, cfg=cfg, scene=scene,
                       traffic=traffic, make_uniforms=make_uniforms,
                       device=device, seed=seed, seconds=window_s,
-                      pixels=pixels, judged=judged, window=window)
+                      pixels=pixels, judged=judged, window=window,
+                      config=config, soup=(verts, mats), add_pose=add_pose,
+                      spans=spans)
     try:
         win = drive(env)
     finally:
@@ -263,6 +303,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     capture = marks.get("capture")
 
     calls = win.calls
+    soups = _soups(win, verts, mats)
     n_window = len(calls)
     rays = (int(torch.stack([torch.as_tensor(c.rays).reshape(())
                              for c in calls]).sum()) if calls else 0)
@@ -287,15 +328,15 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
         exposure=exposure)
     t_ref = time.perf_counter()
     ks = check.wanted(calls, win.seen, win.snaps)
-    ref = check.Judge(verts, mats, poses, shading, full, (xs, ys), device)
+    ref = check.Judge(soups, poses, shading, full, (xs, ys), device)
     ref_out = ref.outputs(calls, ks)
     values = check.numbers(calls, win.seen, win.snaps, ref_out)
     correct, rows = check.verdict(values, limits)
     ref_s = time.perf_counter() - t_ref
     result_control = None
     if control:
-        low = check.Judge(verts, mats, poses, shading, full, (xs, ys),
-                          device, dtype=torch.bfloat16)
+        low = check.Judge(soups, poses, shading, full, (xs, ys), device,
+                          dtype=torch.bfloat16)
         seen, snaps = check.as_program(calls, win.seen, win.snaps,
                                        low.outputs(calls, ks))
         cvals = check.numbers(calls, seen, snaps, ref_out)
@@ -328,7 +369,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
             trace=tr, spans=marks.get("spans", {}),
             syncs=capture.syncs if capture else None,
             frames=n_window, window_s=tr.window_s if tr else window_s,
-            primaries=primaries, rays=rays, triangles=int(len(verts)),
+            primaries=primaries, rays=rays,
+            triangles=_triangles(calls, soups, int(len(verts))),
             peaks=_peaks(kind))
         for m in wanted:
             v = reader(m["name"])(ctx)

@@ -1,6 +1,14 @@
 """What a driver is handed (``Env``) and what it hands back (``Window``):
 every render call of the window, the frames' arrival times and the
-outputs the check judges."""
+outputs the check judges.
+
+A call names the camera pose and the scene it rendered, each by an index:
+pose ``p`` is the run's ``p``-th uniforms (pose 0 the configuration's
+camera, later ones added with ``Env.add_pose``), scene ``s`` is the soup
+``Window.scenes(s)`` (scene 0 the configuration's soup for the seed). A
+window stores no soups: a driver that edits the scene describes each edit
+by a function the check calls only for the scenes its judged histories
+reach."""
 
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ class Call:
     fc: int              # frame counter of its uniforms
     t: float             # host seconds from the window's start
     rays: object = None  # its rays-traced tensor
+    scene: int = 0       # index of the scene it rendered (Window.scenes)
 
 
 @dataclasses.dataclass
@@ -52,6 +61,10 @@ class Window:
     failed: int
     seen: list           # [Seen]
     snaps: list          # [Snap]
+    # scene index -> (verts f32[T, 3, 3], mats f32[T, 4]), made by the
+    # benchmark's own numpy from the configuration and the edit, never
+    # read back from the program; None: every call rendered scene 0.
+    scenes: Optional[Callable[[int], tuple]] = None
 
 
 @dataclasses.dataclass
@@ -69,3 +82,8 @@ class Env:
     pixels: Callable            # count -> (xs, ys), a prefix of one order
     judged: Callable            # frames in the window -> pixels judged
     window: Callable            # () -> context manager around the window
+    config: dict                # the merged configuration
+    soup: tuple                 # scene 0's (verts, mats)
+    add_pose: Callable          # uniforms (inputs.uniforms) -> pose index
+    spans: Optional[object]     # tracing.Spans in a traced run, else None:
+                                # a driver may wrap the function it drives
